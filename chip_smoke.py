@@ -1,0 +1,461 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch port (tophat_tpu_torch) on one CUDA card.
+
+Run from the root of a checkout:  python3 chip_smoke.py
+
+Phases (any failure exits non-zero; nothing is caught and passed over):
+  1. the card's name and power limit (nvidia-smi); no CUDA -> exit 1
+  2. build every kernel of the spliced main path from csrc/ (nvcc, sm_90a)
+  3. each kernel against its plain torch version on the card, at the main
+     path's shapes, demanding exact equality; both times (phase 4's warm
+     run repeats the check on the exact inputs the main path gave it)
+  4. the spliced main path through the CLI entry point
+     (python -m tophat_tpu_torch.cli.main --no-coverage-search --tt-index)
+     on a synthetic 2^27-base genome and 32,768 100-bp reads (25%
+     junction-spanning): a warm run, then one timed steady run; fails if
+     junction-read recall is under 100% or the realign kernel was not
+     launched by that run; then the same pipeline on a small input on the
+     card and on the CPU (plain versions), which must write identical files
+  5. unspliced align_reads_adaptive on 16,384 x 100-bp batches
+Standard output ends with four lines: the measured numbers (JSON), the
+kernels (JSON), the nvidia-smi name/power line, and the result JSON.
+"""
+
+import json
+import os
+import subprocess
+import sys
+import time
+
+import numpy as np
+
+REPO = os.path.dirname(os.path.abspath(__file__))
+CACHE = os.path.join(REPO, ".smoke_cache")
+GENOME_N = 1 << 27          # Drosophila-scale genome
+READ_LEN = 100
+N_READS = 32768
+BATCH = 16384
+UNSPLICED_ITERS = 8
+
+
+def fail(msg: str):
+    print(f"chip_smoke FAILED: {msg}", file=sys.stderr, flush=True)
+    sys.exit(1)
+
+
+def log(msg: str):
+    print(msg, file=sys.stderr, flush=True)
+
+
+def card_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60)
+    if out.returncode != 0 or not out.stdout.strip():
+        fail(f"nvidia-smi failed: {out.stderr.strip()}")
+    return out.stdout.strip().splitlines()[0]
+
+
+def cuda_ms(fn, iters: int) -> float:
+    """Mean device milliseconds of fn() over `iters` runs (after one warm
+    run), by CUDA events."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(iters):
+        fn()
+    b.record()
+    torch.cuda.synchronize()
+    return a.elapsed_time(b) / iters
+
+
+# ---------------------------------------------------------------- phase 3
+
+def realign_case(R: int, E: int, L: int, q: int, seed: int):
+    """Inputs of one realign q-group at the main path's shapes: reads
+    planted across events (some with a mismatch or an N), random rows,
+    zero-length rows, N runs in the genome, events at both genome ends."""
+    import torch
+
+    from tophat_tpu_torch.ops.realign_kernel import prepare_targets
+
+    rng = np.random.default_rng(seed)
+    n = 1 << 20
+    genome = rng.integers(0, 4, n).astype(np.int8)
+    for s in rng.integers(0, n - 64, 64):
+        genome[s: s + int(rng.integers(1, 40))] = 4
+    lefts = rng.integers(L, n - 2 * L, E)
+    lefts[:4] = [0, 3, n - 2, n - 1]                     # genome ends
+    if q:
+        kinds = np.full(E, 2, np.int8)
+        rights = lefts + 1
+    else:
+        kinds = np.where(rng.random(E) < 0.8, 0, 1).astype(np.int8)
+        rights = lefts + rng.integers(2, 5000, E)
+        rights[4] = n + 7                                # past the end
+    ins_seq = np.full((E, 8), -1, np.int8)
+    ins_seq[:, :q] = rng.integers(0, 5, (E, q))
+    reads = np.full((R, L), -1, np.int8)
+    lengths = np.full(R, L, np.int32)
+    for i in range(R):
+        e = int(rng.integers(0, E))
+        lf, rt = int(lefts[e]), int(rights[e])
+        t = int(rng.integers(1, max(2, L - 1 - q)))
+        if i % 16 == 0:
+            lengths[i] = 0                               # padding rows
+            continue
+        if i % 16 == 1 or lf - t + 1 < 0 or rt + L > n:
+            reads[i] = rng.integers(0, 5, L)
+            continue
+        start = lf + 1 if q else rt
+        read = np.concatenate([genome[lf - t + 1: lf + 1], ins_seq[e, :q],
+                               genome[start: start + L - t - q]])
+        if i % 3 == 0:
+            p = int(rng.integers(0, L))
+            read[p] = (read[p] + 1) % 5
+        if i % 16 == 2:
+            lengths[i] = int(rng.integers(q + 1, L))
+            read[lengths[i]:] = -1
+        reads[i] = read
+    dev = torch.device("cuda")
+    g = torch.as_tensor(genome, device=dev)
+    t = lambda a: torch.as_tensor(a, device=dev)
+    flank_l, comb = prepare_targets(g, t(lefts), t(rights), t(kinds),
+                                    t(ins_seq), q, L)
+    return t(reads).contiguous(), t(lengths), flank_l, comb
+
+
+def phase_kernels():
+    import torch
+
+    from tophat_tpu_torch.ops.realign_kernel import (realign_group,
+                                                     realign_plain)
+
+    cases = [(16384, 128, 100, 0), (16384, 128, 100, 3), (16384, 128, 25, 0)]
+    report = []
+    for ci, (R, E, L, q) in enumerate(cases):
+        args = realign_case(R, E, L, q, seed=11 + ci)
+        got = realign_group(*args, q, 8)
+        ref = realign_plain(*args, q, 8)
+        torch.cuda.synchronize()
+        err = max(int((a.long() - b.long()).abs().max()) for a, b in
+                  zip(got, ref))
+        n_ok = int(ref[2].sum())
+        if err or not all(torch.equal(a, b) for a, b in zip(got, ref)):
+            fail(f"realign kernel disagrees with its plain version at "
+                 f"R={R} E={E} L={L} q={q} (max abs err {err})")
+        if n_ok < R // 4:
+            fail(f"realign case R={R} E={E} L={L} q={q}: only {n_ok} ok "
+                 "pairs; the check input is degenerate")
+        ms = cuda_ms(lambda: realign_group(*args, q, 8), 20)
+        plain_ms = cuda_ms(lambda: realign_plain(*args, q, 8), 3)
+        log(f"realign R={R} E={E} L={L} q={q}: exact ({n_ok} ok pairs); "
+            f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
+        report.append(dict(R=R, E=E, L=L, q=q, max_abs_err=err, ms=ms,
+                           plain_ms=plain_ms))
+    return report
+
+
+# ---------------------------------------------------------------- phase 4
+
+def make_genome(seed: int = 7):
+    rng = np.random.default_rng(seed)
+    return rng.integers(0, 4, GENOME_N).astype(np.int8)
+
+
+def pick_junctions(codes, n_junc: int = 64):
+    """Naturally occurring GT..AG introns (the genome is not mutated)."""
+    rng = np.random.default_rng(3)
+    gt = np.nonzero((codes[:-1] == 2) & (codes[1:] == 3))[0]
+    juncs = []
+    for s in rng.choice(len(gt) - 1, 4 * n_junc, replace=False):
+        d = int(gt[s])                        # donor: intron starts d..d+1
+        left = d - 1                          # last exonic base
+        win = codes[d + 100: d + 5000]
+        ag = np.nonzero((win[:-1] == 0) & (win[1:] == 2))[0]
+        if len(ag) == 0 or left < 200 or d + 5002 >= len(codes) - 200:
+            continue
+        right = d + 100 + int(ag[0]) + 2      # first exonic base after AG
+        juncs.append((left, right))
+        if len(juncs) == n_junc:
+            break
+    return juncs
+
+
+def make_reads(codes, juncs, seed: int, n_reads: int = N_READS):
+    """25% junction-spanning reads (r0, r4, ...), the rest contiguous with
+    one mismatch — the JAX package's bench generator (bench.py)."""
+    r = np.random.default_rng(seed)
+    seqs = []
+    for i in range(n_reads):
+        if i % 4 == 0:
+            left, right = juncs[int(r.integers(0, len(juncs)))]
+            t = int(r.integers(30, 70))
+            seq = np.concatenate([codes[left - t + 1:left + 1],
+                                  codes[right:right + READ_LEN - t]])
+        else:
+            s = int(r.integers(0, len(codes) - READ_LEN))
+            seq = codes[s:s + READ_LEN].copy()
+            p = int(r.integers(0, READ_LEN))
+            seq[p] = (seq[p] + 1) % 4
+        seqs.append(seq)
+    return np.stack(seqs)
+
+
+def write_fasta(path, codes, width: int = 4096):
+    lut = np.frombuffer(b"ACGTN", np.uint8)
+    with open(path, "wb") as f:
+        f.write(b">chr1\n")
+        for s in range(0, len(codes), width):
+            f.write(lut[codes[s:s + width]].tobytes() + b"\n")
+
+
+def write_fastq(path, seqs):
+    lut = np.frombuffer(b"ACGTN", np.uint8)
+    qual = b"I" * seqs.shape[1]
+    with open(path, "wb") as f:
+        for i, s in enumerate(seqs):
+            f.write(b"@r%d\n%s\n+\n%s\n" % (i, lut[s].tobytes(), qual))
+
+
+def junction_recall(sam_path, n_reads: int = N_READS) -> float:
+    spliced = set()
+    with open(sam_path) as f:
+        for line in f:
+            if line.startswith("@"):
+                continue
+            t = line.split("\t", 6)
+            if "N" in t[5]:
+                spliced.add(t[0])
+    n_span = (n_reads + 3) // 4
+    n_hit = sum(1 for i in range(0, n_reads, 4) if f"r{i}" in spliced)
+    return 100.0 * n_hit / n_span
+
+
+def phase_spliced():
+    import torch
+
+    from tophat_tpu_torch.cli.main import main as cli_main
+    from tophat_tpu_torch.ops import events
+    from tophat_tpu_torch.ops.realign_kernel import (realign_group,
+                                                     realign_plain)
+
+    os.makedirs(CACHE, exist_ok=True)
+    fa = os.path.join(CACHE, "genome_2p27.fa")
+    t0 = time.time()
+    codes = make_genome()
+    if not os.path.exists(fa):
+        write_fasta(fa, codes)
+    juncs = pick_junctions(codes)
+    fq_warm = os.path.join(CACHE, "warm.fq")
+    fq = os.path.join(CACHE, "steady.fq")
+    write_fastq(fq_warm, make_reads(codes, juncs, 5))
+    write_fastq(fq, make_reads(codes, juncs, 6))
+    log(f"inputs: {GENOME_N} bases, {len(juncs)} junctions, "
+        f"{N_READS} reads ({time.time() - t0:.1f} s)")
+
+    index = os.path.join(CACHE, "fm_2p27")
+    argv = lambda out, reads: ["-o", out, "--no-coverage-search",
+                               "--tt-index", index, fa, reads]
+    # the warm run keeps every realign call's inputs and outputs, so the
+    # kernel is also held against its plain version on the exact tensors
+    # the main path gave it (the timed steady run records nothing)
+    calls = []
+
+    def recording(*args):
+        out = realign_group(*args)
+        calls.append((tuple(a.clone() if torch.is_tensor(a) else a
+                            for a in args), tuple(o.clone() for o in out)))
+        return out
+
+    events.realign_group = recording
+    t0 = time.time()
+    try:
+        rc = cli_main(argv(os.path.join(CACHE, "out_warm"), fq_warm))
+    finally:
+        events.realign_group = realign_group
+    if rc != 0:
+        fail("warm CLI run returned non-zero")
+    warm_s = time.time() - t0
+    log(f"warm run (index build or load included): {warm_s:.1f} s")
+    if not calls:
+        fail("the warm run made no realign call")
+    path_err = 0
+    for args, got in calls:
+        ref = realign_plain(*args)
+        err = max(int((a.long() - b.long()).abs().max()) for a, b in
+                  zip(got, ref))
+        path_err = max(path_err, err)
+        if err or not all(torch.equal(a, b) for a, b in zip(got, ref)):
+            fail(f"realign kernel disagrees with its plain version on the "
+                 f"main path's inputs {tuple(args[0].shape)} x "
+                 f"{tuple(args[2].shape)} q={args[4]} (max abs err {err})")
+    log("realign on the main path's own inputs: exact in "
+        + ", ".join(f"R={a[0].shape[0]} E={a[2].shape[0]} L={a[0].shape[1]}"
+                    f" q={a[4]}" for a, _ in calls))
+
+    out = os.path.join(CACHE, "out_steady")
+    realign_group.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.time()
+    rc = cli_main(argv(out, fq))
+    torch.cuda.synchronize()
+    steady_s = time.time() - t0
+    launches = realign_group.launches
+    if rc != 0:
+        fail("steady CLI run returned non-zero")
+    recall = junction_recall(os.path.join(out, "accepted_hits.sam"))
+    n_sam = sum(1 for ln in open(os.path.join(out, "accepted_hits.sam"))
+                if not ln.startswith("@"))
+    n_junc_bed = sum(1 for _ in open(os.path.join(out, "junctions.bed"))) - 1
+    log(f"steady run: {steady_s:.2f} s, {N_READS / steady_s:.1f} reads/s; "
+        f"{n_sam} alignments, {n_junc_bed} junctions; recall {recall:.2f}%; "
+        f"realign launches {launches}")
+    if launches == 0:
+        fail("the spliced main path never launched the realign kernel")
+    if recall < 100.0:
+        fail(f"junction-read recall {recall:.2f}% < 100%")
+    return dict(steady_s=steady_s, reads_per_s=N_READS / steady_s,
+                recall_pct=recall, warm_s=warm_s, launches=launches,
+                path_err=path_err,
+                index=index + ".tt.npz", codes=codes)
+
+
+def phase_small_reference(codes):
+    """The spliced pipeline on a small input (the first 2^21 + 4096 bases,
+    beam engine; 2,048 reads) on the card and on the CPU, where every
+    kernel runs its plain torch version: the four output files must be
+    byte-identical."""
+    from tophat_tpu_torch.index.fasta import Genome, decode_seq
+    from tophat_tpu_torch.io.fastq import batch_reads
+    from tophat_tpu_torch.pipeline.params import Params
+    from tophat_tpu_torch.pipeline.run import run_pipeline
+
+    small = codes[:(1 << 21) + 4096]
+    seqs = make_reads(small, pick_junctions(small, 16), 9, n_reads=2048)
+    recs = [(f"r{i}", decode_seq(s), b"I" * len(s))
+            for i, s in enumerate(seqs)]
+    genome = Genome(codes=small, offsets=np.array([0, len(small)]),
+                    names=["chr1"])
+    outs = {}
+    for dev in ("cuda", "cpu"):
+        outs[dev] = os.path.join(CACHE, f"small_{dev}")
+        run_pipeline(genome, batch_reads(recs), Params(coverage_search=False),
+                     outs[dev], log=lambda *a: None, device=dev)
+    for f in ("accepted_hits.sam", "junctions.bed", "insertions.bed",
+              "deletions.bed"):
+        with open(os.path.join(outs["cuda"], f), "rb") as a, \
+                open(os.path.join(outs["cpu"], f), "rb") as b:
+            if a.read() != b.read():
+                fail(f"small input: {f} differs between the card and the "
+                     "CPU reference")
+    recall = junction_recall(os.path.join(outs["cuda"], "accepted_hits.sam"),
+                             len(seqs))
+    if recall < 100.0:
+        fail(f"small input: junction-read recall {recall:.2f}% < 100%")
+    log("small input (2^21 + 4096 bases, 2048 reads): card and CPU outputs "
+        f"byte-identical; recall {recall:.2f}%")
+
+
+# ---------------------------------------------------------------- phase 5
+
+def phase_unspliced(index_path, codes):
+    import torch
+
+    from tophat_tpu_torch.index.fasta import revcomp
+    from tophat_tpu_torch.index.fm import FMIndex
+    from tophat_tpu_torch.ops.align import align_reads_adaptive, kmer_fast_ok
+
+    dev = torch.device("cuda")
+    fm = FMIndex.load(index_path, device=dev)
+    offsets = torch.tensor([0, fm.n], device=dev)
+    fast = kmer_fast_ok(fm, READ_LEN, 2)
+
+    def make_batch(seed):
+        r = np.random.default_rng(seed)
+        starts = r.integers(0, GENOME_N - READ_LEN, BATCH)
+        reads = codes[starts[:, None] + np.arange(READ_LEN)].copy()
+        for _ in range(2):
+            p = r.integers(0, READ_LEN, BATCH)
+            reads[np.arange(BATCH), p] = (
+                reads[np.arange(BATCH), p] + r.integers(1, 4, BATCH)) % 4
+        flip = r.random(BATCH) < 0.5
+        rf = np.where(flip[:, None], revcomp(reads), reads).astype(np.int8)
+        rr = revcomp(rf).copy().astype(np.int8)
+        return tuple(torch.as_tensor(x, device=dev) for x in
+                     (rf, rr, np.full(BATCH, READ_LEN, np.int32)))
+
+    batches = [make_batch(100 + i) for i in range(UNSPLICED_ITERS + 1)]
+    run = lambda b: align_reads_adaptive(
+        fm, b[0], b[1], b[2], offsets, max_mismatches=2, max_alignments=8,
+        kmer_fast=fast, narrow_hits=6, wide_hits=32, resolve_cap=1)
+    warm = run(batches[0])
+    aligned = int((warm.n_hits > 0).sum())
+    if aligned < BATCH * 0.99:
+        fail(f"unspliced: only {aligned}/{BATCH} reads aligned")
+    torch.cuda.synchronize()
+    t0 = time.time()
+    outs = [run(b) for b in batches[1:]]
+    torch.cuda.synchronize()
+    dt = time.time() - t0
+    chk = sum(int(o.n_hits.sum()) for o in outs)
+    rps = UNSPLICED_ITERS * BATCH / dt
+    log(f"unspliced: {rps:.1f} reads/s over {UNSPLICED_ITERS} batches of "
+        f"{BATCH} (warm batch {aligned}/{BATCH} aligned; checksum {chk})")
+    return rps
+
+
+def main():
+    try:
+        import torch
+    except ImportError:
+        fail("torch is not installed")
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is false: this smoke needs a card")
+    if not os.path.isdir(os.path.join(REPO, "tophat_tpu_torch")):
+        fail("tophat_tpu_torch/ not found beside chip_smoke.py: run it "
+             "from the root of a checkout")
+    sys.path.insert(0, REPO)
+    card = card_line()
+    log(f"card: {card}")
+
+    from tophat_tpu_torch.ops import realign_kernel
+
+    t0 = time.time()
+    realign_kernel.build()
+    log(f"kernel build: {time.time() - t0:.1f} s")
+
+    kernels = phase_kernels()
+    spliced = phase_spliced()
+    phase_small_reference(spliced["codes"])
+    unspliced_rps = phase_unspliced(spliced["index"], spliced["codes"])
+
+    print(json.dumps({
+        "realign_cases": kernels,
+        "spliced_reads_per_s": spliced["reads_per_s"],
+        "spliced_steady_s": spliced["steady_s"],
+        "spliced_junction_read_recall_pct": spliced["recall_pct"],
+        "unspliced_reads_per_s": unspliced_rps}), flush=True)
+    main_case = kernels[0]
+    print(json.dumps({"kernels": [{
+        "name": "realign", "route": "cuda",
+        "source": "tophat_tpu_torch/csrc/realign.cu",
+        "replaces": "tophat_tpu/ops/pallas/realign_kernel.py:44",
+        "launches": spliced["launches"],
+        "max_abs_err": max([spliced["path_err"]]
+                           + [k["max_abs_err"] for k in kernels]),
+        "ms": main_case["ms"], "plain_ms": main_case["plain_ms"]}]}),
+        flush=True)
+    print(card, flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+
+
+if __name__ == "__main__":
+    main()

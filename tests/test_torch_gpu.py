@@ -1,0 +1,141 @@
+"""Tests that need a CUDA card (marked gpu; each skips without one).
+
+They import torch and numpy only, so they also run on a machine without
+JAX: python -m pytest tests/test_torch_gpu.py -m gpu --noconftest -q
+(conftest.py imports JAX). The realign kernel is held against its plain
+torch version, and the whole single-end pipeline on the card against the
+same pipeline on the CPU, byte for byte."""
+
+import numpy as np
+import pytest
+import torch
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the CUDA kernel has no CPU mode)")
+    return torch.device("cuda")
+
+
+def _realign_inputs(dev, L, q, R=2000, E=70, seed=11):
+    """Reads planted across events (with mismatches and Ns), random rows,
+    zero-length and short rows; events at both genome ends."""
+    from tophat_tpu_torch.ops.realign_kernel import prepare_targets
+
+    rng = np.random.default_rng(seed)
+    n = 50000
+    genome = rng.integers(0, 4, n).astype(np.int8)
+    genome[1000:1030] = 4
+    lefts = rng.integers(L, n - 2 * L, E)
+    lefts[:4] = [0, 3, n - 2, n - 1]
+    kinds = np.full(E, 2 if q else 0, np.int8)
+    rights = lefts + 1 if q else lefts + rng.integers(2, 3000, E)
+    ins_seq = np.full((E, 8), -1, np.int8)
+    ins_seq[:, :q] = rng.integers(0, 5, (E, q))
+    reads = rng.integers(0, 5, (R, L)).astype(np.int8)
+    lengths = np.full(R, L, np.int32)
+    for i in range(R):
+        e = int(rng.integers(4, E))
+        t = int(rng.integers(1, L - 1 - q))
+        st = int(lefts[e]) + 1 if q else int(rights[e])
+        if i % 8 == 0 or st + L > n:
+            continue
+        reads[i] = np.concatenate([genome[lefts[e] - t + 1: lefts[e] + 1],
+                                   ins_seq[e, :q],
+                                   genome[st: st + L - t - q]])
+        if i % 3 == 0:
+            reads[i, int(rng.integers(0, L))] = 4
+    lengths[::16] = 0
+    reads[::16] = -1
+    lengths[5::16] = L // 2
+    reads[5::16, L // 2:] = -1
+    t = lambda a: torch.as_tensor(a, device=dev)
+    flank_l, comb = prepare_targets(t(genome), t(lefts), t(rights), t(kinds),
+                                    t(ins_seq), q, L)
+    return t(reads).contiguous(), t(lengths), flank_l, comb
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("L,q", [(100, 0), (100, 3), (25, 0), (200, 2)])
+def test_realign_kernel_matches_plain(cuda, L, q):
+    from tophat_tpu_torch.ops.realign_kernel import (realign_group,
+                                                     realign_plain)
+
+    args = _realign_inputs(cuda, L, q)
+    before = realign_group.launches
+    got = realign_group(*args, q, 8)
+    ref = realign_plain(*args, q, 8)
+    torch.cuda.synchronize()
+    assert realign_group.launches == before + 1
+    for a, b in zip(got, ref):
+        assert torch.equal(a, b)
+    assert int(ref[2].sum()) > 1000
+
+
+@pytest.mark.gpu
+def test_realign_wrapper_rejects_bad_inputs(cuda):
+    from tophat_tpu_torch.ops.realign_kernel import realign_group
+
+    reads, lengths, flank_l, comb = _realign_inputs(cuda, 25, 0, R=64)
+    with pytest.raises(ValueError, match="int32"):
+        realign_group(reads, lengths.long(), flank_l, comb, 0, 2)
+    with pytest.raises(ValueError, match="contiguous"):
+        realign_group(reads.t().contiguous().t(), lengths, flank_l, comb,
+                      0, 2)
+    with pytest.raises(ValueError, match="CUDA"):
+        realign_group(reads, lengths.cpu(), flank_l, comb, 0, 2)
+
+
+def _workload(n, seed=5, L=76):
+    rng = np.random.default_rng(seed)
+    codes = rng.integers(0, 4, n).astype(np.int8)
+    codes[n // 3:n // 3 + 20] = 4
+    seqs = []
+    for k in range(12):
+        a = int(rng.integers(2000, n - 3000))
+        il = int(rng.integers(100, 800))
+        codes[a:a + 2] = [2, 3]
+        codes[a + il - 2:a + il] = [0, 2]
+        for rep in range(3):
+            t = int(rng.integers(20, 56))
+            seqs.append(np.concatenate([codes[a - t:a],
+                                        codes[a + il:a + il + L - t]]))
+    for k in range(4):
+        s = int(rng.integers(1000, n - 1000))
+        t = int(rng.integers(25, 50))
+        seqs.append(np.concatenate([codes[s:s + t],
+                                    codes[s + t + 2:s + L + 2]]))
+        seqs.append(np.concatenate([codes[s:s + t], np.array([1, 2], np.int8),
+                                    codes[s + t:s + L - 2]]))
+    for k in range(40):
+        s = int(rng.integers(0, n - L))
+        seq = codes[s:s + L].copy()
+        seq[k % L] = (seq[k % L] + 1) % 4
+        seqs.append(seq)
+    recs = [(f"r{i}", "".join("ACGTN"[c] for c in s), b"I" * len(s))
+            for i, s in enumerate(seqs)]
+    return codes, recs
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [30000, (1 << 21) + 4096])
+def test_pipeline_on_card_matches_cpu(cuda, tmp_path, n):
+    from tophat_tpu_torch.index.fasta import Genome
+    from tophat_tpu_torch.io.fastq import batch_reads
+    from tophat_tpu_torch.ops.realign_kernel import realign_group
+    from tophat_tpu_torch.pipeline.params import Params
+    from tophat_tpu_torch.pipeline.run import run_pipeline
+
+    codes, recs = _workload(n)
+    genome = Genome(codes=codes, offsets=np.array([0, n]), names=["chrA"])
+    for dev in ("cpu", "cuda"):
+        run_pipeline(genome, batch_reads(recs), Params(coverage_search=False),
+                     str(tmp_path / dev), log=lambda *a: None, device=dev)
+        if dev == "cpu":
+            before = realign_group.launches
+    assert realign_group.launches > before
+    for f in ("accepted_hits.sam", "junctions.bed", "insertions.bed",
+              "deletions.bed"):
+        assert (tmp_path / "cpu" / f).read_bytes() == \
+            (tmp_path / "cuda" / f).read_bytes(), f

@@ -1,0 +1,104 @@
+"""Guards of the port: it never imports JAX or the JAX package, it never
+falls back to the CPU on its own, and unported modes refuse to run."""
+
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+_IMPORT_ALL = """
+import importlib, pkgutil, sys
+import tophat_tpu_torch
+names = [m.name for m in pkgutil.walk_packages(tophat_tpu_torch.__path__,
+                                               "tophat_tpu_torch.")]
+for name in names:
+    importlib.import_module(name)
+bad = sorted(m for m in sys.modules
+             if m == "jax" or m.startswith("jax.")
+             or m == "tophat_tpu" or m.startswith("tophat_tpu."))
+print(len(names), bad)
+"""
+
+
+def test_port_imports_neither_jax_nor_tophat_tpu():
+    out = subprocess.run([sys.executable, "-c", _IMPORT_ALL], cwd=REPO,
+                         capture_output=True, text=True, timeout=300,
+                         env={**os.environ, "PYTHONPATH": REPO})
+    assert out.returncode == 0, out.stderr
+    n, bad = out.stdout.strip().split(" ", 1)
+    assert int(n) >= 25 and bad == "[]", out.stdout
+
+
+def _tiny():
+    from tophat_tpu_torch.index.fasta import Genome
+    from tophat_tpu_torch.io.fastq import batch_reads
+
+    rng = np.random.default_rng(0)
+    codes = rng.integers(0, 4, 2000).astype(np.int8)
+    seq = "".join("ACGT"[c] for c in codes[100:150])
+    genome = Genome(codes=codes, offsets=np.array([0, 2000]), names=["c"])
+    return genome, batch_reads([("r0", seq, b"I" * 50)])
+
+
+def test_cuda_request_without_cuda_raises(tmp_path, monkeypatch):
+    from tophat_tpu_torch.pipeline.params import Params
+    from tophat_tpu_torch.pipeline.run import run_pipeline
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    genome, batch = _tiny()
+    with pytest.raises(RuntimeError, match="is_available"):
+        run_pipeline(genome, batch, Params(coverage_search=False),
+                     str(tmp_path / "out"), log=lambda *a: None,
+                     device="cuda")
+    assert not (tmp_path / "out").exists()
+
+
+def test_cli_defaults_to_cuda_and_raises_without_it(tmp_path, monkeypatch):
+    from tophat_tpu_torch.cli.main import main
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    genome, batch = _tiny()
+    fa = tmp_path / "g.fa"
+    fa.write_text(">c\n" + "".join("ACGT"[c] for c in genome.codes) + "\n")
+    fq = tmp_path / "r.fq"
+    fq.write_text("@r0\n" + "".join("ACGT"[c] for c in genome.codes[100:150])
+                  + "\n+\n" + "I" * 50 + "\n")
+    with pytest.raises(RuntimeError, match="is_available"):
+        main(["-o", str(tmp_path / "out"), "--no-coverage-search", str(fa),
+              str(fq)])
+
+
+@pytest.mark.parametrize("flag", ["coverage_search", "fusion_search",
+                                  "bowtie2", "butterfly_search"])
+def test_unported_modes_raise(tmp_path, flag):
+    from tophat_tpu_torch.pipeline.params import Params
+    from tophat_tpu_torch.pipeline.run import run_pipeline
+
+    genome, batch = _tiny()
+    params = Params(**{"coverage_search": False, flag: True})
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        run_pipeline(genome, batch, params, str(tmp_path / "out"),
+                     log=lambda *a: None, device="cpu")
+
+
+def test_realign_wrapper_takes_plain_only_for_cpu_tensors(monkeypatch):
+    """On the CPU the wrapper runs the plain version and counts no launch;
+    a CUDA-typed request never reaches the plain version."""
+    from tophat_tpu_torch.ops import realign_kernel as rk
+
+    reads = torch.full((4, 10), 1, dtype=torch.int8)
+    lengths = torch.full((4,), 10, dtype=torch.int32)
+    flank = torch.full((3, 10), 1, dtype=torch.int8)
+    before = rk.realign_group.launches
+    bt, mm, ok = rk.realign_group(reads, lengths, flank, flank, 0, 2)
+    assert rk.realign_group.launches == before
+    assert ok.all() and (mm == 0).all() and (bt == 1).all()
+    monkeypatch.setattr(rk, "realign_plain", None)
+    with pytest.raises(ValueError, match="CUDA"):
+        rk.realign_group(reads.to("meta"), lengths.to("meta"),
+                         flank.to("meta"), flank.to("meta"), 0, 2)

@@ -1,0 +1,267 @@
+# Copied from tophat_tpu/native/__init__.py; builds into build/native.
+"""Native (C++) host components, loaded via ctypes with on-demand compilation.
+
+The C++ sources are the JAX package's own (tophat_tpu/native/*.cpp), read
+by path so that nothing of that package is imported:
+  sais.cpp   — linear-time suffix array construction (index build)
+  bgzf.cpp   — multithreaded BGZF encode/decode
+  bamenc.cpp — columnar BAM record assembly
+Build artifacts land in <repo>/build/native (never under tophat_tpu/); a
+build failure degrades to the pure-numpy fallbacks rather than erroring.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import os
+import subprocess
+
+import numpy as np
+
+_ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))))
+_SRC_DIR = os.path.join(_ROOT, "tophat_tpu", "native")
+_BUILD_DIR = os.path.join(_ROOT, "build", "native")
+
+
+def _build_and_load(name: str, extra_flags=()):
+    src = os.path.join(_SRC_DIR, f"{name}.cpp")
+    so = os.path.join(_BUILD_DIR, f"lib{name}.so")
+    if (not os.path.exists(so)
+            or os.path.getmtime(so) < os.path.getmtime(src)):
+        os.makedirs(_BUILD_DIR, exist_ok=True)
+        # build to a private name, then rename: concurrent builds
+        # (test workers) never load a half-written library
+        tmp = f"{so}.{os.getpid()}.tmp"
+        cmd = (["g++", "-O2", "-shared", "-fPIC", "-pthread",
+                "-std=c++17", src, "-o", tmp] + list(extra_flags))
+        subprocess.run(cmd, check=True, capture_output=True)
+        os.replace(tmp, so)
+    return ctypes.CDLL(so)
+
+
+class _Sais:
+    def __init__(self):
+        self._lib = None
+
+    @property
+    def lib(self):
+        if self._lib is None:
+            self._lib = _build_and_load("sais")
+            self._lib.sais_suffix_array.restype = ctypes.c_int
+            self._lib.sais_suffix_array.argtypes = [
+                ctypes.POINTER(ctypes.c_uint8), ctypes.c_int64,
+                ctypes.POINTER(ctypes.c_int64)]
+        return self._lib
+
+    def bwt_from_sa(self, codes: np.ndarray, sa: np.ndarray):
+        """Threaded BWT gather; returns (bwt int8[n+1], primary)."""
+        import os
+
+        lib = self.lib
+        if not hasattr(lib, "sais_bwt_from_sa"):
+            raise AttributeError("sais_bwt_from_sa missing (stale .so?)")
+        lib.sais_bwt_from_sa.restype = ctypes.c_int64
+        lib.sais_bwt_from_sa.argtypes = [
+            ctypes.POINTER(ctypes.c_uint8), ctypes.c_int64,
+            ctypes.POINTER(ctypes.c_int64),
+            ctypes.POINTER(ctypes.c_uint8), ctypes.c_int]
+        codes = np.ascontiguousarray(codes, dtype=np.uint8)
+        sa = np.ascontiguousarray(sa, dtype=np.int64)
+        n = codes.shape[0]
+        bwt = np.empty(n + 1, np.uint8)
+        primary = lib.sais_bwt_from_sa(
+            codes.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)),
+            ctypes.c_int64(n),
+            sa.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)),
+            bwt.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)),
+            min(os.cpu_count() or 1, 8))
+        if primary < 0:
+            raise RuntimeError("bwt_from_sa: no sentinel row")
+        return bwt.view(np.int8), int(primary)
+
+    def kmer_vals(self, codes: np.ndarray, sa: np.ndarray,
+                  k: int) -> np.ndarray:
+        """Per-SA-row k-mer key (or -1), threaded single pass."""
+        import os
+
+        lib = self.lib
+        if not hasattr(lib, "sais_kmer_vals"):
+            raise AttributeError("sais_kmer_vals missing (stale .so?)")
+        lib.sais_kmer_vals.restype = ctypes.c_int
+        lib.sais_kmer_vals.argtypes = [
+            ctypes.POINTER(ctypes.c_uint8), ctypes.c_int64,
+            ctypes.POINTER(ctypes.c_int64), ctypes.c_int,
+            ctypes.POINTER(ctypes.c_int32), ctypes.c_int]
+        codes = np.ascontiguousarray(codes, dtype=np.uint8)
+        sa = np.ascontiguousarray(sa, dtype=np.int64)
+        n = codes.shape[0]
+        out = np.empty(n + 1, np.int32)
+        rc = lib.sais_kmer_vals(
+            codes.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)),
+            ctypes.c_int64(n),
+            sa.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)),
+            ctypes.c_int(k),
+            out.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)),
+            min(os.cpu_count() or 1, 8))
+        if rc != 0:
+            raise RuntimeError("sais_kmer_vals failed")
+        return out
+
+    def kmer_table(self, kv: np.ndarray, k: int):
+        """kv (SA-order k-mer keys, -1 invalid) -> (lo, hi) int32[4^k]."""
+        lib = self.lib
+        if not hasattr(lib, "sais_kmer_table"):
+            raise AttributeError("sais_kmer_table missing (stale .so?)")
+        lib.sais_kmer_table.restype = ctypes.c_int
+        lib.sais_kmer_table.argtypes = [
+            ctypes.POINTER(ctypes.c_int32), ctypes.c_int64,
+            ctypes.c_int64, ctypes.POINTER(ctypes.c_int32),
+            ctypes.POINTER(ctypes.c_int32)]
+        kv = np.ascontiguousarray(kv, dtype=np.int32)
+        K4 = 4 ** k
+        lo = np.empty(K4, np.int32)
+        hi = np.empty(K4, np.int32)
+        i32 = ctypes.POINTER(ctypes.c_int32)
+        lib.sais_kmer_table(kv.ctypes.data_as(i32),
+                            ctypes.c_int64(kv.shape[0]),
+                            ctypes.c_int64(K4),
+                            lo.ctypes.data_as(i32),
+                            hi.ctypes.data_as(i32))
+        return lo, hi
+
+    def suffix_array(self, codes: np.ndarray) -> np.ndarray:
+        """SA of codes + implicit sentinel (sa[0] == n), like
+        suffix.suffix_array_doubling."""
+        codes = np.ascontiguousarray(codes, dtype=np.uint8)
+        n = codes.shape[0]
+        out = np.empty(n + 1, dtype=np.int64)
+        rc = self.lib.sais_suffix_array(
+            codes.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)),
+            ctypes.c_int64(n),
+            out.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)))
+        if rc != 0:
+            raise RuntimeError(f"sais_suffix_array failed ({rc})")
+        return out
+
+
+sais = _Sais()
+
+
+class _Bgzf:
+    """Multithreaded BGZF encode/decode (bgzf.cpp) — the libbam-bgzf +
+    pigz role. `available` degrades to the pure-Python writer on any
+    build failure."""
+
+    def __init__(self):
+        self._lib = None
+        self._failed = False
+
+    @property
+    def lib(self):
+        if self._lib is None and not self._failed:
+            try:
+                self._lib = _build_and_load("bgzf", extra_flags=["-lz",
+                                                                 "-pthread"])
+                self._lib.bgzf_write_file.restype = ctypes.c_int
+                self._lib.bgzf_write_file.argtypes = [
+                    ctypes.c_char_p, ctypes.POINTER(ctypes.c_uint8),
+                    ctypes.c_int64, ctypes.c_int, ctypes.c_int]
+                self._lib.bgzf_read_file.restype = ctypes.c_int64
+                self._lib.bgzf_read_file.argtypes = [
+                    ctypes.c_char_p, ctypes.POINTER(ctypes.c_uint8),
+                    ctypes.c_int64]
+            except Exception:
+                self._failed = True
+        return self._lib
+
+    @property
+    def available(self) -> bool:
+        return self.lib is not None
+
+    def write_file(self, path: str, data: bytes, level: int = 6,
+                   nthreads: int = 0) -> None:
+        if nthreads <= 0:
+            nthreads = os.cpu_count() or 1
+        buf = np.frombuffer(data, np.uint8)
+        rc = self.lib.bgzf_write_file(
+            path.encode(), buf.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)),
+            ctypes.c_int64(len(data)), level, nthreads)
+        if rc != 0:
+            raise OSError(f"bgzf_write_file({path!r}) failed ({rc})")
+
+    def read_file(self, path: str) -> bytes:
+        cap = max(4 * os.path.getsize(path) + (1 << 16), 1 << 20)
+        while True:
+            out = np.empty(cap, np.uint8)
+            n = self.lib.bgzf_read_file(
+                path.encode(),
+                out.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)),
+                ctypes.c_int64(cap))
+            if n == -2:
+                cap *= 4
+                continue
+            if n < 0:
+                raise OSError(f"bgzf_read_file({path!r}) failed")
+            return out[:n].tobytes()
+
+
+bgzf = _Bgzf()
+
+
+class _BamEnc:
+    """Columnar BAM record assembler (bamenc.cpp) — `available` degrades
+    to the numpy ragged-scatter encoder on any build failure."""
+
+    def __init__(self):
+        self._lib = None
+        self._failed = False
+
+    @property
+    def lib(self):
+        if self._lib is None and not self._failed:
+            try:
+                self._lib = _build_and_load("bamenc")
+                f = self._lib.bam_encode_records
+                f.restype = ctypes.c_int64
+                u8 = ctypes.POINTER(ctypes.c_uint8)
+                i32 = ctypes.POINTER(ctypes.c_int32)
+                i64 = ctypes.POINTER(ctypes.c_int64)
+                u32 = ctypes.POINTER(ctypes.c_uint32)
+                f.argtypes = [ctypes.c_int64, u8, i64, i32, i32, i32, i32,
+                              i32, u32, i64, u8, i64, u8, u8, u8, i64, u8,
+                              ctypes.c_int64]
+            except Exception:
+                self._failed = True
+        return self._lib
+
+    @property
+    def available(self) -> bool:
+        return self.lib is not None
+
+    def encode(self, names_blob, name_off, flag, ref_id, pos, end, mapq,
+               cig_flat, cig_off, seq_blob, seq_off, qual_blob, no_qual,
+               tag_blob, tag_off, out_cap: int) -> bytes:
+        u8 = ctypes.POINTER(ctypes.c_uint8)
+        i32 = ctypes.POINTER(ctypes.c_int32)
+        i64 = ctypes.POINTER(ctypes.c_int64)
+        u32 = ctypes.POINTER(ctypes.c_uint32)
+        out = np.empty(out_cap, np.uint8)
+        n = len(flag)
+        w = self.lib.bam_encode_records(
+            ctypes.c_int64(n),
+            names_blob.ctypes.data_as(u8), name_off.ctypes.data_as(i64),
+            flag.ctypes.data_as(i32), ref_id.ctypes.data_as(i32),
+            pos.ctypes.data_as(i32), end.ctypes.data_as(i32),
+            mapq.ctypes.data_as(i32),
+            cig_flat.ctypes.data_as(u32), cig_off.ctypes.data_as(i64),
+            seq_blob.ctypes.data_as(u8), seq_off.ctypes.data_as(i64),
+            qual_blob.ctypes.data_as(u8), no_qual.ctypes.data_as(u8),
+            tag_blob.ctypes.data_as(u8), tag_off.ctypes.data_as(i64),
+            out.ctypes.data_as(u8), ctypes.c_int64(out_cap))
+        if w < 0:
+            raise OSError("bam_encode_records overflow")
+        return out[:w].tobytes()
+
+
+bamenc = _BamEnc()

@@ -1,0 +1,103 @@
+"""Realign reads across candidate events (junctions / deletions / insertions).
+
+Port of tophat_tpu/ops/events.py (the reference's juncs_db flank-FASTA ->
+bowtie -> rebase loop, src/juncs_db.cpp:109, src/bwt_map.cpp:885, as one
+batched device computation). Events are grouped by insertion length q and
+every group runs the realign kernel (ops/realign_kernel.py).
+
+Split semantics per kind:
+  junction/deletion: read[0:t] ends at left; read[t:] starts at right
+  insertion (ins_len=q): read[0:t] ends at left; read[t:t+q] is the inserted
+  sequence (compared against the event's seq); read[t+q:] starts at left+1
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from tophat_tpu_torch.ops.realign_kernel import (BIG, prepare_targets,
+                                                 realign_group)
+from tophat_tpu_torch.ops.splice import KIND_INSERTION
+
+MAX_INS = 8  # inserted-sequence slot width
+
+
+def _groups(genome, readsg, lengths, events, max_mm: int):
+    """Yield (event indices, best_t, mm, ok) per insertion-length group, in
+    np.unique order of q; result tensors live on the genome's device."""
+    dev = genome.device
+    R, L = readsg.shape
+    reads = torch.as_tensor(readsg, device=dev).to(torch.int8).contiguous()
+    lens = torch.as_tensor(np.asarray(lengths, np.int32), device=dev)
+    kinds = np.asarray(events["kind"])
+    ilen = np.where(kinds == KIND_INSERTION,
+                    np.asarray(events["ins_len"]), 0).astype(np.int32)
+    for q in np.unique(ilen):
+        idx = np.nonzero(ilen == q)[0]
+        sel = lambda a: torch.as_tensor(np.asarray(a)[idx], device=dev)
+        flank_l, comb = prepare_targets(
+            genome, sel(events["left"]), sel(events["right"]),
+            sel(kinds), sel(events["ins_seq"]), int(q), L)
+        bt, mm, ok = realign_group(reads, lens, flank_l, comb, int(q),
+                                   max_mm)
+        yield idx, bt, mm, ok
+
+
+def realign_events(genome, readsg, lengths, events, max_mm: int):
+    """Dense realignment: (best_t, mm, ok) as (R, E) numpy arrays.
+
+    events: dict of numpy arrays (left, right, kind, ins_len, ins_seq,
+    valid); ok is masked by `valid`."""
+    R = readsg.shape[0]
+    E = len(events["left"])
+    best_t = np.zeros((R, E), np.int32)
+    mm = np.full((R, E), BIG, np.int32)
+    ok = np.zeros((R, E), bool)
+    if E == 0:
+        return best_t, mm, ok
+    for idx, bt, m, o in _groups(genome, readsg, lengths, events, max_mm):
+        best_t[:, idx] = bt.cpu().numpy()
+        mm[:, idx] = m.cpu().numpy()
+        ok[:, idx] = o.cpu().numpy()
+    ok &= np.asarray(events["valid"]).astype(bool)[None, :]
+    return best_t, mm, ok
+
+
+def _pack_sparse(bt, mm, ok):
+    """Device compaction of a realign (R, E) result to the flat ok entries
+    (row, ev, t, mm) in row-major order: cumsum slots + a masked scatter,
+    so only ~n_ok records cross to the host."""
+    R, E = ok.shape
+    dev = ok.device
+    flat = ok.reshape(-1)
+    csum = torch.cumsum(flat.long(), 0)
+    n = int(csum[-1]) if csum.numel() else 0
+    slot = (csum - 1)[flat]
+    lane = torch.arange(R * E, device=dev)
+    out = torch.empty((4, n), dtype=torch.int32, device=dev)
+    out[:, slot] = torch.stack([
+        (lane // E)[flat].int(), (lane % E)[flat].int(),
+        bt.reshape(-1)[flat], mm.reshape(-1)[flat]])
+    return out.cpu().numpy()
+
+
+def realign_events_sparse(genome, readsg, lengths, events, max_mm: int):
+    """Flat-result realignment for the production candidate path: returns
+    (rows, evs, best_t, mm) numpy arrays of the passing (row, event)
+    pairs only — q-groups in np.unique order, row-major within a group."""
+    R = readsg.shape[0]
+    E = len(events["left"])
+    z = np.zeros(0, np.int32)
+    if E == 0 or R == 0:
+        return z, z.copy(), z.copy(), z.copy()
+    valid = np.asarray(events["valid"]).astype(bool)
+    acc = ([], [], [], [])
+    for idx, bt, m, o in _groups(genome, readsg, lengths, events, max_mm):
+        vsel = torch.as_tensor(valid[idx], device=o.device)
+        rj, ej, tj, mj = _pack_sparse(bt, m, o & vsel[None, :])
+        acc[0].append(rj)
+        acc[1].append(idx[ej].astype(np.int32))
+        acc[2].append(tj)
+        acc[3].append(mj)
+    return tuple(np.concatenate(a) for a in acc)

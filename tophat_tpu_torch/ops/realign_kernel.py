@@ -1,0 +1,171 @@
+"""Event realignment kernel: best split of every read row across every event.
+
+Replaces the Pallas TPU kernel tophat_tpu/ops/pallas/realign_kernel.py
+(_realign_kernel, launched by realign_pallas and fed by prepare_inputs).
+The CUDA C++ kernel is tophat_tpu_torch/csrc/realign.cu (its header gives
+the design and what bounds it on an H100); it is compiled for sm_90a with
+nvcc into <repo>/build/cuda at first use and called through ctypes.
+
+For one insertion-length group q, every (row, event) pair gets
+  mm(t) = (t - matchL(t)) + ((len - t) - matchC(t)),  1 <= t <= len-1-q
+against the left flank ending at the event's left base and the combined
+target [inserted seq (q) | right flank]. A position matches iff the codes
+are equal and lie in 0..7 — the TPU kernel's 8-channel one-hot rule, under
+which a read N matches a genome N (the conv reference realign_chunk, with
+4 channels, counts that as a mismatch; the port follows the kernel).
+
+realign_group takes the kernel for CUDA tensors and the plain torch
+version (an fp32 one-hot matmul per split point, exact below 2^24) for CPU
+tensors; there is no other fallback.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import os
+import subprocess
+
+import torch
+
+BIG = 32767
+MAX_L = 256          # the kernel's largest row width (csrc/realign.cu)
+C = 8                # one-hot channels of the plain version (codes 0..7)
+
+_ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))))
+_SRC = os.path.join(_ROOT, "tophat_tpu_torch", "csrc", "realign.cu")
+_BUILD_DIR = os.path.join(_ROOT, "build", "cuda")
+_LIB = []            # the loaded library, once built
+
+
+def _nvcc() -> str:
+    home = os.environ.get("CUDA_HOME") or "/usr/local/cuda"
+    path = os.path.join(home, "bin", "nvcc")
+    return path if os.path.exists(path) else "nvcc"
+
+
+def build() -> ctypes.CDLL:
+    """Compile csrc/realign.cu for sm_90a (if the library is missing or
+    older than its source) and load it."""
+    if _LIB:
+        return _LIB[0]
+    so = os.path.join(_BUILD_DIR, "librealign.so")
+    if (not os.path.exists(so)
+            or os.path.getmtime(so) < os.path.getmtime(_SRC)):
+        os.makedirs(_BUILD_DIR, exist_ok=True)
+        tmp = f"{so}.{os.getpid()}.tmp"
+        cmd = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
+               "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+               "-o", tmp, _SRC]
+        res = subprocess.run(cmd, capture_output=True, text=True)
+        if res.returncode != 0:
+            raise RuntimeError(f"nvcc failed on {_SRC}:\n{res.stderr}")
+        os.replace(tmp, so)
+    lib = ctypes.CDLL(so)
+    p = ctypes.c_void_p
+    i = ctypes.c_int
+    lib.realign_launch.argtypes = [p, p, p, p, i, i, i, i, i, p, p, p, p]
+    lib.realign_launch.restype = i
+    lib.realign_error_string.argtypes = [i]
+    lib.realign_error_string.restype = ctypes.c_char_p
+    lib.realign_max_len.restype = i
+    if lib.realign_max_len() != MAX_L:
+        raise RuntimeError("realign.cu MAX_L disagrees with the wrapper")
+    _LIB.append(lib)
+    return lib
+
+
+def prepare_targets(genome, ev_left, ev_right, ev_kind, ev_ins_seq,
+                    q: int, L: int):
+    """int8 (E, L) left flanks and combined right-hand targets.
+
+    The left flank ends at ev_left; the combined target is
+    [ins_seq[:q] | right flank], the right flank starting at ev_right
+    (junction/deletion) or ev_left + 1 (insertion, kind 2). Positions
+    outside the genome read 5 (never match)."""
+    n = genome.shape[0]
+    dev = genome.device
+    five = torch.tensor(5, dtype=torch.int8, device=dev)
+    ev_left = ev_left.long()
+    li = ev_left[:, None] - (L - 1) + torch.arange(L, device=dev)
+    flank_l = torch.where((li >= 0) & (li < n), genome[li.clamp(0, n - 1)],
+                          five)
+    r_start = torch.where(ev_kind == 2, ev_left + 1, ev_right.long())
+    ri = r_start[:, None] + torch.arange(L - q, device=dev)
+    flank_r = torch.where((ri >= 0) & (ri < n), genome[ri.clamp(0, n - 1)],
+                          five)
+    comb = torch.cat([ev_ins_seq[:, :q].to(torch.int8), flank_r], dim=1)
+    return flank_l.contiguous(), comb.contiguous()
+
+
+def realign_plain(reads, lengths, flank_l, comb, q: int, max_mm: int):
+    """Plain torch version: per split t, fp32 one-hot matmuls count the
+    prefix and suffix matches (0/1 products, sums <= L: exact)."""
+    R, L = reads.shape
+    E = flank_l.shape[0]
+    dev = reads.device
+    ch = torch.arange(C, device=dev)
+    onehot = lambda x: (x.long()[..., None] == ch).float()
+    X = onehot(reads)                                  # (R, L, C)
+    YL = onehot(flank_l)                               # (E, L, C)
+    YC = onehot(comb)
+    lens = lengths.long()[:, None]
+    best = torch.full((R, E), BIG, dtype=torch.long, device=dev)
+    best_t = torch.zeros((R, E), dtype=torch.long, device=dev)
+    for t in range(1, L):
+        match_l = X[:, :t].reshape(R, -1) @ YL[:, L - t:].reshape(E, -1).T
+        match_c = X[:, t:].reshape(R, -1) @ YC[:, :L - t].reshape(E, -1).T
+        mm = (t - match_l.long()) + ((lens - t) - match_c.long())
+        upd = (mm < best) & (t + q <= lens - 1)
+        best = torch.where(upd, mm, best)
+        best_t = torch.where(upd, t, best_t)
+    ok = best <= max_mm
+    return best_t.int(), torch.where(ok, best, BIG).int(), ok
+
+
+def realign_group(reads, lengths, flank_l, comb, q: int, max_mm: int):
+    """(best_t, mm, ok), each (R, E), for one insertion-length group.
+
+    reads: (R, L) int8 codes (-1 padded); lengths: (R,) int32;
+    flank_l, comb: (E, L) int8 from prepare_targets. CUDA tensors launch
+    the kernel on the current stream; CPU tensors take realign_plain."""
+    if reads.device.type == "cpu":
+        return realign_plain(reads, lengths, flank_l, comb, q, max_mm)
+    R, L = reads.shape
+    E = flank_l.shape[0]
+    for name, x, dt, shape in (("reads", reads, torch.int8, (R, L)),
+                               ("lengths", lengths, torch.int32, (R,)),
+                               ("flank_l", flank_l, torch.int8, (E, L)),
+                               ("comb", comb, torch.int8, (E, L))):
+        if x.device != reads.device or x.device.type != "cuda":
+            raise ValueError(f"{name}: expected a CUDA tensor on "
+                             f"{reads.device}, got {x.device}")
+        if x.dtype != dt or tuple(x.shape) != shape:
+            raise ValueError(f"{name}: expected {dt} {shape}, got "
+                             f"{x.dtype} {tuple(x.shape)}")
+        if not x.is_contiguous():
+            raise ValueError(f"{name}: not contiguous")
+    if not 1 <= L <= MAX_L:
+        raise ValueError(f"row width {L} outside the kernel's 1..{MAX_L}")
+    if not 0 <= q < L:
+        raise ValueError(f"insertion length {q} outside 0..{L - 1}")
+    best_t = torch.empty((R, E), dtype=torch.int32, device=reads.device)
+    mm = torch.empty((R, E), dtype=torch.int32, device=reads.device)
+    ok = torch.empty((R, E), dtype=torch.bool, device=reads.device)
+    if R == 0 or E == 0:
+        return best_t, mm, ok
+    lib = build()
+    with torch.cuda.device(reads.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = lib.realign_launch(
+            reads.data_ptr(), lengths.data_ptr(), flank_l.data_ptr(),
+            comb.data_ptr(), R, E, L, q, max_mm, best_t.data_ptr(),
+            mm.data_ptr(), ok.data_ptr(), stream)
+    if rc != 0:
+        raise RuntimeError("realign kernel launch failed: "
+                           + lib.realign_error_string(rc).decode())
+    realign_group.launches += 1
+    return best_t, mm, ok
+
+
+realign_group.launches = 0

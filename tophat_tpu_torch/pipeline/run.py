@@ -1,0 +1,462 @@
+"""End-to-end single-end pipeline on one device.
+
+Port of tophat_tpu/pipeline/run.py (the spliced_alignment +
+compile_reports flow of the reference driver, src/tophat.py:3428, :2665):
+  prep -> full-read genome alignment -> IUM segmentation -> segment mapping
+  -> contiguous stitch -> junction/indel discovery -> event realignment ->
+  default-mode chains -> pass-1 stats + filter -> pass-2 selection ->
+  outputs
+Device stages take torch tensors on `device`; every crossing back to the
+host is an explicit .cpu() (np.asarray of a CUDA tensor raises).
+
+Modes whose stages are not ported yet raise NotImplementedError naming
+their ROADMAP item; none of them routes into the JAX package.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import os
+import time
+import types
+from typing import Dict, List, Optional
+
+import numpy as np
+import torch
+
+from tophat_tpu_torch.index.fasta import Genome
+from tophat_tpu_torch.index.fm import (FMIndex, build_fm_index,
+                                       default_kmer_k, host_codes)
+from tophat_tpu_torch.io.fastq import ReadBatch, batch_reads, read_all
+from tophat_tpu_torch.ops.align import (Alignments, align_reads_adaptive,
+                                        kmer_fast_ok, transfer_alignments)
+from tophat_tpu_torch.ops.events import realign_events_sparse
+from tophat_tpu_torch.ops.stitch import stitch_contiguous
+from tophat_tpu_torch.pipeline.chains import chain_stitch, subset_rows
+from tophat_tpu_torch.pipeline.juncs import discover_events, merge_events
+from tophat_tpu_torch.pipeline.params import Params
+from tophat_tpu_torch.pipeline.prep import PrepStats, prep_filter
+from tophat_tpu_torch.pipeline.report import (Candidate,
+                                              accumulate_event_stats,
+                                              collect_candidates,
+                                              filter_junctions, select_best,
+                                              write_outputs,
+                                              write_outputs_multi)
+from tophat_tpu_torch.pipeline.segment import (build_genome_space,
+                                               map_segments)
+
+# unported modes -> the ROADMAP Queue 1 item that ports them
+_UNPORTED = (
+    ("coverage_search", "coverage and butterfly/microexon searches"),
+    ("butterfly_search", "coverage and butterfly/microexon searches"),
+    ("microexon_search", "coverage and butterfly/microexon searches"),
+    ("bowtie2", "ops/gapped.py (bowtie2 mode)"),
+    ("fusion_search", "fusion search"),
+    ("transcriptome_only", "transcriptome and colorspace"),
+)
+
+
+def check_supported(params: Params) -> None:
+    """Raise NotImplementedError for a mode whose stages are not ported."""
+    for flag, item in _UNPORTED:
+        if getattr(params, flag, False):
+            raise NotImplementedError(
+                f"{flag} is not ported to tophat_tpu_torch yet "
+                f"(ROADMAP Queue 1: {item})")
+
+
+def resolve_device(device) -> torch.device:
+    """torch.device for `device`; a CUDA request without CUDA raises (the
+    port never falls back to the CPU on its own)."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"device {device!r} requested but torch.cuda.is_available() is "
+            "false; pass device='cpu' to run on the CPU")
+    return dev
+
+
+def revcomp_rows(codes: np.ndarray, lengths: np.ndarray) -> np.ndarray:
+    """(B, L) left-aligned codes -> revcomp rows, still left-aligned."""
+    B, L = codes.shape
+    if B == 0:
+        return codes.copy()
+    lengths = np.asarray(lengths)
+    src = lengths[:, None] - 1 - np.arange(L)[None, :]
+    ok = src >= 0
+    g = np.take_along_axis(codes, np.clip(src, 0, L - 1), axis=1)
+    comp = np.where((g >= 0) & (g < 4), 3 - g, g)  # N/pad codes pass through
+    return np.where(ok, comp, np.int8(-1)).astype(np.int8)
+
+
+def iter_read_batches(files: List[str], quals_scale: str, batch_size: int,
+                      integer_quals: bool = False):
+    """Stream (name, seq, qual) records into fixed-size ReadBatches."""
+    buf = []
+    for path in files:
+        for rec in read_all(path, quals_scale,
+                            integer_quals=integer_quals):
+            buf.append(rec)
+            if len(buf) >= batch_size:
+                yield batch_reads(buf)
+                buf = []
+    if buf:
+        yield batch_reads(buf)
+
+
+@dataclasses.dataclass
+class MateState:
+    """Per-batch intermediate state flowing between stages."""
+
+    batch: ReadBatch
+    keep: np.ndarray
+    aln: Alignments
+    gs: object
+    prep_stats: object
+    seg_tables: tuple = None   # (pos, mm, valid) (rows, S, H) tensors
+    stitched: tuple = None     # (pos, mm, ok) (rows, H) contiguous chains
+    cands: Optional[Dict[int, list]] = None
+
+
+def _align_mate(fm, offsets, batch: ReadBatch, params: Params, log):
+    """Prep + full-read genome alignment. Returns (MateState without
+    spliced stages, ium mask, reads_f, reads_r, lengths)."""
+    keep, prep_stats = prep_filter(batch)
+    reads_f = batch.codes
+    reads_r = revcomp_rows(batch.codes, batch.lengths)
+    lengths = batch.lengths.astype(np.int32)
+
+    min_len = int(lengths.min()) if len(lengths) else 0
+    aln = align_reads_adaptive(
+        fm, reads_f, reads_r, lengths, offsets,
+        max_mismatches=params.read_mismatches,
+        max_alignments=params.max_alignments,
+        kmer_fast=kmer_fast_ok(fm, min_len, params.read_mismatches),
+        narrow_hits=min(8, params.hits_per_seed),
+        wide_hits=params.hits_per_seed)
+    aln = transfer_alignments(aln)          # device -> host boundary
+    if params.prefilter_multihits:
+        # -M/--prefilter-multihits: reads with more than max_multihits
+        # genomic placements are dropped before any spliced stage
+        keep = keep & ~(aln.n_hits > params.max_multihits)
+    valid = aln.valid & keep[:, None]
+    n_hits = np.where(keep, aln.n_hits, 0)
+    aln = dataclasses.replace(aln, valid=valid, n_hits=n_hits)
+    ium = keep & (n_hits == 0)
+    # --read-realign-edit-dist: mapped reads whose best contiguous
+    # alignment has at least this edit distance also enter the spliced
+    # stages. Default (read_edit_dist + 1) realigns none.
+    rre = getattr(params, "read_realign_edit_dist", -1)
+    if rre < 0:
+        rre = params.read_edit_dist + 1
+    if rre <= params.read_edit_dist:
+        mm_t = np.where(valid, aln.mm.astype(np.int32), 127)
+        best_mm = mm_t.min(axis=1, initial=127)
+        ium |= keep & (n_hits > 0) & (best_mm >= rre)
+    log(f"genome map: {int((n_hits > 0).sum())} mapped, {int(ium.sum())} IUM")
+    m = MateState(batch=batch, keep=keep, aln=aln, gs=None,
+                  prep_stats=prep_stats)
+    return m, ium, reads_f, reads_r, lengths
+
+
+def _spliced_mate(fm, offsets, m: MateState, params: Params,
+                  ium, reads_f, reads_r, lengths) -> None:
+    """Segment split + mapping + contiguous stitch for the IUM reads;
+    fills gs/seg_tables/stitched on `m`."""
+    gs = build_genome_space(reads_f, reads_r, lengths,
+                            params.segment_length, row_mask=ium,
+                            pad_rows_pow2=True)
+    m.gs = gs
+    if gs.rows:
+        m.seg_tables = map_segments(
+            fm, offsets, gs, segment_mismatches=params.segment_mismatches,
+            hits_per_seed=params.hits_per_seed, max_hits=16)
+        st = stitch_contiguous(*m.seg_tables, gs.cuts, gs.nseg)
+        m.stitched = tuple(x.cpu().numpy() for x in st)
+
+
+def _map_mate(fm, offsets, batch: ReadBatch, params: Params,
+              log) -> MateState:
+    m, ium, reads_f, reads_r, lengths = _align_mate(fm, offsets, batch,
+                                                    params, log)
+    _spliced_mate(fm, offsets, m, params, ium, reads_f, reads_r, lengths)
+    return m
+
+
+def _index_for(genome: Genome, fm: Optional[FMIndex], dev: torch.device,
+               log) -> FMIndex:
+    if fm is None:
+        log("Building FM index...")
+        return build_fm_index(genome, kmer_k=default_kmer_k(genome.n),
+                              device=dev)
+    return fm if fm.device == dev else fm.to(dev)
+
+
+def pipeline_core(genome: Genome, batches: List[ReadBatch], params: Params,
+                  fm: Optional[FMIndex] = None,
+                  known_events: Optional[Dict[str, np.ndarray]] = None,
+                  log=print, device="cuda"):
+    """Run prep/map/discover/realign/filter for one single-end read batch.
+    Returns (mates, events, stats, accepted, fm)."""
+    check_supported(params)
+    if len(batches) != 1:
+        raise NotImplementedError(
+            "paired-end runs are not ported to tophat_tpu_torch yet "
+            "(ROADMAP Queue 1: pipeline/paired.py)")
+    dev = resolve_device(device)
+    fm = _index_for(genome, fm, dev, log)
+    offsets = genome.offsets.astype(np.int32)
+
+    mates = [_map_mate(fm, offsets, b, params, log) for b in batches]
+    tables = [discover_events(fm, offsets, m.gs, params,
+                              seg_tables=m.seg_tables, log=log,
+                              read_side=mi)
+              for mi, m in enumerate(mates)]
+    if known_events is not None:
+        tables.append(known_events)
+    events = merge_events(*tables)
+
+    for m in mates:
+        candidates_for_mate(fm, m, events, params, log)
+
+    # pass 1: stats + acceptance over all candidates
+    stats: Dict[int, object] = {}
+    for m in mates:
+        merge_stats(stats, accumulate_event_stats(
+            m.cands, events, m.batch.lengths.astype(np.int32)))
+    filter_junctions(events, stats, params)
+    accepted = {e for e, st in stats.items() if st.accepted}
+    return mates, events, stats, accepted, fm
+
+
+def _v2_score_of(params, mates, events, stats):
+    """--v2-sam selection key: the AlignStatus coverage-scaled alignment
+    score (pipeline/align_status.py); None keeps the gold v1 ranking."""
+    if not getattr(params, "v2_sam", False):
+        return None
+    from tophat_tpu_torch.pipeline.align_status import v2_score_map
+
+    smap = v2_score_map([m.cands for m in mates],
+                        [m.batch.lengths for m in mates], events, stats)
+    return lambda c: smap[id(c)]
+
+
+def merge_stats(into: Dict[int, object], other: Dict[int, object]) -> None:
+    for e, st in other.items():
+        if e in into:
+            prev = into[e]
+            prev.supporting += st.supporting
+            prev.left_extent = max(prev.left_extent, st.left_extent)
+            prev.right_extent = max(prev.right_extent, st.right_extent)
+            prev.min_mm = min(prev.min_mm, st.min_mm)
+        else:
+            into[e] = st
+
+
+def candidates_for_mate(fm, m: MateState, events, params, log) -> None:
+    """Realign one chunk against the (global) event table, build its
+    candidate lists, then stitch default-mode chains for the reads still
+    unresolved."""
+    max_nseg = int(m.gs.nseg.max()) if m.gs.rows else 1
+    realign_mm = params.segment_mismatches * max_nseg
+    if m.gs.rows and len(events["left"]):
+        ev = dict(events)
+        ev["valid"] = np.ones(len(ev["left"]), bool)
+        spl = realign_events_sparse(fm.genome, m.gs.readsg, m.gs.lengths,
+                                    ev, max_mm=realign_mm)
+    else:
+        z = np.zeros(0, np.int32)
+        spl = (z, z.copy(), z.copy(), z.copy())
+    m.cands = collect_candidates(m.aln, m.gs, events, *spl, params,
+                                 stitched=m.stitched,
+                                 genome_codes=host_codes(fm),
+                                 chain_cands=None, paired=False)
+    default_chains(fm, m, events, params, log)
+
+
+def default_chains(fm, m: MateState, events, params, log) -> None:
+    """Multi-event chains for the default (non-fusion) mode: a read crossing
+    >= 2 events has no contiguous or single-event placement, so it is still
+    unresolved after collect_candidates. Chains are stitched for exactly
+    those reads' genome-space rows (resolved reads would only get chains
+    that lose selection)."""
+    if not (m.gs is not None and m.gs.rows and len(events["left"])
+            and m.seg_tables is not None):
+        return
+    resolved = [r for r, cl in m.cands.items() if cl]
+    unresolved = ~np.isin(m.gs.read_idx, list(resolved))
+    rows_sel = np.nonzero(unresolved & (m.gs.read_idx >= 0)
+                          & (m.gs.nseg >= 2))[0]
+    if not len(rows_sel):
+        return
+    sub_gs, sub_tables = subset_rows(m.gs, m.seg_tables, rows_sel)
+    nchain = 0
+    for cc in chain_stitch(fm, sub_gs, sub_tables, events, params):
+        m.cands.setdefault(cc.read, []).append(Candidate(
+            read=cc.read, pos=cc.pos, strand=cc.strand, mm=cc.mm,
+            kind=-2, ev=-1, t=0, chain_ops=tuple(cc.ops),
+            chain_events=tuple(cc.events)))
+        nchain += 1
+    if nchain:
+        log(f"default chain stitch: {nchain} multi-event chains "
+            f"over {len(rows_sel)} unresolved rows")
+
+
+def _select(m: MateState, params, accepted, rng, score_of):
+    selected = {}
+    for r, clist in m.cands.items():
+        usable = [c for c in clist
+                  if (all(e in accepted for e in c.chain_events)
+                      if c.kind == -2 else (c.ev < 0 or c.ev in accepted))]
+        selected[r] = select_best(usable, params.max_multihits, rng,
+                                  params.report_secondary,
+                                  score_of=score_of)
+    return selected
+
+
+def run_pipeline(genome: Genome, batch: ReadBatch, params: Params,
+                 out_dir: str, fm: Optional[FMIndex] = None,
+                 known_events: Optional[Dict[str, np.ndarray]] = None,
+                 log=print, device="cuda"):
+    """One batch through every stage, outputs written to `out_dir`."""
+    t0 = time.time()
+    mates, events, stats, accepted, fm = pipeline_core(
+        genome, [batch], params, fm=fm, known_events=known_events,
+        log=log, device=device)
+    os.makedirs(out_dir, exist_ok=True)
+    m = mates[0]
+    with open(os.path.join(out_dir, "prep_reads.info"), "w") as f:
+        f.write(m.prep_stats.info_text())
+
+    rng = np.random.default_rng(1)
+    score_of = _v2_score_of(params, [m], events, stats)
+    selected = _select(m, params, accepted, rng, score_of)
+    records = write_outputs(out_dir, genome, params, batch, selected, events)
+    log(f"done in {time.time() - t0:.1f}s; {len(records)} alignments "
+        f"reported")
+    return dict(mates=mates, events=events, stats=stats, selected=selected,
+                fm=fm)
+
+
+def run_pipeline_streaming(genome: Genome, batch_iter, params: Params,
+                           out_dir: str, fm: Optional[FMIndex] = None,
+                           known_events=None, tmp_dir=None, resume=False,
+                           log=print, device="cuda"):
+    """Chunked single-end pipeline for read sets larger than one device
+    batch: per-chunk map + discovery, a global event union, per-chunk
+    realignment, global junction filtering, and merged output."""
+    t0 = time.time()
+    check_supported(params)
+    dev = resolve_device(device)
+    os.makedirs(out_dir, exist_ok=True)
+    offsets = genome.offsets.astype(np.int32)
+
+    # lazy index: a fully-resumed run never needs the FM index for mapping
+    fm_holder = [fm]
+
+    def fm_get():
+        fm_holder[0] = _index_for(genome, fm_holder[0], dev, log)
+        return fm_holder[0]
+
+    chunks: List[MateState] = []
+    tables = []
+    prep_all = PrepStats()
+    for bi, batch in enumerate(batch_iter):
+        m, chunk_tables = _mapped_chunk(fm_get, offsets, batch, params, log,
+                                        tmp_dir=tmp_dir, resume=resume,
+                                        tag=f"chunk{bi:05d}")
+        tables.extend(chunk_tables)
+        prep_all.merge(m.prep_stats)
+        chunks.append(m)
+        log(f"chunk {bi}: {batch.size} reads")
+    fm = fm_holder[0]
+    if fm is None:   # every chunk resumed: realignment needs the codes only
+        fm = types.SimpleNamespace(
+            genome=torch.as_tensor(genome.codes, device=dev),
+            genome_host=genome.codes)
+    if known_events is not None:
+        tables.append(known_events)
+    events = merge_events(*tables)
+    log(f"{len(events['left'])} candidate events across "
+        f"{len(chunks)} chunks")
+
+    with open(os.path.join(out_dir, "prep_reads.info"), "w") as f:
+        f.write(prep_all.info_text())
+
+    stats: Dict[int, object] = {}
+    for m in chunks:
+        candidates_for_mate(fm, m, events, params, log)
+        merge_stats(stats, accumulate_event_stats(
+            m.cands, events, m.batch.lengths.astype(np.int32)))
+    filter_junctions(events, stats, params)
+    accepted = {e for e, st in stats.items() if st.accepted}
+
+    rng = np.random.default_rng(1)
+    score_of = _v2_score_of(params, chunks, events, stats)
+    parts = [(m.batch, _select(m, params, accepted, rng, score_of))
+             for m in chunks]
+
+    records = write_outputs_multi(out_dir, genome, params, parts, events)
+    log(f"streaming done in {time.time() - t0:.1f}s; {len(records)} "
+        f"alignments over {len(chunks)} chunks")
+    return dict(events=events, stats=stats, parts=parts, fm=fm)
+
+
+def _mapped_chunk(fm_get, offsets, batch, params, log, tmp_dir=None,
+                  resume=False, tag="chunk"):
+    """Map + discover one chunk, with optional artifact reuse: when
+    `tmp_dir` is set the mapped state + discovery tables persist as
+    <tmp_dir>/<tag>.pkl (segment tables as host numpy), and `resume=True`
+    reloads them instead of redoing the mapping. The artifact is keyed by
+    the reads' content and the parameters."""
+    import pickle
+
+    art = os.path.join(tmp_dir, f"{tag}.pkl") if tmp_dir else None
+    key = _chunk_key(batch, params) if art else None
+    if resume and art and os.path.exists(art):
+        try:
+            with open(art, "rb") as f:
+                m, chunk_tables, stored_key = pickle.load(f)
+            if stored_key == key:
+                m.batch = batch     # reads reload from the input files
+                log(f"[resume] {tag}: reusing mapped tables")
+                return m, chunk_tables
+            log(f"[resume] {tag}: input/params changed, remapping")
+        except Exception:
+            pass  # corrupt/stale artifact: redo the stage
+    fm = fm_get()
+    m = _map_mate(fm, offsets, batch, params, log)
+    chunk_tables = [discover_events(fm, offsets, m.gs, params,
+                                    seg_tables=m.seg_tables, log=None)]
+    if art:
+        batch_ref = m.batch
+        seg_ref = m.seg_tables
+        try:
+            os.makedirs(tmp_dir, exist_ok=True)
+            if seg_ref is not None:   # host copies: loadable on any device
+                m.seg_tables = tuple(a.cpu().numpy() for a in seg_ref)
+            m.batch = None          # reads live in the input files
+            with open(art, "wb") as f:
+                pickle.dump((m, chunk_tables, key), f,
+                            protocol=pickle.HIGHEST_PROTOCOL)
+        except OSError:
+            pass                    # artifact write is best-effort
+        finally:
+            m.batch = batch_ref
+            m.seg_tables = seg_ref
+    return m, chunk_tables
+
+
+def _chunk_key(batch, params) -> str:
+    """Content identity of a chunk's mapped artifact: a digest of the reads
+    (names + codes + lengths) and of every mapping-relevant parameter."""
+    import hashlib
+
+    h = hashlib.sha1()
+    h.update(repr(sorted(dataclasses.asdict(params).items())).encode())
+    h.update(np.ascontiguousarray(batch.codes).tobytes())
+    h.update(np.ascontiguousarray(batch.lengths).tobytes())
+    for n in batch.names:
+        h.update(n.encode() if isinstance(n, str) else bytes(n))
+        h.update(b"\0")
+    return h.hexdigest()
