@@ -17,6 +17,18 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      launched by that run; then the same pipeline on a small input on the
      card and on the CPU (plain versions), which must write identical files
   5. unspliced align_reads_adaptive on 16,384 x 100-bp batches
+  6. TopHat's default invocation, paired-end with the coverage search on,
+     through the CLI (--tt-index, no --no-coverage-search) on the phase-4
+     genome and index, 32,768 pairs of 2 x 100 bp (mate 1 crosses an
+     intron in 25% of pairs): a run holding every realign call against
+     its plain version, then a timed run with stage seconds; fails if
+     mate-1 junction-read recall is under 100% or that run launched no
+     realign kernel
+  7. on a 2^21 + 4096-base slice: the paired default mode and a single-end
+     run with the butterfly and microexon searches, on the card and on the
+     CPU, which must write identical files
+Launches in the kernels line are summed over phases 4 and 6 (each counted
+from 0 just before its timed run), max_abs_err over every check.
 Standard output ends with four lines: the measured numbers (JSON), the
 kernels (JSON), the nvidia-smi name/power line, and the result JSON.
 """
@@ -36,6 +48,8 @@ READ_LEN = 100
 N_READS = 32768
 BATCH = 16384
 UNSPLICED_ITERS = 8
+N_PAIRS = 32768             # phase 6: two chunk pairs at --batch-size 16384
+SMALL_PAIRS = 2048
 
 
 def fail(msg: str):
@@ -136,7 +150,10 @@ def phase_kernels():
     from tophat_tpu_torch.ops.realign_kernel import (realign_group,
                                                      realign_plain)
 
-    cases = [(16384, 128, 100, 0), (16384, 128, 100, 3), (16384, 128, 25, 0)]
+    # the main path's widths, then wider rows (150-bp reads on the fast
+    # path; 300 and 1,000 positions on the wide path, which has no cap)
+    cases = [(16384, 128, 100, 0), (16384, 128, 100, 3), (16384, 128, 25, 0),
+             (8192, 128, 150, 0), (8192, 128, 300, 3), (8192, 128, 1000, 0)]
     report = []
     for ci, (R, E, L, q) in enumerate(cases):
         args = realign_case(R, E, L, q, seed=11 + ci)
@@ -152,7 +169,7 @@ def phase_kernels():
         if n_ok < R // 4:
             fail(f"realign case R={R} E={E} L={L} q={q}: only {n_ok} ok "
                  "pairs; the check input is degenerate")
-        ms = cuda_ms(lambda: realign_group(*args, q, 8), 20)
+        ms = cuda_ms(lambda: realign_group(*args, q, 8), 20 if L <= 300 else 3)
         plain_ms = cuda_ms(lambda: realign_plain(*args, q, 8), 3)
         log(f"realign R={R} E={E} L={L} q={q}: exact ({n_ok} ok pairs); "
             f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
@@ -215,25 +232,29 @@ def write_fasta(path, codes, width: int = 4096):
             f.write(lut[codes[s:s + width]].tobytes() + b"\n")
 
 
-def write_fastq(path, seqs):
+def write_fastq(path, seqs, prefix: str = "r"):
     lut = np.frombuffer(b"ACGTN", np.uint8)
     qual = b"I" * seqs.shape[1]
     with open(path, "wb") as f:
         for i, s in enumerate(seqs):
-            f.write(b"@r%d\n%s\n+\n%s\n" % (i, lut[s].tobytes(), qual))
+            f.write(b"@%s%d\n%s\n+\n%s\n" % (prefix.encode(), i,
+                                            lut[s].tobytes(), qual))
 
 
-def junction_recall(sam_path, n_reads: int = N_READS) -> float:
+def junction_recall(sam_path, n_reads: int = N_READS,
+                    prefix: str = "r", flag_bit: int = 0) -> float:
+    """% of junction-spanning reads (prefix0, prefix4, ...) with an
+    N-CIGAR record; flag_bit restricts the records to one mate."""
     spliced = set()
     with open(sam_path) as f:
         for line in f:
             if line.startswith("@"):
                 continue
             t = line.split("\t", 6)
-            if "N" in t[5]:
+            if "N" in t[5] and (not flag_bit or int(t[1]) & flag_bit):
                 spliced.add(t[0])
     n_span = (n_reads + 3) // 4
-    n_hit = sum(1 for i in range(0, n_reads, 4) if f"r{i}" in spliced)
+    n_hit = sum(1 for i in range(0, n_reads, 4) if f"{prefix}{i}" in spliced)
     return 100.0 * n_hit / n_span
 
 
@@ -323,7 +344,7 @@ def phase_spliced():
     return dict(steady_s=steady_s, reads_per_s=N_READS / steady_s,
                 recall_pct=recall, warm_s=warm_s, launches=launches,
                 path_err=path_err,
-                index=index + ".tt.npz", codes=codes)
+                index=index + ".tt.npz", codes=codes, juncs=juncs)
 
 
 def phase_small_reference(codes):
@@ -410,6 +431,285 @@ def phase_unspliced(index_path, codes):
     return rps
 
 
+# ---------------------------------------------------------------- phase 6
+
+def make_pairs(codes, juncs, seed: int, n_pairs: int):
+    """Mate pairs of 2 x READ_LEN bp. The inner distance is drawn from
+    N(50, 20) (TopHat's -r / --mate-std-dev defaults), clipped at 0; mate 2
+    is the reverse complement downstream of mate 1. In 25% of pairs (p0,
+    p4, ...) mate 1 crosses one of `juncs` with >= 20 bp on each side; the
+    other pairs are contiguous with one mismatch in each mate."""
+    from tophat_tpu_torch.index.fasta import revcomp
+
+    r = np.random.default_rng(seed)
+    L = READ_LEN
+    juncs = [j for j in juncs if j[1] + 3 * L + 400 < len(codes)]
+    m1 = np.empty((n_pairs, L), np.int8)
+    m2 = np.empty((n_pairs, L), np.int8)
+    for i in range(n_pairs):
+        inner = max(0, int(round(r.normal(50, 20))))
+        if i % 4 == 0:
+            left, right = juncs[int(r.integers(0, len(juncs)))]
+            t = int(r.integers(20, L - 19))
+            m1[i] = np.concatenate([codes[left - t + 1:left + 1],
+                                    codes[right:right + L - t]])
+            s2 = right + L - t + inner
+            m2[i] = revcomp(codes[s2:s2 + L])
+        else:
+            s = int(r.integers(0, len(codes) - 3 * L - 400))
+            a = codes[s:s + L].copy()
+            b = codes[s + L + inner:s + 2 * L + inner].copy()
+            for x in (a, b):
+                p = int(r.integers(0, L))
+                x[p] = (x[p] + 1) % 4
+            m1[i] = a
+            m2[i] = revcomp(b)
+    return m1, m2
+
+
+class StageClock:
+    """Seconds per stage: wraps functions (module or class attributes) with
+    a timer that synchronizes the card before and after each call."""
+
+    def __init__(self):
+        self.seconds = {}
+        self._undo = []
+
+    def wrap(self, owner, name: str, label: str):
+        import torch
+
+        saved = owner.__dict__[name]
+        fn = getattr(owner, name)
+
+        def timed(*a, **k):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **k)
+            finally:
+                torch.cuda.synchronize()
+                self.seconds[label] = (self.seconds.get(label, 0.0)
+                                       + time.perf_counter() - t0)
+
+        setattr(owner, name, timed)
+        self._undo.append((owner, name, saved))
+
+    def restore(self):
+        for owner, name, saved in reversed(self._undo):
+            setattr(owner, name, saved)
+        self._undo.clear()
+
+
+def align_summary_pairs(path):
+    """(aligned pairs, discordant pairs) from align_summary.txt."""
+    aligned = disc = 0
+    with open(path) as f:
+        for line in f:
+            if line.startswith("Aligned pairs:"):
+                aligned = int(line.split(":")[1])
+            elif "are discordant" in line:
+                disc = int(line.split()[0])
+    return aligned, disc
+
+
+def phase_paired(codes, juncs, index):
+    """TopHat's default invocation, paired-end with the coverage search on,
+    through the CLI on the phase-4 genome and index: one run that holds
+    every realign call against realign_plain as it is made, then one timed
+    run with stage seconds, realign launches and peak device memory."""
+    import torch
+
+    from tophat_tpu_torch.cli import main as cli_mod
+    from tophat_tpu_torch.index.fm import FMIndex
+    from tophat_tpu_torch.ops import events
+    from tophat_tpu_torch.ops.realign_kernel import (realign_group,
+                                                     realign_plain)
+    from tophat_tpu_torch.pipeline import paired as paired_mod
+    from tophat_tpu_torch.pipeline import run as run_mod
+
+    fa = os.path.join(CACHE, "genome_2p27.fa")
+    t0 = time.time()
+    fqs = {}
+    for tag, seed in (("check", 15), ("steady", 16)):
+        m1, m2 = make_pairs(codes, juncs, seed, N_PAIRS)
+        fqs[tag] = [os.path.join(CACHE, f"pairs_{tag}_{k}.fq") for k in (1, 2)]
+        write_fastq(fqs[tag][0], m1, "p")
+        write_fastq(fqs[tag][1], m2, "p")
+    log(f"paired inputs: 2 x {N_PAIRS} pairs of 2 x {READ_LEN} bp "
+        f"({time.time() - t0:.1f} s)")
+    argv = lambda out, reads: ["-o", out, "--tt-index", index, fa] + reads
+
+    path_err = [0]
+    checked = []
+
+    def checking(*args):
+        out = realign_group(*args)
+        ref = realign_plain(*args)
+        err = max((int((a.long() - b.long()).abs().max()) if a.numel() else 0)
+                  for a, b in zip(out, ref))
+        shape = (f"R={args[0].shape[0]} E={args[2].shape[0]} "
+                 f"L={args[0].shape[1]} q={args[4]}")
+        if err or not all(torch.equal(a, b) for a, b in zip(out, ref)):
+            fail(f"paired run: realign kernel disagrees with its plain "
+                 f"version at {shape} (max abs err {err})")
+        path_err[0] = max(path_err[0], err)
+        checked.append(shape)
+        return out
+
+    events.realign_group = checking
+    t0 = time.time()
+    try:
+        cli_main_checked(cli_mod.main,
+                         argv(os.path.join(CACHE, "pairs_out_check"),
+                              fqs["check"]))
+    finally:
+        events.realign_group = realign_group
+    log(f"paired check run: {time.time() - t0:.1f} s; realign exact in "
+        f"{len(checked)} calls: " + ", ".join(checked))
+    if not checked:
+        fail("the paired check run made no realign call")
+
+    clock = StageClock()
+    clock.wrap(cli_mod, "read_fasta", "read_fasta")
+    clock.wrap(FMIndex, "load", "FMIndex.load")
+    clock.wrap(paired_mod, "_map_mate",
+               "map (prep, full-read align, segments, stitch)")
+    clock.wrap(paired_mod, "discover_events", "discovery")
+    clock.wrap(run_mod, "coverage_search_events", "coverage search")
+    clock.wrap(paired_mod, "candidates_for_mate",
+               "candidates (realign, collect, chains)")
+    clock.wrap(run_mod, "realign_events_sparse", "  of which realign, sparse")
+    clock.wrap(run_mod, "default_chains", "  of which default chains")
+    clock.wrap(paired_mod, "accumulate_event_stats", "stats + filter")
+    clock.wrap(paired_mod, "filter_junctions", "stats + filter")
+    n_events = []
+    finalize = paired_mod.SingleIndexMapper.finalize_events
+
+    def finalize_counted(self, known_events=None):
+        ev = finalize(self, known_events)
+        n_events.append(len(ev["left"]))
+        return ev
+
+    paired_mod.SingleIndexMapper.finalize_events = finalize_counted
+    calls = []
+
+    def counting(*args):
+        calls.append(f"R={args[0].shape[0]} E={args[2].shape[0]} "
+                     f"L={args[0].shape[1]} q={args[4]}")
+        return realign_group(*args)
+
+    out = os.path.join(CACHE, "pairs_out_steady")
+    events.realign_group = counting
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    realign_group.launches = 0
+    t0 = time.time()
+    try:
+        cli_main_checked(cli_mod.main, argv(out, fqs["steady"]))
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        launches = realign_group.launches
+    finally:
+        events.realign_group = realign_group
+        paired_mod.SingleIndexMapper.finalize_events = finalize
+        clock.restore()
+    peak = torch.cuda.max_memory_allocated()
+
+    recall = junction_recall(os.path.join(out, "accepted_hits.sam"), N_PAIRS,
+                             prefix="p", flag_bit=0x40)
+    aligned, disc = align_summary_pairs(os.path.join(out,
+                                                     "align_summary.txt"))
+    top = sum(s for k, s in clock.seconds.items() if not k.startswith(" "))
+    stages = dict(clock.seconds, **{"rest (FASTQ parse, selection, output)":
+                                    wall - top})
+    log(f"paired steady run: {wall:.2f} s, {N_PAIRS / wall:.1f} pairs/s; "
+        f"events E={n_events}; realign launches {launches}; peak device "
+        f"memory {peak / 2**30:.3f} GiB")
+    for k, s in stages.items():
+        log(f"  stage {k}: {s:.3f} s")
+    log(f"  realign calls: " + ", ".join(calls))
+    log(f"paired: junction-read recall (mate 1) {recall:.2f}%; both mates "
+        f"aligned {100.0 * aligned / N_PAIRS:.2f}% of pairs; concordant "
+        f"{100.0 * (aligned - disc) / N_PAIRS:.2f}% of pairs "
+        f"({aligned} aligned, {disc} discordant)")
+    if launches == 0:
+        fail("the paired main path never launched the realign kernel")
+    if recall < 100.0:
+        fail(f"paired: junction-read recall {recall:.2f}% < 100%")
+    return dict(wall_s=wall, pairs_per_s=N_PAIRS / wall, recall_pct=recall,
+                launches=launches, path_err=path_err[0],
+                events=n_events[0] if n_events else 0,
+                realign_calls=calls, peak_device_bytes=peak,
+                both_aligned_pct=100.0 * aligned / N_PAIRS,
+                concordant_pct=100.0 * (aligned - disc) / N_PAIRS,
+                coverage_search_s=stages.get("coverage search", 0.0),
+                stages=stages)
+
+
+def cli_main_checked(cli_main, argv):
+    rc = cli_main(argv)
+    if rc != 0:
+        fail(f"CLI run {argv[1]} returned {rc}")
+    return rc
+
+
+# ---------------------------------------------------------------- phase 7
+
+def phase_small_search_modes(codes, devices=("cuda", "cpu")):
+    """On the first 2^21 + 4096 bases: 2,048 pairs in the paired default
+    mode (coverage search on) and 2,048 single-end reads with the butterfly
+    and microexon searches, on the card and on the CPU (plain versions) in
+    this process; every output file must be byte-identical."""
+    from tophat_tpu_torch.index.fasta import Genome, decode_seq
+    from tophat_tpu_torch.io.fastq import batch_reads
+    from tophat_tpu_torch.pipeline.paired import run_pipeline_paired
+    from tophat_tpu_torch.pipeline.params import Params
+    from tophat_tpu_torch.pipeline.run import run_pipeline
+
+    small = codes[:(1 << 21) + 4096]
+    juncs = pick_junctions(small, 16)
+    m1, m2 = make_pairs(small, juncs, 19, n_pairs=SMALL_PAIRS)
+    single = make_reads(small, juncs, 21, n_reads=SMALL_PAIRS)
+    recs = lambda seqs, p: [(f"{p}{i}", decode_seq(s), b"I" * len(s))
+                            for i, s in enumerate(seqs)]
+    genome = Genome(codes=small, offsets=np.array([0, len(small)]),
+                    names=["chr1"])
+    files = ("accepted_hits.sam", "junctions.bed", "insertions.bed",
+             "deletions.bed", "align_summary.txt")
+    outs = {}
+    for dev in devices:
+        t0 = time.time()
+        outs[dev] = (os.path.join(CACHE, f"small_paired_{dev}"),
+                     os.path.join(CACHE, f"small_searches_{dev}"))
+        run_pipeline_paired(genome, batch_reads(recs(m1, "p")),
+                            batch_reads(recs(m2, "p")), Params(),
+                            outs[dev][0], log=lambda *a: None, device=dev)
+        run_pipeline(genome, batch_reads(recs(single, "r")),
+                     Params(butterfly_search=True, microexon_search=True),
+                     outs[dev][1], log=lambda *a: None, device=dev)
+        log(f"small search modes on {dev}: {time.time() - t0:.1f} s")
+    a, b = devices
+    for k, what in enumerate(("paired default mode",
+                              "butterfly + microexon searches")):
+        for f in files:
+            with open(os.path.join(outs[a][k], f), "rb") as x, \
+                    open(os.path.join(outs[b][k], f), "rb") as y:
+                if x.read() != y.read():
+                    fail(f"small input, {what}: {f} differs between "
+                         f"{a} and {b}")
+    recall_p = junction_recall(
+        os.path.join(outs[a][0], "accepted_hits.sam"), SMALL_PAIRS,
+        prefix="p", flag_bit=0x40)
+    recall_s = junction_recall(
+        os.path.join(outs[a][1], "accepted_hits.sam"), SMALL_PAIRS)
+    if min(recall_p, recall_s) < 100.0:
+        fail(f"small search modes: junction-read recall {recall_p:.2f}% "
+             f"(paired), {recall_s:.2f}% (searches) < 100%")
+    log(f"small input (2^21 + 4096 bases): paired default mode and the "
+        f"butterfly + microexon searches byte-identical on {a} and {b}; "
+        f"recall {recall_p:.2f}% / {recall_s:.2f}%")
+
+
 def main():
     try:
         import torch
@@ -434,20 +734,25 @@ def main():
     spliced = phase_spliced()
     phase_small_reference(spliced["codes"])
     unspliced_rps = phase_unspliced(spliced["index"], spliced["codes"])
+    paired = phase_paired(spliced["codes"], spliced["juncs"],
+                          spliced["index"])
+    phase_small_search_modes(spliced["codes"])
 
     print(json.dumps({
         "realign_cases": kernels,
         "spliced_reads_per_s": spliced["reads_per_s"],
         "spliced_steady_s": spliced["steady_s"],
         "spliced_junction_read_recall_pct": spliced["recall_pct"],
-        "unspliced_reads_per_s": unspliced_rps}), flush=True)
+        "unspliced_reads_per_s": unspliced_rps,
+        "paired": {k: v for k, v in paired.items() if k != "realign_calls"}}),
+        flush=True)
     main_case = kernels[0]
     print(json.dumps({"kernels": [{
         "name": "realign", "route": "cuda",
         "source": "tophat_tpu_torch/csrc/realign.cu",
         "replaces": "tophat_tpu/ops/pallas/realign_kernel.py:44",
-        "launches": spliced["launches"],
-        "max_abs_err": max([spliced["path_err"]]
+        "launches": spliced["launches"] + paired["launches"],
+        "max_abs_err": max([spliced["path_err"], paired["path_err"]]
                            + [k["max_abs_err"] for k in kernels]),
         "ms": main_case["ms"], "plain_ms": main_case["plain_ms"]}]}),
         flush=True)

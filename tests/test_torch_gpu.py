@@ -3,8 +3,8 @@
 They import torch and numpy only, so they also run on a machine without
 JAX: python -m pytest tests/test_torch_gpu.py -m gpu --noconftest -q
 (conftest.py imports JAX). The realign kernel is held against its plain
-torch version, and the whole single-end pipeline on the card against the
-same pipeline on the CPU, byte for byte."""
+torch version, and the whole single-end and paired-end pipelines on the
+card against the same pipelines on the CPU, byte for byte."""
 
 import numpy as np
 import pytest
@@ -57,8 +57,11 @@ def _realign_inputs(dev, L, q, R=2000, E=70, seed=11):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("L,q", [(100, 0), (100, 3), (25, 0), (200, 2)])
+@pytest.mark.parametrize("L,q", [(100, 0), (100, 3), (25, 0), (200, 2),
+                                 (150, 0), (150, 3), (300, 0), (300, 3),
+                                 (1000, 0), (1000, 3)])
 def test_realign_kernel_matches_plain(cuda, L, q):
+    """Every width: the fast path (L <= 256) and the wide path above it."""
     from tophat_tpu_torch.ops.realign_kernel import (realign_group,
                                                      realign_plain)
 
@@ -71,6 +74,27 @@ def test_realign_kernel_matches_plain(cuda, L, q):
     for a, b in zip(got, ref):
         assert torch.equal(a, b)
     assert int(ref[2].sum()) > 1000
+
+
+@pytest.mark.gpu
+def test_realign_kernel_takes_any_event_count(cuda):
+    """More event tiles than a grid's y dimension holds (65,535 x 32
+    events): the tiles fold into grid.x, so the launch is not refused."""
+    from tophat_tpu_torch.ops.realign_kernel import (realign_group,
+                                                     realign_plain)
+
+    E = 65535 * 32 + 33
+    reads, lengths, flank_l, comb = _realign_inputs(cuda, 25, 0, R=64)
+    reps = -(-E // flank_l.shape[0])
+    flank_l = flank_l.repeat(reps, 1)[:E].contiguous()
+    comb = comb.repeat(reps, 1)[:E].contiguous()
+    reads, lengths = reads[:3].contiguous(), lengths[:3].contiguous()
+    got = realign_group(reads, lengths, flank_l, comb, 0, 8)
+    ref = realign_plain(reads, lengths, flank_l, comb, 0, 8)
+    torch.cuda.synchronize()
+    for a, b in zip(got, ref):
+        assert torch.equal(a, b)
+    assert got[0].shape == (3, E) and int(ref[2].sum()) > 0
 
 
 @pytest.mark.gpu
@@ -137,5 +161,36 @@ def test_pipeline_on_card_matches_cpu(cuda, tmp_path, n):
     assert realign_group.launches > before
     for f in ("accepted_hits.sam", "junctions.bed", "insertions.bed",
               "deletions.bed"):
+        assert (tmp_path / "cpu" / f).read_bytes() == \
+            (tmp_path / "cuda" / f).read_bytes(), f
+
+
+@pytest.mark.gpu
+def test_paired_default_mode_on_card_matches_cpu(cuda, tmp_path):
+    """Paired-end run in TopHat's default mode (coverage search on), in
+    three chunk pairs, on the card and on the CPU: every output identical."""
+    from test_torch_paired import _pairs  # numpy only at import time
+    from tophat_tpu_torch.index.fasta import Genome
+    from tophat_tpu_torch.io.fastq import batch_reads
+    from tophat_tpu_torch.ops.realign_kernel import realign_group
+    from tophat_tpu_torch.pipeline.paired import \
+        run_pipeline_paired_streaming
+    from tophat_tpu_torch.pipeline.params import Params
+
+    n = 30000
+    codes, r1, r2 = _pairs(n)
+    genome = Genome(codes=codes, offsets=np.array([0, n]), names=["chrP"])
+    files = ("accepted_hits.sam", "unmapped.bam", "junctions.bed",
+             "insertions.bed", "deletions.bed", "align_summary.txt")
+    for dev in ("cpu", "cuda"):
+        if dev == "cuda":
+            before = realign_group.launches
+        chunks = ((batch_reads(r1[s:s + 24]), batch_reads(r2[s:s + 24]))
+                  for s in range(0, len(r1), 24))
+        run_pipeline_paired_streaming(genome, chunks, Params(),
+                                      str(tmp_path / dev),
+                                      log=lambda *a: None, device=dev)
+    assert realign_group.launches > before
+    for f in files:
         assert (tmp_path / "cpu" / f).read_bytes() == \
             (tmp_path / "cuda" / f).read_bytes(), f

@@ -73,8 +73,8 @@ def test_cli_defaults_to_cuda_and_raises_without_it(tmp_path, monkeypatch):
               str(fq)])
 
 
-@pytest.mark.parametrize("flag", ["coverage_search", "fusion_search",
-                                  "bowtie2", "butterfly_search"])
+@pytest.mark.parametrize("flag", ["transcriptome_only", "fusion_search",
+                                  "bowtie2"])
 def test_unported_modes_raise(tmp_path, flag):
     from tophat_tpu_torch.pipeline.params import Params
     from tophat_tpu_torch.pipeline.run import run_pipeline
@@ -84,6 +84,41 @@ def test_unported_modes_raise(tmp_path, flag):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         run_pipeline(genome, batch, params, str(tmp_path / "out"),
                      log=lambda *a: None, device="cpu")
+
+
+@pytest.mark.parametrize("flags,item", [
+    (["-C"], "transcriptome and colorspace"),
+    (["-G", "genes.gtf"], "transcriptome and colorspace"),
+    (["--max-index-bases", "1000"], "grouped index")])
+def test_unported_cli_modes_raise(tmp_path, flags, item):
+    from tophat_tpu_torch.cli.main import main
+
+    genome, _ = _tiny()
+    fa = tmp_path / "g.fa"
+    fa.write_text(">c\n" + "".join("ACGT"[c] for c in genome.codes) + "\n")
+    fq = tmp_path / "r.fq"
+    fq.write_text("@r0\n" + "ACGT" * 10 + "\n+\n" + "I" * 40 + "\n")
+    with pytest.raises(NotImplementedError, match=f"ROADMAP.*{item}"):
+        main(["-o", str(tmp_path / "out"), "--device", "cpu"] + flags
+             + [str(fa), str(fq), str(fq)])
+
+
+@pytest.mark.parametrize("what", ["gfm", "fusion_search"])
+def test_paired_unported_modes_raise(tmp_path, what):
+    """The paired pipeline refuses the grouped index and fusion search,
+    naming their ROADMAP item, before it maps anything."""
+    from tophat_tpu_torch.pipeline.paired import run_pipeline_paired
+    from tophat_tpu_torch.pipeline.params import Params
+
+    genome, batch = _tiny()
+    kw = {"gfm": object()} if what == "gfm" else {}
+    params = Params(fusion_search=what == "fusion_search")
+    item = "grouped index" if what == "gfm" else "fusion search"
+    with pytest.raises(NotImplementedError, match=f"ROADMAP.*{item}"):
+        run_pipeline_paired(genome, batch, batch, params,
+                            str(tmp_path / "out"), log=lambda *a: None,
+                            device="cpu", **kw)
+    assert not (tmp_path / "out").exists()
 
 
 def test_realign_wrapper_takes_plain_only_for_cpu_tensors(monkeypatch):

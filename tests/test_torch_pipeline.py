@@ -10,13 +10,13 @@ OUTPUTS = ("accepted_hits.sam", "junctions.bed", "insertions.bed",
            "deletions.bed")
 
 
-def _workload(n, seed=5):
-    """Genome with an N run and planted GT-AG introns; reads of 50, 76 or
-    100 bp across the introns (some with a mismatch), across 2-bp deletions
-    and insertions, contiguous reads with a mismatch, and one read over the
-    N run."""
+def _workload(n, seed=5, read_lens=(50, 76, 76, 100)):
+    """Genome with an N run and planted GT-AG introns; reads of the given
+    lengths (by default 50, 76 or 100 bp) across the introns (some with a
+    mismatch), across 2-bp deletions and insertions, contiguous reads with
+    a mismatch, and one read over the N run."""
     rng = np.random.default_rng(seed)
-    lens = iter(rng.choice([50, 76, 76, 100], 200))
+    lens = iter(rng.choice(read_lens, 200))
     codes = rng.integers(0, 4, n).astype(np.int8)
     codes[n // 3:n // 3 + 20] = 4
     seqs = []
@@ -90,6 +90,34 @@ def test_run_pipeline_outputs_identical(tmp_path, n):
     assert (n >= segment.BEAM_MIN_N) == (n > 1 << 21)
 
 
+@pytest.mark.parametrize("read_len", [150, 300])
+def test_run_pipeline_long_reads_identical(tmp_path, read_len):
+    """Rows wider than 256 positions take the realign kernel's wide path
+    on the card; on the CPU both packages must still agree byte for
+    byte."""
+    from tophat_tpu.index.fasta import Genome as JGenome
+    from tophat_tpu.io.fastq import batch_reads as jbatch
+    from tophat_tpu.pipeline.params import Params as JParams
+    from tophat_tpu.pipeline.run import run_pipeline as jrun
+    from tophat_tpu_torch.index.fasta import Genome
+    from tophat_tpu_torch.io.fastq import batch_reads
+    from tophat_tpu_torch.pipeline.params import Params
+    from tophat_tpu_torch.pipeline.run import run_pipeline
+
+    n = 30000
+    codes, recs = _workload(n, seed=13, read_lens=(read_len,))
+    offsets = np.array([0, n])
+    jrun(JGenome(codes=codes, offsets=offsets, names=["chrL"]),
+         jbatch(recs), JParams(), str(tmp_path / "jax"), log=lambda *a: None)
+    run_pipeline(Genome(codes=codes, offsets=offsets, names=["chrL"]),
+                 batch_reads(recs), Params(), str(tmp_path / "torch"),
+                 log=lambda *a: None, device="cpu")
+    sam = _compare(tmp_path / "jax", tmp_path / "torch")
+    rows = [ln.split("\t") for ln in sam.splitlines()]
+    assert sum(1 for t in rows if "N" in t[5]) >= 24
+    assert max(len(t[9]) for t in rows) == read_len
+
+
 def test_cli_outputs_identical(tmp_path, monkeypatch):
     """Two contigs, reads streamed in three chunks (global event union)."""
     from tophat_tpu.cli.main import main as jax_main
@@ -115,9 +143,9 @@ def test_cli_outputs_identical(tmp_path, monkeypatch):
     _compare(tmp_path / "jax", tmp_path / "again")
 
 
-def test_cli_resume_reuses_mapped_chunks(tmp_path):
-    """-R on an interrupted run reloads the per-chunk mapped tables, never
-    rebuilds the index, and writes the same files."""
+def _resume_roundtrip(tmp_path, flags):
+    """Run the CLI with --keep-tmp, drop an output and the journal's
+    alldone line, resume with -R; returns the resumed run's log text."""
     import os
 
     from tophat_tpu_torch.cli.main import main
@@ -129,9 +157,8 @@ def test_cli_resume_reuses_mapped_chunks(tmp_path):
     fq.write_text("".join(f"@{nm}\n{s}\n+\n{q.decode()}\n"
                           for nm, s, q in recs))
     out = tmp_path / "out"
-    assert main(["-o", str(out), "--device", "cpu", "--keep-tmp",
-                 "--no-coverage-search", "--batch-size", "40", str(fa),
-                 str(fq)]) == 0
+    assert main(["-o", str(out), "--device", "cpu", "--keep-tmp"] + flags
+                + ["--batch-size", "40", str(fa), str(fq)]) == 0
     first = {f: (out / f).read_bytes() for f in OUTPUTS}
     assert len([f for f in os.listdir(out / "tmp")
                 if f.endswith(".pkl")]) >= 2
@@ -146,3 +173,19 @@ def test_cli_resume_reuses_mapped_chunks(tmp_path):
     assert "reusing mapped tables" in log_text
     assert "Building FM index" not in log_text
     assert {f: (out / f).read_bytes() for f in OUTPUTS} == first
+    return log_text
+
+
+def test_cli_resume_reuses_mapped_chunks(tmp_path):
+    """-R on an interrupted run reloads the per-chunk mapped tables, never
+    rebuilds the index, and writes the same files."""
+    _resume_roundtrip(tmp_path, ["--no-coverage-search"])
+
+
+@pytest.mark.parametrize("flags", [[], ["--butterfly-search",
+                                        "--microexon-search"]])
+def test_cli_resume_keeps_search_tables(tmp_path, flags):
+    """With the coverage search on (the default), and with the butterfly
+    and microexon searches, the search tables persist with each chunk: a
+    resumed run writes the same files without searching again."""
+    _resume_roundtrip(tmp_path, flags)

@@ -1,15 +1,16 @@
-"""tophat-compatible command line for the PyTorch port (single-end).
+"""tophat-compatible command line for the PyTorch port.
 
 Port of tophat_tpu/cli/main.py: the same parser (plus --device) and the
-single-end part of main — FASTA index build or --tt-index reuse, known
-events, and the chunked single-end pipeline. Paired, colorspace,
-transcriptome (-G/--transcriptome-index), grouped-index and the search
-modes whose stages are not ported raise NotImplementedError naming their
-ROADMAP item.
+single-end and paired-end parts of main — FASTA index build or --tt-index
+reuse, known events, and the chunked pipelines, with the coverage search
+on by default and the butterfly and microexon searches on request.
+Colorspace, transcriptome (-G/--transcriptome-index), grouped-index and
+the other modes whose stages are not ported raise NotImplementedError
+naming their ROADMAP item.
 
 Usage:
-  python -m tophat_tpu_torch.cli.main -o out --no-coverage-search \
-      [--tt-index P] genome.fa reads.fq
+  python -m tophat_tpu_torch.cli.main -o out [--tt-index P] \
+      genome.fa reads_1.fq [reads_2.fq]
 """
 
 from __future__ import annotations
@@ -28,6 +29,7 @@ from tophat_tpu_torch.ops.events import MAX_INS
 from tophat_tpu_torch.ops.splice import (KIND_DELETION, KIND_INSERTION,
                                          KIND_JUNCTION)
 from tophat_tpu_torch.pipeline.juncs import empty_events, merge_events
+from tophat_tpu_torch.pipeline.paired import run_pipeline_paired_streaming
 from tophat_tpu_torch.pipeline.params import Params
 from tophat_tpu_torch.pipeline.run import (iter_read_batches,
                                            resolve_device,
@@ -427,8 +429,6 @@ def main(argv=None, resume=False):
         raise SystemExit("Error: --rg-id and --rg-sample must be "
                          "specified or omitted together")
     params = params_from_args(args)
-    if args.reads2:
-        _unported("paired-end mapping", "pipeline/paired.py")
     if args.color:
         _unported("colorspace (-C)", "transcriptome and colorspace")
     if args.gtf or args.transcriptome_index:
@@ -470,13 +470,21 @@ def main(argv=None, resume=False):
     batches = iter_read_batches(args.reads1.split(","), params.quals_scale,
                                 params.batch_size,
                                 integer_quals=params.integer_quals)
-    first = next(batches, None)
-    if first is None:
-        raise SystemExit("Error: no reads in input")
-    run_pipeline_streaming(
-        genome, itertools.chain([first], batches), params, out_dir,
-        fm=fm, known_events=known, tmp_dir=os.path.join(out_dir, "tmp"),
-        resume=resume, log=logger.log, device=device)
+    if args.reads2:
+        batches2 = iter_read_batches(args.reads2.split(","),
+                                     params.quals_scale, params.batch_size,
+                                     integer_quals=params.integer_quals)
+        run_pipeline_paired_streaming(
+            genome, zip(batches, batches2), params, out_dir, fm=fm,
+            known_events=known, log=logger.log, device=device)
+    else:
+        first = next(batches, None)
+        if first is None:
+            raise SystemExit("Error: no reads in input")
+        run_pipeline_streaming(
+            genome, itertools.chain([first], batches), params, out_dir,
+            fm=fm, known_events=known, tmp_dir=os.path.join(out_dir, "tmp"),
+            resume=resume, log=logger.log, device=device)
     logger.stage("alldone")
     if not args.keep_tmp:
         shutil.rmtree(os.path.join(out_dir, "tmp"), ignore_errors=True)

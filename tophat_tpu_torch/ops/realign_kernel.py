@@ -28,7 +28,6 @@ import subprocess
 import torch
 
 BIG = 32767
-MAX_L = 256          # the kernel's largest row width (csrc/realign.cu)
 C = 8                # one-hot channels of the plain version (codes 0..7)
 
 _ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
@@ -64,13 +63,13 @@ def build() -> ctypes.CDLL:
     lib = ctypes.CDLL(so)
     p = ctypes.c_void_p
     i = ctypes.c_int
-    lib.realign_launch.argtypes = [p, p, p, p, i, i, i, i, i, p, p, p, p]
+    lib.realign_launch.argtypes = [p, p, p, p, i, i, i, i, i, p, p, p, p,
+                                   p]
     lib.realign_launch.restype = i
+    lib.realign_scratch_words.argtypes = [i, i, i]
+    lib.realign_scratch_words.restype = ctypes.c_longlong
     lib.realign_error_string.argtypes = [i]
     lib.realign_error_string.restype = ctypes.c_char_p
-    lib.realign_max_len.restype = i
-    if lib.realign_max_len() != MAX_L:
-        raise RuntimeError("realign.cu MAX_L disagrees with the wrapper")
     _LIB.append(lib)
     return lib
 
@@ -127,8 +126,10 @@ def realign_group(reads, lengths, flank_l, comb, q: int, max_mm: int):
     """(best_t, mm, ok), each (R, E), for one insertion-length group.
 
     reads: (R, L) int8 codes (-1 padded); lengths: (R,) int32;
-    flank_l, comb: (E, L) int8 from prepare_targets. CUDA tensors launch
-    the kernel on the current stream; CPU tensors take realign_plain."""
+    flank_l, comb: (E, L) int8 from prepare_targets. Any width L >= 1
+    (rows wider than 256 take the kernel's wide path, which needs a device
+    scratch buffer for the bit planes). CUDA tensors launch the kernel on
+    the current stream; CPU tensors take realign_plain."""
     if reads.device.type == "cpu":
         return realign_plain(reads, lengths, flank_l, comb, q, max_mm)
     R, L = reads.shape
@@ -145,8 +146,8 @@ def realign_group(reads, lengths, flank_l, comb, q: int, max_mm: int):
                              f"{x.dtype} {tuple(x.shape)}")
         if not x.is_contiguous():
             raise ValueError(f"{name}: not contiguous")
-    if not 1 <= L <= MAX_L:
-        raise ValueError(f"row width {L} outside the kernel's 1..{MAX_L}")
+    if L < 1:
+        raise ValueError(f"row width {L} < 1")
     if not 0 <= q < L:
         raise ValueError(f"insertion length {q} outside 0..{L - 1}")
     best_t = torch.empty((R, E), dtype=torch.int32, device=reads.device)
@@ -155,12 +156,14 @@ def realign_group(reads, lengths, flank_l, comb, q: int, max_mm: int):
     if R == 0 or E == 0:
         return best_t, mm, ok
     lib = build()
+    scratch = torch.empty(max(1, lib.realign_scratch_words(R, E, L)),
+                          dtype=torch.int32, device=reads.device)
     with torch.cuda.device(reads.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = lib.realign_launch(
             reads.data_ptr(), lengths.data_ptr(), flank_l.data_ptr(),
             comb.data_ptr(), R, E, L, q, max_mm, best_t.data_ptr(),
-            mm.data_ptr(), ok.data_ptr(), stream)
+            mm.data_ptr(), ok.data_ptr(), scratch.data_ptr(), stream)
     if rc != 0:
         raise RuntimeError("realign kernel launch failed: "
                            + lib.realign_error_string(rc).decode())

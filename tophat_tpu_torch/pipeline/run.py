@@ -1,11 +1,12 @@
-"""End-to-end single-end pipeline on one device.
+"""End-to-end pipeline on one device (single-end here; paired-end runs
+drive these stages from pipeline/paired.py).
 
 Port of tophat_tpu/pipeline/run.py (the spliced_alignment +
 compile_reports flow of the reference driver, src/tophat.py:3428, :2665):
   prep -> full-read genome alignment -> IUM segmentation -> segment mapping
-  -> contiguous stitch -> junction/indel discovery -> event realignment ->
-  default-mode chains -> pass-1 stats + filter -> pass-2 selection ->
-  outputs
+  -> contiguous stitch -> junction/indel discovery (+ the coverage,
+  butterfly and microexon searches) -> event realignment -> default-mode
+  chains -> pass-1 stats + filter -> pass-2 selection -> outputs
 Device stages take torch tensors on `device`; every crossing back to the
 host is an explicit .cpu() (np.asarray of a CUDA tensor raises).
 
@@ -32,7 +33,10 @@ from tophat_tpu_torch.ops.align import (Alignments, align_reads_adaptive,
                                         kmer_fast_ok, transfer_alignments)
 from tophat_tpu_torch.ops.events import realign_events_sparse
 from tophat_tpu_torch.ops.stitch import stitch_contiguous
+from tophat_tpu_torch.pipeline.butterfly import (butterfly_search_events,
+                                                 microexon_events)
 from tophat_tpu_torch.pipeline.chains import chain_stitch, subset_rows
+from tophat_tpu_torch.pipeline.coverage import coverage_search_events
 from tophat_tpu_torch.pipeline.juncs import discover_events, merge_events
 from tophat_tpu_torch.pipeline.params import Params
 from tophat_tpu_torch.pipeline.prep import PrepStats, prep_filter
@@ -47,9 +51,6 @@ from tophat_tpu_torch.pipeline.segment import (build_genome_space,
 
 # unported modes -> the ROADMAP Queue 1 item that ports them
 _UNPORTED = (
-    ("coverage_search", "coverage and butterfly/microexon searches"),
-    ("butterfly_search", "coverage and butterfly/microexon searches"),
-    ("microexon_search", "coverage and butterfly/microexon searches"),
     ("bowtie2", "ops/gapped.py (bowtie2 mode)"),
     ("fusion_search", "fusion search"),
     ("transcriptome_only", "transcriptome and colorspace"),
@@ -192,32 +193,60 @@ def _index_for(genome: Genome, fm: Optional[FMIndex], dev: torch.device,
     return fm if fm.device == dev else fm.to(dev)
 
 
+def search_tables(fm, genome: Genome, m: MateState, params: Params,
+                  log=None, coverage=True, extend=True) -> list:
+    """Event tables of the searches switched on in `params` over one
+    mate's segment hits, in the order coverage, butterfly, microexon
+    (`coverage`/`extend` select the first or the other two)."""
+    if m.seg_tables is None:
+        return []
+    out = []
+
+    def add(ev, what):
+        if log is not None and len(ev["left"]):
+            log(what.format(len(ev["left"])))
+        out.append(ev)
+
+    if coverage and params.coverage_search:
+        add(coverage_search_events(fm, genome, m.gs, m.seg_tables, params),
+            "coverage search: {} island-end pairing candidates")
+    if extend and params.butterfly_search:
+        add(butterfly_search_events(fm, genome, m.gs, m.seg_tables, params),
+            "butterfly search: {} extendable candidates")
+    if extend and params.microexon_search:
+        add(microexon_events(fm, genome, m.gs, m.seg_tables, params),
+            "microexon search: {} window candidates")
+    return out
+
+
 def pipeline_core(genome: Genome, batches: List[ReadBatch], params: Params,
                   fm: Optional[FMIndex] = None,
                   known_events: Optional[Dict[str, np.ndarray]] = None,
                   log=print, device="cuda"):
-    """Run prep/map/discover/realign/filter for one single-end read batch.
-    Returns (mates, events, stats, accepted, fm)."""
+    """Run prep/map/discover/realign/filter for 1 (single) or 2 (paired)
+    read batches. Returns (mates, events, stats, accepted, fm)."""
     check_supported(params)
-    if len(batches) != 1:
-        raise NotImplementedError(
-            "paired-end runs are not ported to tophat_tpu_torch yet "
-            "(ROADMAP Queue 1: pipeline/paired.py)")
     dev = resolve_device(device)
     fm = _index_for(genome, fm, dev, log)
     offsets = genome.offsets.astype(np.int32)
 
     mates = [_map_mate(fm, offsets, b, params, log) for b in batches]
+    # joint discovery over every mate's IUM reads
     tables = [discover_events(fm, offsets, m.gs, params,
                               seg_tables=m.seg_tables, log=log,
                               read_side=mi)
               for mi, m in enumerate(mates)]
+    for m in mates:
+        tables += search_tables(fm, genome, m, params, log, extend=False)
+    for m in mates:
+        tables += search_tables(fm, genome, m, params, log, coverage=False)
     if known_events is not None:
         tables.append(known_events)
     events = merge_events(*tables)
 
     for m in mates:
-        candidates_for_mate(fm, m, events, params, log)
+        candidates_for_mate(fm, m, events, params, log,
+                            paired=len(mates) > 1)
 
     # pass 1: stats + acceptance over all candidates
     stats: Dict[int, object] = {}
@@ -253,10 +282,11 @@ def merge_stats(into: Dict[int, object], other: Dict[int, object]) -> None:
             into[e] = st
 
 
-def candidates_for_mate(fm, m: MateState, events, params, log) -> None:
-    """Realign one chunk against the (global) event table, build its
+def candidates_for_mate(fm, m: MateState, events, params, log,
+                        paired=False) -> None:
+    """Realign one chunk/mate against the (global) event table, build its
     candidate lists, then stitch default-mode chains for the reads still
-    unresolved."""
+    unresolved. `paired` admits the pair-only short-anchor candidates."""
     max_nseg = int(m.gs.nseg.max()) if m.gs.rows else 1
     realign_mm = params.segment_mismatches * max_nseg
     if m.gs.rows and len(events["left"]):
@@ -270,7 +300,7 @@ def candidates_for_mate(fm, m: MateState, events, params, log) -> None:
     m.cands = collect_candidates(m.aln, m.gs, events, *spl, params,
                                  stitched=m.stitched,
                                  genome_codes=host_codes(fm),
-                                 chain_cands=None, paired=False)
+                                 chain_cands=None, paired=paired)
     default_chains(fm, m, events, params, log)
 
 
@@ -362,9 +392,9 @@ def run_pipeline_streaming(genome: Genome, batch_iter, params: Params,
     tables = []
     prep_all = PrepStats()
     for bi, batch in enumerate(batch_iter):
-        m, chunk_tables = _mapped_chunk(fm_get, offsets, batch, params, log,
-                                        tmp_dir=tmp_dir, resume=resume,
-                                        tag=f"chunk{bi:05d}")
+        m, chunk_tables = _mapped_chunk(fm_get, genome, offsets, batch,
+                                        params, log, tmp_dir=tmp_dir,
+                                        resume=resume, tag=f"chunk{bi:05d}")
         tables.extend(chunk_tables)
         prep_all.merge(m.prep_stats)
         chunks.append(m)
@@ -402,10 +432,10 @@ def run_pipeline_streaming(genome: Genome, batch_iter, params: Params,
     return dict(events=events, stats=stats, parts=parts, fm=fm)
 
 
-def _mapped_chunk(fm_get, offsets, batch, params, log, tmp_dir=None,
+def _mapped_chunk(fm_get, genome, offsets, batch, params, log, tmp_dir=None,
                   resume=False, tag="chunk"):
-    """Map + discover one chunk, with optional artifact reuse: when
-    `tmp_dir` is set the mapped state + discovery tables persist as
+    """Map + discover (+ search) one chunk, with optional artifact reuse:
+    when `tmp_dir` is set the mapped state + event tables persist as
     <tmp_dir>/<tag>.pkl (segment tables as host numpy), and `resume=True`
     reloads them instead of redoing the mapping. The artifact is keyed by
     the reads' content and the parameters."""
@@ -428,6 +458,7 @@ def _mapped_chunk(fm_get, offsets, batch, params, log, tmp_dir=None,
     m = _map_mate(fm, offsets, batch, params, log)
     chunk_tables = [discover_events(fm, offsets, m.gs, params,
                                     seg_tables=m.seg_tables, log=None)]
+    chunk_tables += search_tables(fm, genome, m, params)
     if art:
         batch_ref = m.batch
         seg_ref = m.seg_tables
