@@ -1,0 +1,75 @@
+#!/usr/bin/env python3
+"""Time this checkout's realign kernel against another checkout's, on the
+same inputs and the same card, in turns (other, this, this, other).
+
+Run from the root of a checkout, on a machine with a CUDA card:
+  python3 scripts/realign_ab.py --other DIR
+
+DIR is the root of another checkout (for example the parent commit,
+unpacked with `git archive`). Each side's tophat_tpu_torch/ops/
+realign_kernel.py is loaded from its own file and builds its own
+csrc/realign.cu into its own build/cuda. The inputs are chip_smoke.py's
+phase-3 cases, the tensor-core path's (L <= 256) and then the wide
+path's. Both sides must give equal (best_t, mm, ok). Prints one JSON
+line: per case, the two runs of each side (ms, CUDA events, mean over
+`--iters` launches, 3 at L = 1,000) and the card.
+"""
+
+import argparse
+import importlib.util
+import json
+import os
+import sys
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CASES = [(16384, 128, 100, 0), (16384, 128, 100, 3), (16384, 128, 25, 0),
+         (8192, 128, 150, 0), (8192, 69, 100, 0), (8192, 4096, 100, 0),
+         (8192, 128, 300, 3), (8192, 128, 1000, 0)]
+
+
+def load_kernel(root: str, name: str):
+    path = os.path.join(root, "tophat_tpu_torch", "ops", "realign_kernel.py")
+    spec = importlib.util.spec_from_file_location(name, path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    mod.build()
+    return mod
+
+
+def main():
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--other", required=True)
+    ap.add_argument("--iters", type=int, default=20)
+    a = ap.parse_args()
+    import torch
+
+    if not torch.cuda.is_available():
+        sys.exit("realign_ab: needs a CUDA card")
+    sys.path.insert(0, REPO)
+    import chip_smoke
+
+    sides = {"other": load_kernel(os.path.abspath(a.other), "rk_other"),
+             "this": load_kernel(REPO, "rk_this")}
+    out = []
+    for ci, (R, E, L, q) in enumerate(CASES):
+        args = chip_smoke.realign_case(R, E, L, q, seed=11 + ci)
+        got = {k: m.realign_group(*args, q, 8) for k, m in sides.items()}
+        torch.cuda.synchronize()
+        if not all(torch.equal(x, y) for x, y in zip(got["other"],
+                                                      got["this"])):
+            sys.exit(f"realign_ab: the two kernels disagree at R={R} E={E} "
+                     f"L={L} q={q}")
+        row = {"R": R, "E": E, "L": L, "q": q, "other_ms": [], "this_ms": []}
+        for k in ("other", "this", "this", "other"):
+            fn = sides[k].realign_group
+            row[f"{k}_ms"].append(chip_smoke.cuda_ms(
+                lambda: fn(*args, q, 8), a.iters if L <= 300 else 3))
+        print(f"R={R} E={E} L={L} q={q}: other {row['other_ms']} ms, "
+              f"this {row['this_ms']} ms", file=sys.stderr, flush=True)
+        out.append(row)
+    print(json.dumps({"card": chip_smoke.card_line(), "cases": out}),
+          flush=True)
+
+
+if __name__ == "__main__":
+    main()

@@ -55,7 +55,7 @@ def test_count_mismatches_packed_matches(L, has_n, dual):
 
     codes = _genome()
     jfm = build_fm_index(codes)
-    fm = FMIndex.from_numpy(jfm)
+    fm = FMIndex.from_numpy(jfm, device="cpu")
     rng = np.random.default_rng(L)
     B, C = 24, 40
     reads = rng.integers(0, 5, (B, L)).astype(np.int8)
@@ -95,7 +95,7 @@ def test_align_reads_adaptive_matches(kmer_k, variable):
 
     codes = _genome()
     jfm = build_fm_index(codes, kmer_k=kmer_k)
-    fm = FMIndex.from_numpy(jfm)
+    fm = FMIndex.from_numpy(jfm, device="cpu")
     L = 60
     rf, rr, lens = _reads(codes, 3 + kmer_k, 64, L, variable)
     offsets = np.array([0, 12000, len(codes)], np.int32)  # two contigs
@@ -131,7 +131,7 @@ def test_align_forward_rows_matches():
 
     codes = _genome()
     jfm = build_fm_index(codes)
-    fm = FMIndex.from_numpy(jfm)
+    fm = FMIndex.from_numpy(jfm, device="cpu")
     rf, _, lens = _reads(codes, 8, 96, 25, True)
     lens = np.maximum(lens, 1)
     offsets = np.array([0, len(codes)], np.int32)

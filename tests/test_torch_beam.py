@@ -19,7 +19,7 @@ def genome(request):
     for k in range(30):                         # a repeat family
         codes[30000 + 60 * k: 30040 + 60 * k] = block
     jfm = build_fm_index(codes, kmer_k=7, sa_rate=request.param)
-    return codes, jfm, FMIndex.from_numpy(jfm)
+    return codes, jfm, FMIndex.from_numpy(jfm, device="cpu")
 
 
 def _segments(codes, seed, B=160):

@@ -19,8 +19,9 @@ def cuda():
 
 
 def _realign_inputs(dev, L, q, R=2000, E=70, seed=11):
-    """Reads planted across events (with mismatches and Ns), random rows,
-    zero-length and short rows; events at both genome ends."""
+    """Reads planted across events (with mismatches and Ns, some over
+    genome Ns), random rows, zero-length and short rows; events at both
+    genome ends and next to an N run."""
     from tophat_tpu_torch.ops.realign_kernel import prepare_targets
 
     rng = np.random.default_rng(seed)
@@ -28,22 +29,27 @@ def _realign_inputs(dev, L, q, R=2000, E=70, seed=11):
     genome = rng.integers(0, 4, n).astype(np.int8)
     genome[1000:1030] = 4
     lefts = rng.integers(L, n - 2 * L, E)
-    lefts[:4] = [0, 3, n - 2, n - 1]
+    if E >= 4:
+        lefts[:4] = [0, 3, n - 2, n - 1]
     kinds = np.full(E, 2 if q else 0, np.int8)
     rights = lefts + 1 if q else lefts + rng.integers(2, 3000, E)
+    if E > 6:
+        lefts[4] = 1015                       # left flank ends in Ns
+        if not q:
+            rights[5] = 1010                  # right flank starts in Ns
     ins_seq = np.full((E, 8), -1, np.int8)
     ins_seq[:, :q] = rng.integers(0, 5, (E, q))
     reads = rng.integers(0, 5, (R, L)).astype(np.int8)
     lengths = np.full(R, L, np.int32)
     for i in range(R):
-        e = int(rng.integers(4, E))
-        t = int(rng.integers(1, L - 1 - q))
+        e = 4 + i % 2 if i < 64 and E > 6 else int(rng.integers(0, E))
+        t = int(rng.integers(1, max(2, L - 1 - q)))
         st = int(lefts[e]) + 1 if q else int(rights[e])
-        if i % 8 == 0 or st + L > n:
+        if i % 8 == 0 or st + L > n or lefts[e] - t + 1 < 0:
             continue
         reads[i] = np.concatenate([genome[lefts[e] - t + 1: lefts[e] + 1],
                                    ins_seq[e, :q],
-                                   genome[st: st + L - t - q]])
+                                   genome[st: st + L - t - q]])[:L]
         if i % 3 == 0:
             reads[i, int(rng.integers(0, L))] = 4
     lengths[::16] = 0
@@ -57,15 +63,20 @@ def _realign_inputs(dev, L, q, R=2000, E=70, seed=11):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("L,q", [(100, 0), (100, 3), (25, 0), (200, 2),
-                                 (150, 0), (150, 3), (300, 0), (300, 3),
-                                 (1000, 0), (1000, 3)])
-def test_realign_kernel_matches_plain(cuda, L, q):
-    """Every width: the fast path (L <= 256) and the wide path above it."""
+@pytest.mark.parametrize("E", [1, 69, 200])
+@pytest.mark.parametrize("L,q", [(25, 0), (25, 3), (100, 0), (100, 3),
+                                 (150, 0), (150, 3), (200, 2), (255, 0),
+                                 (255, 3), (256, 0), (256, 3), (257, 0),
+                                 (300, 0), (300, 3), (1000, 0), (1000, 3)])
+def test_realign_kernel_matches_plain(cuda, L, q, E):
+    """Every width: the tensor-core path (L <= 256) and the bit-plane
+    path above it (257 is the first width that takes it); R = 2,000 is
+    no multiple of a row tile, and E = 1, 69, 200 leave ragged event
+    tiles."""
     from tophat_tpu_torch.ops.realign_kernel import (realign_group,
                                                      realign_plain)
 
-    args = _realign_inputs(cuda, L, q)
+    args = _realign_inputs(cuda, L, q, E=E)
     before = realign_group.launches
     got = realign_group(*args, q, 8)
     ref = realign_plain(*args, q, 8)
@@ -73,7 +84,35 @@ def test_realign_kernel_matches_plain(cuda, L, q):
     assert realign_group.launches == before + 1
     for a, b in zip(got, ref):
         assert torch.equal(a, b)
-    assert int(ref[2].sum()) > 1000
+    assert int(ref[2].sum()) > (1000 if E > 1 else 0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("L,q,E,max_mm", [(100, 0, 69, 8), (25, 3, 200, 2),
+                                          (256, 0, 1, 8), (300, 3, 69, 8),
+                                          (40, 0, 200, 10 ** 4)])
+def test_realign_sparse_matches_packed_dense(cuda, L, q, E, max_mm):
+    """The sparse entry gives pack_sparse of the dense tables masked by
+    `valid`, in the same order; both launch counters move. max_mm 10^4
+    makes every pair with a split pass, more records than the first
+    buffer holds, so the entry relaunches."""
+    from tophat_tpu_torch.ops.realign_kernel import (pack_sparse,
+                                                     realign_group,
+                                                     realign_group_sparse)
+
+    args = _realign_inputs(cuda, L, q, E=E, R=2000 if max_mm < 100 else 64)
+    valid = torch.as_tensor(np.random.default_rng(3).random(E) < 0.8,
+                            device=cuda)
+    valid[0] = True
+    d0, s0 = realign_group.launches, realign_group_sparse.launches
+    bt, mm, ok = realign_group(*args, q, max_mm)
+    want = pack_sparse(bt, mm, ok & valid[None, :])
+    got = realign_group_sparse(*args, q, max_mm, valid)
+    torch.cuda.synchronize()
+    assert realign_group.launches == d0 + 1
+    assert realign_group_sparse.launches == s0 + (2 if max_mm > 100 else 1)
+    assert got.dtype == torch.int32 and torch.equal(got, want)
+    assert want.shape[1] > 0
 
 
 @pytest.mark.gpu

@@ -137,3 +137,48 @@ def test_realign_wrapper_takes_plain_only_for_cpu_tensors(monkeypatch):
     with pytest.raises(ValueError, match="CUDA"):
         rk.realign_group(reads.to("meta"), lengths.to("meta"),
                          flank.to("meta"), flank.to("meta"), 0, 2)
+
+
+def test_port_builds_only_its_own_sources():
+    """Every C/C++/CUDA source the port compiles lies under
+    tophat_tpu_torch/, and no module of the port builds a path into the
+    JAX package's directory."""
+    import re
+
+    from tophat_tpu_torch import native
+    from tophat_tpu_torch.ops import realign_kernel
+
+    port = os.path.join(REPO, "tophat_tpu_torch") + os.sep
+    srcs = [realign_kernel._SRC] + [
+        os.path.join(native._SRC_DIR, f"{n}.cpp")
+        for n in ("sais", "bgzf", "bamenc")]
+    for src in srcs:
+        assert os.path.realpath(src).startswith(port), src
+        assert os.path.exists(src), src
+    component = re.compile(r"[\"']tophat_tpu[\"'/]")
+    for root, _, files in os.walk(port):
+        for f in files:
+            if f.endswith(".py"):
+                with open(os.path.join(root, f)) as fh:
+                    assert not component.search(fh.read()), f
+
+
+@pytest.mark.parametrize("entry", ["from_numpy", "load", "build_fm_index"])
+def test_index_entry_points_default_to_cuda(tmp_path, monkeypatch, entry):
+    """FMIndex.from_numpy, FMIndex.load and build_fm_index place the index
+    on the card unless given device="cpu"; without CUDA they raise."""
+    from tophat_tpu_torch.index.fm import FMIndex, build_fm_index
+
+    codes = np.random.default_rng(1).integers(0, 4, 500).astype(np.int8)
+    fm = build_fm_index(codes, device="cpu")
+    path = str(tmp_path / "idx.npz")
+    fm.save(path)
+    call = {"from_numpy": lambda **k: FMIndex.from_numpy(fm, **k),
+            "load": lambda **k: FMIndex.load(path, **k),
+            "build_fm_index": lambda **k: build_fm_index(codes, **k)}[entry]
+    assert call(device="cpu").device.type == "cpu"
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="is_available"):
+        call()
+    with pytest.raises(RuntimeError, match="is_available"):
+        call(device="cuda")

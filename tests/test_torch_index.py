@@ -23,8 +23,8 @@ def _indexes(codes, kmer_k, sa_rate):
     from tophat_tpu_torch.index.fm import FMIndex, build_fm_index
 
     jfm = jax_build(codes, kmer_k=kmer_k, sa_rate=sa_rate)
-    return jfm, FMIndex.from_numpy(jfm), build_fm_index(
-        codes, kmer_k=kmer_k, sa_rate=sa_rate)
+    return jfm, FMIndex.from_numpy(jfm, device="cpu"), build_fm_index(
+        codes, kmer_k=kmer_k, sa_rate=sa_rate, device="cpu")
 
 
 @pytest.mark.parametrize("kmer_k,sa_rate", [(0, 0), (5, 4)])
@@ -45,7 +45,7 @@ def test_index_tables_match(codes, kmer_k, sa_rate, tmp_path):
     built.save(str(tmp_path / "port.npz"))
     back = JaxFM.load(str(tmp_path / "port.npz"))
     jfm.save(str(tmp_path / "jax.npz"))
-    fwd = FMIndex.load(str(tmp_path / "jax.npz"))
+    fwd = FMIndex.load(str(tmp_path / "jax.npz"), device="cpu")
     for k in TABLES:
         np.testing.assert_array_equal(np.asarray(getattr(back, k)),
                                       np.asarray(getattr(jfm, k)))

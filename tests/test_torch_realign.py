@@ -134,11 +134,10 @@ def test_realign_n_vs_n_follows_the_fused_path():
     assert int(mm_port[0, 0]) == 0 and bool(ok_port[0, 0])
 
 
-def _events(seed, n):
+def _events(seed, n, E=40):
     """Mixed event table: junctions, deletions and insertions of length
     1..3, with inserted sequences and a few invalid events."""
     rng = np.random.default_rng(seed)
-    E = 40
     kinds = rng.choice([0, 1, 2], E).astype(np.int8)
     lefts = rng.integers(50, n - 400, E).astype(np.int32)
     rights = np.where(kinds == 2, lefts + 1,
@@ -152,17 +151,26 @@ def _events(seed, n):
                 ins_seq=ins_seq, antisense=np.zeros(E, bool), valid=valid)
 
 
-def test_realign_event_wrappers_match_jax():
+@pytest.mark.parametrize("R,E", [(96, 40), (83, 37)])
+def test_realign_event_wrappers_match_jax(monkeypatch, R, E):
+    """Dense and sparse event wrappers on CPU tensors against the JAX
+    package's; the sparse one goes through realign_group_sparse once per
+    q-group. (83, 37): R no multiple of 16, E no multiple of 8."""
     from tophat_tpu.ops.events import realign_events as jax_dense
     from tophat_tpu.ops.events import realign_events_sparse as jax_sparse
+    from tophat_tpu_torch.ops import events
     from tophat_tpu_torch.ops.events import (realign_events,
                                              realign_events_sparse)
 
+    sparse_calls = []
+    entry = events.realign_group_sparse
+    monkeypatch.setattr(events, "realign_group_sparse", lambda *a: (
+        sparse_calls.append(a[0].device.type), entry(*a))[1])
     rng = np.random.default_rng(9)
     n = 3000
     genome = rng.integers(0, 4, n).astype(np.int8)
-    ev = _events(4, n)
-    R, L = 96, 25
+    ev = _events(4, n, E)
+    L = 25
     reads = rng.integers(0, 4, (R, L)).astype(np.int8)
     lengths = np.full(R, L, np.int32)
     for i in range(0, R, 2):                  # plant half the rows
@@ -186,3 +194,5 @@ def test_realign_event_wrappers_match_jax():
     for a, b in zip(sparse, ref_s):
         np.testing.assert_array_equal(a, np.asarray(b))
     assert len(sparse[0]) >= R // 4
+    assert sparse_calls == ["cpu"] * len(np.unique(ev["ins_len"]))
+    assert not ev["valid"].all() and (lengths == 0).any()

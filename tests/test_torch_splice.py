@@ -144,7 +144,7 @@ def test_discover_events_matches(spliced):
     from tophat_tpu_torch.pipeline.params import Params
 
     codes, jfm, offsets, gs, tables = spliced
-    fm = FMIndex.from_numpy(jfm)
+    fm = FMIndex.from_numpy(jfm, device="cpu")
     want = jdiscover(jfm, offsets, gs, JParams(coverage_search=False),
                      seg_tables=tuple(jnp.asarray(a) for a in tables))
     got = discover_events(fm, offsets, gs, Params(coverage_search=False),

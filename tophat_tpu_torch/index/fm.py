@@ -31,6 +31,7 @@ import torch
 
 from tophat_tpu_torch.index.fasta import Genome
 from tophat_tpu_torch.index.suffix import bwt_from_sa, suffix_array
+from tophat_tpu_torch.utils.device import resolve_device
 
 OCC_BLOCK = 128  # bases per Occ checkpoint block
 WORDS_PER_BLOCK = OCC_BLOCK // 16
@@ -108,10 +109,12 @@ class FMIndex:
             self, **{k: getattr(self, k).to(device) for k in TABLES})
 
     @staticmethod
-    def from_numpy(fm_np, device="cpu") -> "FMIndex":
+    def from_numpy(fm_np, device="cuda") -> "FMIndex":
         """Tensors on `device` from any index-like object whose table
         fields are numpy arrays (this module's host build, an .npz, or a
-        tophat_tpu FMIndex) — the carrying-across of the index tables."""
+        tophat_tpu FMIndex) — the carrying-across of the index tables.
+        A CUDA device without CUDA raises."""
+        device = resolve_device(device)
         tabs = {k: _to_tensor(getattr(fm_np, k), dt, device)
                 for k, dt in TABLES.items()}
         return FMIndex(
@@ -130,7 +133,8 @@ class FMIndex:
                  pg_dual=self.pg_dual)
 
     @staticmethod
-    def load(path: str, device="cpu") -> "FMIndex":
+    def load(path: str, device="cuda") -> "FMIndex":
+        device = resolve_device(device)
         z = np.load(path)
         get = lambda k, d: z[k] if k in z.files else d
         fields = dict(
@@ -255,14 +259,16 @@ def default_kmer_k(n: int) -> int:
 def build_fm_index(genome: Genome | np.ndarray,
                    kmer_k: int = 0, sa_rate: int = 0,
                    sa: np.ndarray | None = None,
-                   device="cpu") -> FMIndex:
+                   device="cuda") -> FMIndex:
     """Build the FM-index of a genome's forward strand on the host and
     place its tables on `device`.
 
     Reverse-strand alignment searches the reverse complement of the read
     against this same index. kmer_k > 0 additionally builds the k-mer
     SA-interval seed table; sa_rate > 0 stores a text-order-sampled SA.
-    sa: precomputed suffix array of text (N->A) with sentinel."""
+    sa: precomputed suffix array of text (N->A) with sentinel. A CUDA
+    device without CUDA raises before anything is built."""
+    device = resolve_device(device)
     codes = genome.codes if isinstance(genome, Genome) else np.asarray(genome)
     codes = codes.astype(np.int8)
     text = np.where(codes == 4, 0, codes).astype(np.int8)  # N -> A in FM text

@@ -1,8 +1,8 @@
 # Copied from tophat_tpu/native/__init__.py; builds into build/native.
 """Native (C++) host components, loaded via ctypes with on-demand compilation.
 
-The C++ sources are the JAX package's own (tophat_tpu/native/*.cpp), read
-by path so that nothing of that package is imported:
+The C++ sources are this package's own copies (tophat_tpu_torch/native/
+*.cpp, each naming the file it was copied from):
   sais.cpp   — linear-time suffix array construction (index build)
   bgzf.cpp   — multithreaded BGZF encode/decode
   bamenc.cpp — columnar BAM record assembly
@@ -20,7 +20,7 @@ import numpy as np
 
 _ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
-_SRC_DIR = os.path.join(_ROOT, "tophat_tpu", "native")
+_SRC_DIR = os.path.dirname(os.path.abspath(__file__))
 _BUILD_DIR = os.path.join(_ROOT, "build", "native")
 
 

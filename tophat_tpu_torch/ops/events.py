@@ -17,15 +17,17 @@ import numpy as np
 import torch
 
 from tophat_tpu_torch.ops.realign_kernel import (BIG, prepare_targets,
-                                                 realign_group)
+                                                 realign_group,
+                                                 realign_group_sparse)
 from tophat_tpu_torch.ops.splice import KIND_INSERTION
 
 MAX_INS = 8  # inserted-sequence slot width
 
 
-def _groups(genome, readsg, lengths, events, max_mm: int):
-    """Yield (event indices, best_t, mm, ok) per insertion-length group, in
-    np.unique order of q; result tensors live on the genome's device."""
+def _groups(genome, readsg, lengths, events):
+    """Yield (event indices, q, realign inputs (reads, lengths, flank_l,
+    comb)) per insertion-length group, in np.unique order of q, on the
+    genome's device."""
     dev = genome.device
     R, L = readsg.shape
     reads = torch.as_tensor(readsg, device=dev).to(torch.int8).contiguous()
@@ -39,9 +41,7 @@ def _groups(genome, readsg, lengths, events, max_mm: int):
         flank_l, comb = prepare_targets(
             genome, sel(events["left"]), sel(events["right"]),
             sel(kinds), sel(events["ins_seq"]), int(q), L)
-        bt, mm, ok = realign_group(reads, lens, flank_l, comb, int(q),
-                                   max_mm)
-        yield idx, bt, mm, ok
+        yield idx, int(q), (reads, lens, flank_l, comb)
 
 
 def realign_events(genome, readsg, lengths, events, max_mm: int):
@@ -56,7 +56,8 @@ def realign_events(genome, readsg, lengths, events, max_mm: int):
     ok = np.zeros((R, E), bool)
     if E == 0:
         return best_t, mm, ok
-    for idx, bt, m, o in _groups(genome, readsg, lengths, events, max_mm):
+    for idx, q, args in _groups(genome, readsg, lengths, events):
+        bt, m, o = realign_group(*args, q, max_mm)
         best_t[:, idx] = bt.cpu().numpy()
         mm[:, idx] = m.cpu().numpy()
         ok[:, idx] = o.cpu().numpy()
@@ -64,28 +65,12 @@ def realign_events(genome, readsg, lengths, events, max_mm: int):
     return best_t, mm, ok
 
 
-def _pack_sparse(bt, mm, ok):
-    """Device compaction of a realign (R, E) result to the flat ok entries
-    (row, ev, t, mm) in row-major order: cumsum slots + a masked scatter,
-    so only ~n_ok records cross to the host."""
-    R, E = ok.shape
-    dev = ok.device
-    flat = ok.reshape(-1)
-    csum = torch.cumsum(flat.long(), 0)
-    n = int(csum[-1]) if csum.numel() else 0
-    slot = (csum - 1)[flat]
-    lane = torch.arange(R * E, device=dev)
-    out = torch.empty((4, n), dtype=torch.int32, device=dev)
-    out[:, slot] = torch.stack([
-        (lane // E)[flat].int(), (lane % E)[flat].int(),
-        bt.reshape(-1)[flat], mm.reshape(-1)[flat]])
-    return out.cpu().numpy()
-
-
 def realign_events_sparse(genome, readsg, lengths, events, max_mm: int):
     """Flat-result realignment for the production candidate path: returns
-    (rows, evs, best_t, mm) numpy arrays of the passing (row, event)
-    pairs only — q-groups in np.unique order, row-major within a group."""
+    (rows, evs, best_t, mm) numpy arrays of the passing (row, event) pairs
+    of valid events only — q-groups in np.unique order, row-major within a
+    group. On the card no (R, E) table is made: the kernel writes the
+    records (realign_group_sparse)."""
     R = readsg.shape[0]
     E = len(events["left"])
     z = np.zeros(0, np.int32)
@@ -93,9 +78,10 @@ def realign_events_sparse(genome, readsg, lengths, events, max_mm: int):
         return z, z.copy(), z.copy(), z.copy()
     valid = np.asarray(events["valid"]).astype(bool)
     acc = ([], [], [], [])
-    for idx, bt, m, o in _groups(genome, readsg, lengths, events, max_mm):
-        vsel = torch.as_tensor(valid[idx], device=o.device)
-        rj, ej, tj, mj = _pack_sparse(bt, m, o & vsel[None, :])
+    for idx, q, args in _groups(genome, readsg, lengths, events):
+        vsel = torch.as_tensor(valid[idx], device=genome.device)
+        rj, ej, tj, mj = realign_group_sparse(*args, q, max_mm,
+                                              vsel).cpu().numpy()
         acc[0].append(rj)
         acc[1].append(idx[ej].astype(np.int32))
         acc[2].append(tj)

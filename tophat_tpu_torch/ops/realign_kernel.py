@@ -14,9 +14,10 @@ are equal and lie in 0..7 — the TPU kernel's 8-channel one-hot rule, under
 which a read N matches a genome N (the conv reference realign_chunk, with
 4 channels, counts that as a mismatch; the port follows the kernel).
 
-realign_group takes the kernel for CUDA tensors and the plain torch
-version (an fp32 one-hot matmul per split point, exact below 2^24) for CPU
-tensors; there is no other fallback.
+realign_group (dense (R, E) tables) and realign_group_sparse (the records
+of the ok pairs only, row-major) take the kernel for CUDA tensors and the
+plain torch version (an fp32 one-hot matmul per split point, exact below
+2^24) for CPU tensors; there is no other fallback.
 """
 
 from __future__ import annotations
@@ -64,7 +65,7 @@ def build() -> ctypes.CDLL:
     p = ctypes.c_void_p
     i = ctypes.c_int
     lib.realign_launch.argtypes = [p, p, p, p, i, i, i, i, i, p, p, p, p,
-                                   p]
+                                   p, i, p, p, p]
     lib.realign_launch.restype = i
     lib.realign_scratch_words.argtypes = [i, i, i]
     lib.realign_scratch_words.restype = ctypes.c_longlong
@@ -122,22 +123,34 @@ def realign_plain(reads, lengths, flank_l, comb, q: int, max_mm: int):
     return best_t.int(), torch.where(ok, best, BIG).int(), ok
 
 
-def realign_group(reads, lengths, flank_l, comb, q: int, max_mm: int):
-    """(best_t, mm, ok), each (R, E), for one insertion-length group.
+def pack_sparse(bt, mm, ok):
+    """The ok entries of an (R, E) result as a (4, n) int32 tensor of
+    (row, event, best_t, mm) in row-major order: cumsum slots and a masked
+    scatter, on the tables' device."""
+    R, E = ok.shape
+    dev = ok.device
+    flat = ok.reshape(-1)
+    csum = torch.cumsum(flat.long(), 0)
+    n = int(csum[-1]) if csum.numel() else 0
+    slot = (csum - 1)[flat]
+    lane = torch.arange(R * E, device=dev)
+    out = torch.empty((4, n), dtype=torch.int32, device=dev)
+    out[:, slot] = torch.stack([
+        (lane // E)[flat].int(), (lane % E)[flat].int(),
+        bt.reshape(-1)[flat], mm.reshape(-1)[flat]])
+    return out
 
-    reads: (R, L) int8 codes (-1 padded); lengths: (R,) int32;
-    flank_l, comb: (E, L) int8 from prepare_targets. Any width L >= 1
-    (rows wider than 256 take the kernel's wide path, which needs a device
-    scratch buffer for the bit planes). CUDA tensors launch the kernel on
-    the current stream; CPU tensors take realign_plain."""
-    if reads.device.type == "cpu":
-        return realign_plain(reads, lengths, flank_l, comb, q, max_mm)
+
+def _check(reads, lengths, flank_l, comb, q: int, valid=None):
     R, L = reads.shape
     E = flank_l.shape[0]
-    for name, x, dt, shape in (("reads", reads, torch.int8, (R, L)),
-                               ("lengths", lengths, torch.int32, (R,)),
-                               ("flank_l", flank_l, torch.int8, (E, L)),
-                               ("comb", comb, torch.int8, (E, L))):
+    args = [("reads", reads, torch.int8, (R, L)),
+            ("lengths", lengths, torch.int32, (R,)),
+            ("flank_l", flank_l, torch.int8, (E, L)),
+            ("comb", comb, torch.int8, (E, L))]
+    if valid is not None:
+        args.append(("valid", valid, torch.bool, (E,)))
+    for name, x, dt, shape in args:
         if x.device != reads.device or x.device.type != "cuda":
             raise ValueError(f"{name}: expected a CUDA tensor on "
                              f"{reads.device}, got {x.device}")
@@ -150,25 +163,95 @@ def realign_group(reads, lengths, flank_l, comb, q: int, max_mm: int):
         raise ValueError(f"row width {L} < 1")
     if not 0 <= q < L:
         raise ValueError(f"insertion length {q} outside 0..{L - 1}")
-    best_t = torch.empty((R, E), dtype=torch.int32, device=reads.device)
-    mm = torch.empty((R, E), dtype=torch.int32, device=reads.device)
-    ok = torch.empty((R, E), dtype=torch.bool, device=reads.device)
-    if R == 0 or E == 0:
-        return best_t, mm, ok
+
+
+def _launch(reads, lengths, flank_l, comb, q: int, max_mm: int,
+            dense=(None, None, None), sparse=(None, None, 0, None)):
+    """One kernel launch on the current stream: dense = (best_t, mm, ok)
+    tables, or sparse = (valid, records (4, cap), cap, count (1,))."""
+    R, L = reads.shape
+    E = flank_l.shape[0]
     lib = build()
     scratch = torch.empty(max(1, lib.realign_scratch_words(R, E, L)),
                           dtype=torch.int32, device=reads.device)
-    with torch.cuda.device(reads.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = lib.realign_launch(
-            reads.data_ptr(), lengths.data_ptr(), flank_l.data_ptr(),
-            comb.data_ptr(), R, E, L, q, max_mm, best_t.data_ptr(),
-            mm.data_ptr(), ok.data_ptr(), scratch.data_ptr(), stream)
+    ptr = lambda x: None if x is None else x.data_ptr()
+    valid, rec, cap, count = sparse
+    args = (reads.data_ptr(), lengths.data_ptr(), flank_l.data_ptr(),
+            comb.data_ptr(), R, E, L, q, max_mm, ptr(dense[0]),
+            ptr(dense[1]), ptr(dense[2]), ptr(valid), ptr(rec), cap,
+            ptr(count), scratch.data_ptr())
+    if reads.device.index == torch.cuda.current_device():
+        rc = lib.realign_launch(*args, torch.cuda.current_stream().cuda_stream)
+    else:
+        with torch.cuda.device(reads.device):
+            rc = lib.realign_launch(
+                *args, torch.cuda.current_stream().cuda_stream)
     if rc != 0:
         raise RuntimeError("realign kernel launch failed: "
                            + lib.realign_error_string(rc).decode())
+
+
+def realign_group(reads, lengths, flank_l, comb, q: int, max_mm: int):
+    """(best_t, mm, ok), each (R, E), for one insertion-length group.
+
+    reads: (R, L) int8 codes (-1 padded); lengths: (R,) int32 in 0..L;
+    flank_l, comb: (E, L) int8 from prepare_targets. Any width L >= 1
+    (rows up to 256 wide take the kernel's tensor-core path, wider rows
+    its bit-plane path; each needs a device scratch buffer). CUDA tensors
+    launch the kernel on the current stream; CPU tensors take
+    realign_plain."""
+    if reads.device.type == "cpu":
+        return realign_plain(reads, lengths, flank_l, comb, q, max_mm)
+    _check(reads, lengths, flank_l, comb, q)
+    R, E = reads.shape[0], flank_l.shape[0]
+    dev = reads.device
+    best_t = torch.empty((R, E), dtype=torch.int32, device=dev)
+    mm = torch.empty((R, E), dtype=torch.int32, device=dev)
+    ok = torch.empty((R, E), dtype=torch.bool, device=dev)
+    if R == 0 or E == 0:
+        return best_t, mm, ok
+    _launch(reads, lengths, flank_l, comb, q, max_mm, dense=(best_t, mm, ok))
     realign_group.launches += 1
     return best_t, mm, ok
 
 
 realign_group.launches = 0
+
+
+def realign_group_sparse(reads, lengths, flank_l, comb, q: int, max_mm: int,
+                         valid):
+    """The ok pairs of one insertion-length group whose event is `valid`
+    ((E,) bool), as a (4, n) int32 tensor (row, event, best_t, mm),
+    row-major: what pack_sparse makes of realign_group's tables, without
+    the (R, E) tables. CUDA tensors launch the kernel's sparse epilogue
+    (records appended, then sorted on row * E + event; if more records
+    than the buffer holds were found, it relaunches with room for all of
+    them, and later calls start with that room); CPU tensors take
+    realign_plain and pack_sparse."""
+    if reads.device.type == "cpu":
+        bt, mm, ok = realign_plain(reads, lengths, flank_l, comb, q, max_mm)
+        return pack_sparse(bt, mm, ok & valid.to(ok.device)[None, :])
+    _check(reads, lengths, flank_l, comb, q, valid)
+    R, E = reads.shape[0], flank_l.shape[0]
+    dev = reads.device
+    if R == 0 or E == 0:
+        return torch.empty((4, 0), dtype=torch.int32, device=dev)
+    cap = min(R * E, max(4096, 2 * R, realign_group_sparse.cap_hint))
+    while True:
+        rec = torch.empty((4, cap), dtype=torch.int32, device=dev)
+        count = torch.zeros(1, dtype=torch.int32, device=dev)
+        _launch(reads, lengths, flank_l, comb, q, max_mm,
+                sparse=(valid, rec, cap, count))
+        realign_group_sparse.launches += 1
+        n = int(count.item())
+        if n <= cap:
+            break
+        cap = realign_group_sparse.cap_hint = n
+    rec = rec[:, :n]
+    # row * E + event is unique to a pair: any sort gives one order
+    key = (rec[0] if R * E < 2 ** 31 else rec[0].long()) * E + rec[1]
+    return rec[:, torch.sort(key).indices]
+
+
+realign_group_sparse.launches = 0
+realign_group_sparse.cap_hint = 0   # the most records one call has found

@@ -48,6 +48,7 @@ from tophat_tpu_torch.pipeline.report import (Candidate,
                                               write_outputs_multi)
 from tophat_tpu_torch.pipeline.segment import (build_genome_space,
                                                map_segments)
+from tophat_tpu_torch.utils.device import resolve_device
 
 # unported modes -> the ROADMAP Queue 1 item that ports them
 _UNPORTED = (
@@ -64,17 +65,6 @@ def check_supported(params: Params) -> None:
             raise NotImplementedError(
                 f"{flag} is not ported to tophat_tpu_torch yet "
                 f"(ROADMAP Queue 1: {item})")
-
-
-def resolve_device(device) -> torch.device:
-    """torch.device for `device`; a CUDA request without CUDA raises (the
-    port never falls back to the CPU on its own)."""
-    dev = torch.device(device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            f"device {device!r} requested but torch.cuda.is_available() is "
-            "false; pass device='cpu' to run on the CPU")
-    return dev
 
 
 def revcomp_rows(codes: np.ndarray, lengths: np.ndarray) -> np.ndarray:
