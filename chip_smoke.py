@@ -27,11 +27,26 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      its plain version, then a timed run with stage seconds; fails if
      mate-1 junction-read recall is under 100% or that run launched no
      sparse realign kernel
-  7. on a 2^21 + 4096-base slice: the paired default mode and a single-end
-     run with the butterfly and microexon searches, on the card and on the
-     CPU, which must write identical files
-Launches in the kernels line are summed over phases 4 and 6 (each counted
-from 0 just before its timed run), max_abs_err over every check.
+  7. on a 2^21 + 4096-base slice: the paired default mode, a single-end
+     run with the butterfly and microexon searches, and through the CLI a
+     -G paired run (120 synthetic genes), a --b2 single-end run and a -C
+     run from colorspace FASTQ, on the card and on the CPU, which must
+     write identical files
+  8. TopHat's annotated default run through the CLI (-G genes.gtf
+     --transcriptome-index, paired, coverage search on) on the phase-4
+     genome: a synthetic annotation of 21,000 transcripts (~50,000
+     introns) and 32,768 pairs; a run that builds the transcriptome files
+     and index and holds every realign call against its plain version,
+     then a timed run with stage seconds, E, every realign call's R and E
+     and peak device memory; fails under 100% recall, with no sparse
+     realign launch, or with E < 30,000
+  9. bowtie2 mode (--b2 --no-coverage-search) single-end on the same
+     genome, 32,768 reads (25% spliced, 10% with a 1-2 bp indel): a
+     checked run, then a timed run with the gapped stage's seconds and
+     placements; fails under 100% junction or indel-read recall or with
+     no gapped placement
+Launches in the kernels line are summed over phases 4, 6, 8 and 9 (each
+counted from 0 just before its timed run), max_abs_err over every check.
 Standard output ends with four lines: the measured numbers (JSON), the
 kernels (JSON), the nvidia-smi name/power line, and the result JSON.
 """
@@ -147,6 +162,8 @@ def realign_case(R: int, E: int, L: int, q: int, seed: int):
     return t(reads).contiguous(), t(lengths), flank_l, comb
 
 
+ANNOTATED_E = 49998         # phase 8's event count (49,929 annotated introns
+#                             and the discovered events)
 INT8_OPS_PER_S = 1.979e15   # H100 SXM dense int8 tensor-core peak
 BYTES_PER_S = 3.35e12       # H100 SXM HBM3
 
@@ -212,11 +229,12 @@ def phase_kernels():
 
     # the main path's widths, then wider rows (150-bp reads on the fast
     # path; 300 and 1,000 positions on the wide path, which has no cap),
-    # the main path's own shape and an event table of a real
-    # transcriptome's size
+    # the main path's own shape, an event table of a real transcriptome's
+    # size, and the annotated run's (phase 8) own shape
     cases = [(16384, 128, 100, 0), (16384, 128, 100, 3), (16384, 128, 25, 0),
              (8192, 128, 150, 0), (8192, 128, 300, 3), (8192, 128, 1000, 0),
-             (8192, 69, 100, 0), (8192, 4096, 100, 0)]
+             (8192, 69, 100, 0), (8192, 4096, 100, 0),
+             (4096, ANNOTATED_E, 100, 0)]
     report = []
     for ci, (R, E, L, q) in enumerate(cases):
         shape = f"R={R} E={E} L={L} q={q}"
@@ -251,7 +269,9 @@ def phase_kernels():
                    sparse_ms=sparse_ms, plain_ms=plain_ms, bound_ms=bound_ms,
                    bound_by=bound_by, share_of_bound=bound_ms / ms,
                    library_ms=None, library_exact=None)
-        if L == 100:
+        if L == 100 and R * E * (L + 1) * 2 < 16e9:
+            # (the yardstick's fp16 (E, R, L + 1) match volume: 41 GB at
+            # the annotated run's shape, so no yardstick there)
             lib = conv_yardstick(*args, q, 8)
             row["library_exact"] = all(torch.equal(a, b)
                                        for a, b in zip(lib, ref))
@@ -308,32 +328,68 @@ class RealignHooks:
             self.saved
 
 
+E_SLICE = 4096     # events per plain-version call in hold_realign
+
+
+def realign_call_shape(kind, args):
+    """'kind R=.. E=.. L=.. q=..' of one call to a realign entry."""
+    return (f"{kind} R={args[0].shape[0]} E={args[2].shape[0]} "
+            f"L={args[0].shape[1]} q={args[4]}")
+
+
 def hold_realign(kind, args, got):
     """Hold one realign call of the main path against realign_plain:
     a dense call's tables directly; a sparse call's records against
     pack_sparse of the plain tables, and the dense entry on the same
-    inputs too. Returns (max abs error of the dense tables, shape)."""
+    inputs too. The plain version runs on slices of E_SLICE events (its
+    (R, E) int64 tables at an annotation's E would take tens of GB).
+    Returns (max abs error of the dense tables, the call's shape)."""
     import torch
 
     from tophat_tpu_torch.ops.realign_kernel import (pack_sparse,
                                                      realign_group,
                                                      realign_plain)
 
-    plain_args = args[:6]
-    ref = realign_plain(*plain_args)
-    dense = got if kind == "dense" else realign_group(*plain_args)
-    err = max_err(dense, ref)
-    shape = (f"R={args[0].shape[0]} E={args[2].shape[0]} "
-             f"L={args[0].shape[1]} q={args[4]}")
-    if err or not all(torch.equal(a, b) for a, b in zip(dense, ref)):
-        fail(f"realign kernel disagrees with its plain version on the main "
-             f"path's inputs {shape} (max abs err {err})")
+    reads, lengths, flank_l, comb, q, max_mm = args[:6]
+    R, E = reads.shape[0], flank_l.shape[0]
+    dense = got if kind == "dense" else realign_group(*args[:6])
+    shape = realign_call_shape(kind, args)
+    err, recs = 0, []
+    for e0 in range(0, E, E_SLICE):
+        e1 = min(E, e0 + E_SLICE)
+        ref = realign_plain(reads, lengths, flank_l[e0:e1], comb[e0:e1], q,
+                            max_mm)
+        part = tuple(x[:, e0:e1] for x in dense)
+        err = max(err, max_err(part, ref))
+        if err or not all(torch.equal(a, b) for a, b in zip(part, ref)):
+            fail(f"realign kernel disagrees with its plain version on the "
+                 f"main path's inputs {shape} (max abs err {err})")
+        if kind == "sparse":
+            rec = pack_sparse(ref[0], ref[1], ref[2] & args[6][None, e0:e1])
+            rec[1] += e0
+            recs.append(rec)
     if kind == "sparse":
-        ref_s = pack_sparse(ref[0], ref[1], ref[2] & args[6][None, :])
+        ref_s = (torch.cat(recs, 1) if recs else
+                 torch.empty((4, 0), dtype=torch.int32, device=reads.device))
+        ref_s = ref_s[:, torch.argsort(ref_s[0].long() * E + ref_s[1])]
         if not torch.equal(got, ref_s):
             fail(f"sparse realign entry disagrees with the packed plain "
                  f"result on the main path's inputs {shape}")
     return err, shape
+
+
+class PathCheck:
+    """RealignHooks' on_call for a checked run: holds every realign call
+    against the plain version (hold_realign), keeping the largest error
+    and each call's shape."""
+
+    def __init__(self):
+        self.err, self.shapes = 0, []
+
+    def __call__(self, kind, args, out):
+        err, shape = hold_realign(kind, args, out)
+        self.err = max(self.err, err)
+        self.shapes.append(shape)
 
 
 # ---------------------------------------------------------------- phase 4
@@ -455,13 +511,11 @@ def phase_spliced():
     log(f"warm run (index build or load included): {warm_s:.1f} s")
     if not any(kind == "sparse" for kind, _, _ in calls):
         fail("the warm run made no sparse realign call")
-    path_err, shapes = 0, []
+    check = PathCheck()
     for kind, args, got in calls:
-        err, shape = hold_realign(kind, args, got)
-        path_err = max(path_err, err)
-        shapes.append(f"{kind} {shape}")
+        check(kind, args, got)
     log("realign on the main path's own inputs: exact in "
-        + ", ".join(shapes))
+        + ", ".join(check.shapes))
 
     out = os.path.join(CACHE, "out_steady")
     realign_launches(reset=True)
@@ -487,7 +541,7 @@ def phase_spliced():
         fail(f"junction-read recall {recall:.2f}% < 100%")
     return dict(steady_s=steady_s, reads_per_s=N_READS / steady_s,
                 recall_pct=recall, warm_s=warm_s, launches=launches,
-                path_err=path_err,
+                path_err=check.err,
                 index=index + ".tt.npz", codes=codes, juncs=juncs)
 
 
@@ -612,11 +666,13 @@ def make_pairs(codes, juncs, seed: int, n_pairs: int):
 
 
 class StageClock:
-    """Seconds per stage: wraps functions (module or class attributes) with
-    a timer that synchronizes the card before and after each call."""
+    """Seconds and calls per stage: wraps functions (module or class
+    attributes) with a timer that synchronizes the card before and after
+    each call."""
 
     def __init__(self):
         self.seconds = {}
+        self.calls = {}
         self._undo = []
 
     def wrap(self, owner, name: str, label: str):
@@ -634,6 +690,7 @@ class StageClock:
                 torch.cuda.synchronize()
                 self.seconds[label] = (self.seconds.get(label, 0.0)
                                        + time.perf_counter() - t0)
+                self.calls[label] = self.calls.get(label, 0) + 1
 
         setattr(owner, name, timed)
         self._undo.append((owner, name, saved))
@@ -642,6 +699,10 @@ class StageClock:
         for owner, name, saved in reversed(self._undo):
             setattr(owner, name, saved)
         self._undo.clear()
+
+
+def calls_note(n) -> str:
+    return f" ({n} calls)" if n else ""
 
 
 def align_summary_pairs(path):
@@ -681,13 +742,7 @@ def phase_paired(codes, juncs, index):
         f"({time.time() - t0:.1f} s)")
     argv = lambda out, reads: ["-o", out, "--tt-index", index, fa] + reads
 
-    path_err = [0]
-    checked = []
-
-    def check(kind, args, out):
-        err, shape = hold_realign(kind, args, out)
-        path_err[0] = max(path_err[0], err)
-        checked.append(f"{kind} {shape}")
+    check = PathCheck()
 
     t0 = time.time()
     with RealignHooks(events, check):
@@ -695,8 +750,8 @@ def phase_paired(codes, juncs, index):
                          argv(os.path.join(CACHE, "pairs_out_check"),
                               fqs["check"]))
     log(f"paired check run: {time.time() - t0:.1f} s; realign exact in "
-        f"{len(checked)} calls: " + ", ".join(checked))
-    if not any(c.startswith("sparse") for c in checked):
+        f"{len(check.shapes)} calls: " + ", ".join(check.shapes))
+    if not any(c.startswith("sparse") for c in check.shapes):
         fail("the paired check run made no sparse realign call")
 
     clock = StageClock()
@@ -729,8 +784,7 @@ def phase_paired(codes, juncs, index):
     t0 = time.time()
     try:
         with RealignHooks(events, lambda kind, args, _: calls.append(
-                f"{kind} R={args[0].shape[0]} E={args[2].shape[0]} "
-                f"L={args[0].shape[1]} q={args[4]}")):
+                realign_call_shape(kind, args))):
             cli_main_checked(cli_mod.main, argv(out, fqs["steady"]))
         torch.cuda.synchronize()
         wall = time.time() - t0
@@ -752,7 +806,7 @@ def phase_paired(codes, juncs, index):
         f"sparse); peak device "
         f"memory {peak / 2**30:.3f} GiB")
     for k, s in stages.items():
-        log(f"  stage {k}: {s:.3f} s")
+        log(f"  stage {k}: {s:.3f} s" + calls_note(clock.calls.get(k)))
     log(f"  realign calls: " + ", ".join(calls))
     log(f"paired: junction-read recall (mate 1) {recall:.2f}%; both mates "
         f"aligned {100.0 * aligned / N_PAIRS:.2f}% of pairs; concordant "
@@ -764,13 +818,13 @@ def phase_paired(codes, juncs, index):
     if recall < 100.0:
         fail(f"paired: junction-read recall {recall:.2f}% < 100%")
     return dict(wall_s=wall, pairs_per_s=N_PAIRS / wall, recall_pct=recall,
-                launches=launches, path_err=path_err[0],
+                launches=launches, path_err=check.err,
                 events=n_events[0] if n_events else 0,
                 realign_calls=calls, peak_device_bytes=peak,
                 both_aligned_pct=100.0 * aligned / N_PAIRS,
                 concordant_pct=100.0 * (aligned - disc) / N_PAIRS,
                 coverage_search_s=stages.get("coverage search", 0.0),
-                stages=stages)
+                stages=stages, stage_calls=clock.calls)
 
 
 def cli_main_checked(cli_main, argv):
@@ -778,6 +832,196 @@ def cli_main_checked(cli_main, argv):
     if rc != 0:
         fail(f"CLI run {argv[1]} returned {rc}")
     return rc
+
+
+# ------------------------------------------------------------ phases 8, 9
+
+def _motif(codes, a: int, b: int):
+    """Sorted positions i with codes[i], codes[i + 1] == a, b."""
+    return np.nonzero((codes[:-1] == a) & (codes[1:] == b))[0]
+
+
+def make_annotation(codes, avoid, n_genes: int, seed: int = 29,
+                    chrom: str = "chr1"):
+    """A synthetic GTF of the order of a Drosophila annotation (FlyBase r6:
+    tens of thousands of transcripts) on `codes`: n_genes non-overlapping
+    genes, alternating strands, 3-8 exons of 50-300 bp; introns of 70-5,000
+    bp (log-uniform) at naturally occurring GT..AG (CT..AC on the forward
+    strand for '-' genes), found as pick_junctions finds its introns. Each
+    gene has 2-3 isoforms: every exon; one internal exon skipped; for every
+    other gene another internal exon skipped (the first exon dropped when
+    there is only one internal exon). No intron equals one in `avoid`
+    ((left, right) pairs). Returns (GTF text, transcripts [(exons [start,
+    end) 0-based), ...], the distinct introns)."""
+    rng = np.random.default_rng(seed)
+    motifs = {"+": (_motif(codes, 2, 3), _motif(codes, 0, 2)),
+              "-": (_motif(codes, 1, 3), _motif(codes, 0, 1))}
+    avoid = set(avoid)
+    lines, transcripts, introns = [], [], set()
+    p = 5000
+    gi = 0
+    while gi < n_genes:
+        if p + 60000 >= len(codes):
+            fail(f"annotation: the genome holds only {gi} genes")
+        strand = "+" if gi % 2 == 0 else "-"
+        starts, ends = motifs[strand]
+        k = int(rng.integers(3, 9))
+        exons, s = [], p
+        for j in range(k - 1):
+            lo = np.searchsorted(starts, s + 50)
+            hi = np.searchsorted(starts, s + 301)
+            if hi <= lo:
+                break
+            d = int(starts[int(rng.integers(lo, hi))])   # intron start
+            target = int(np.exp(rng.uniform(np.log(70), np.log(5000))))
+            a_lo = np.searchsorted(ends, d + max(target, 70) - 2)
+            if a_lo >= len(ends) or ends[a_lo] + 2 - d > 5000:
+                break
+            exons.append((s, d))
+            s = int(ends[a_lo]) + 2                     # next exon start
+        else:
+            exons.append((s, s + int(rng.integers(50, 301))))
+        if len(exons) != k:
+            p = exons[-1][1] + 100 if exons else p + 100
+            continue
+        skip = int(rng.integers(1, k - 1))
+        isoforms = [exons, exons[:skip] + exons[skip + 1:]]
+        if gi % 2 == 0:
+            if k >= 4:
+                other = [j for j in range(1, k - 1) if j != skip]
+                j2 = other[int(rng.integers(0, len(other)))]
+                isoforms.append(exons[:j2] + exons[j2 + 1:])
+            else:
+                isoforms.append(exons[1:])
+        gene_introns = {(e1 - 1, s2) for ex in isoforms
+                        for (_, e1), (s2, _) in zip(ex, ex[1:])}
+        if gene_introns & avoid:
+            p = exons[-1][1] + 100
+            continue
+        introns |= gene_introns
+        for ti, ex in enumerate(isoforms):
+            tid = f"g{gi}.{ti + 1}"
+            lines += [f'{chrom}\tsmoke\texon\t{a + 1}\t{b}\t.\t{strand}\t.\t'
+                      f'gene_id "g{gi}"; transcript_id "{tid}";\n'
+                      for a, b in ex]
+            transcripts.append(ex)
+        p = exons[-1][1] + int(rng.integers(300, 3000))
+        gi += 1
+    return "".join(lines), transcripts, introns
+
+
+def make_annotated_pairs(codes, transcripts, juncs, seed: int, n_pairs: int):
+    """Mate pairs of 2 x READ_LEN bp for the annotated run, inner distance
+    from N(50, 20) clipped at 0, mate 2 the reverse complement downstream
+    of mate 1: in 50% of pairs (i % 10 < 5) both mates are a fragment of an
+    annotated transcript (in transcript space, mates swapped in every other
+    such pair); in 10% (i % 10 == 5) mate 1 crosses one of `juncs` (none
+    annotated) with >= 20 bp on each side; the rest are contiguous with one
+    mismatch per mate. Returns (m1, m2, spans (n, 2) bool: the mate crosses
+    an annotated junction, unannotated (n,) bool)."""
+    from tophat_tpu_torch.index.fasta import revcomp
+
+    r = np.random.default_rng(seed)
+    L = READ_LEN
+    seqs = [np.concatenate([codes[a:b] for a, b in ex]) for ex in transcripts]
+    cuts = [np.cumsum([b - a for a, b in ex])[:-1] for ex in transcripts]
+    juncs = [j for j in juncs if j[1] + 3 * L + 400 < len(codes)]
+    m1 = np.empty((n_pairs, L), np.int8)
+    m2 = np.empty((n_pairs, L), np.int8)
+    spans = np.zeros((n_pairs, 2), bool)
+    unannotated = np.zeros(n_pairs, bool)
+    for i in range(n_pairs):
+        inner = max(0, int(round(r.normal(50, 20))))
+        kind = i % 10
+        if kind < 5:
+            while True:
+                ti = int(r.integers(0, len(seqs)))
+                if len(seqs[ti]) >= 2 * L + inner:
+                    break
+            s = int(r.integers(0, len(seqs[ti]) - 2 * L - inner + 1))
+            e2 = s + L + inner
+            a, b = seqs[ti][s:s + L], revcomp(seqs[ti][e2:e2 + L])
+            sp = (bool(((cuts[ti] > s) & (cuts[ti] < s + L)).any()),
+                  bool(((cuts[ti] > e2) & (cuts[ti] < e2 + L)).any()))
+            if (i // 10) % 2:
+                a, b, sp = b, a, sp[::-1]
+            m1[i], m2[i], spans[i] = a, b, sp
+        elif kind == 5:
+            left, right = juncs[int(r.integers(0, len(juncs)))]
+            t = int(r.integers(20, L - 19))
+            m1[i] = np.concatenate([codes[left - t + 1:left + 1],
+                                    codes[right:right + L - t]])
+            s2 = right + L - t + inner
+            m2[i] = revcomp(codes[s2:s2 + L])
+            unannotated[i] = True
+        else:
+            s = int(r.integers(0, len(codes) - 3 * L - 400))
+            a = codes[s:s + L].copy()
+            b = codes[s + L + inner:s + 2 * L + inner].copy()
+            for x in (a, b):
+                p = int(r.integers(0, L))
+                x[p] = (x[p] + 1) % 4
+            m1[i], m2[i] = a, revcomp(b)
+    return m1, m2, spans, unannotated
+
+
+def make_b2_reads(codes, juncs, seed: int, n_reads: int):
+    """Single-end READ_LEN-bp reads for bowtie2 mode: 25% (i % 20 < 5) cross
+    one of `juncs` (30-69 bp before the junction); 10% (i % 20 in 5, 6)
+    carry a 1-2 bp deletion (i % 20 == 5) or insertion (== 6) 30-70 bp into
+    the read, and no mismatch; the rest are contiguous with one mismatch.
+    (TopHat's default --read-gap-length 2 caps the gapped aligner's gaps at
+    2 bp: 3-bp indels it leaves to the segment search, which finds few of
+    them in the JAX package and the port alike.)
+    Returns (seqs, junction read ids, {indel read id: true 0-based start})."""
+    r = np.random.default_rng(seed)
+    L = READ_LEN
+    seqs = np.empty((n_reads, L), np.int8)
+    spliced, indel = [], {}
+    for i in range(n_reads):
+        kind = i % 20
+        if kind < 5:
+            left, right = juncs[int(r.integers(0, len(juncs)))]
+            t = int(r.integers(30, 70))
+            seqs[i] = np.concatenate([codes[left - t + 1:left + 1],
+                                      codes[right:right + L - t]])
+            spliced.append(i)
+            continue
+        s = int(r.integers(0, len(codes) - L - 10))
+        if kind in (5, 6):
+            p, d = int(r.integers(30, 71)), int(r.integers(1, 3))
+            if kind == 5:
+                seqs[i] = np.concatenate([codes[s:s + p],
+                                          codes[s + p + d:s + L + d]])
+            else:
+                ins = (codes[s + p - 1] + 1 + r.integers(0, 3, d)) % 4
+                seqs[i] = np.concatenate([codes[s:s + p], ins.astype(np.int8),
+                                          codes[s + p:s + L - d]])
+            indel[i] = s
+            continue
+        seqs[i] = codes[s:s + L]
+        p = int(r.integers(0, L))
+        seqs[i, p] = (seqs[i, p] + 1) % 4
+    return seqs, spliced, indel
+
+
+def n_cigar_reads(sam_path, op: str = "N"):
+    """{(name, mate)} of the records whose CIGAR has `op`; mate is 1 or 2
+    for paired records (flag 0x40 / 0x80), 0 otherwise; with the record's
+    0-based position as a third element when op is "ID"."""
+    got = set()
+    with open(sam_path) as f:
+        for line in f:
+            if line.startswith("@"):
+                continue
+            t = line.split("\t", 6)
+            if not any(c in t[5] for c in op):
+                continue
+            flag = int(t[1])
+            mate = 1 if flag & 0x40 else 2 if flag & 0x80 else 0
+            got.add((t[0], mate) if op == "N"
+                    else (t[0], mate, int(t[3]) - 1))
+    return got
 
 
 # ---------------------------------------------------------------- phase 7
@@ -837,6 +1081,363 @@ def phase_small_search_modes(codes, devices=("cuda", "cpu")):
         f"recall {recall_p:.2f}% / {recall_s:.2f}%")
 
 
+def write_color_fastq(path, seqs, seed: int):
+    """Colorspace FASTQ of base-space reads: primer T, then one color per
+    base (the transition from the previous base); every third read carries
+    one isolated color error."""
+    r = np.random.default_rng(seed)
+    with open(path, "w") as f:
+        for i, s in enumerate(seqs):
+            cols = (np.concatenate([[3], s[:-1]]) ^ s).astype(np.int8)
+            if i % 3 == 1:
+                cols[int(r.integers(5, len(s) - 5))] ^= int(r.integers(1, 4))
+            f.write(f"@c{i}\nT{''.join(map(str, cols))}\n+\n"
+                    f"{'I' * (len(s) + 1)}\n")
+
+
+def phase_small_slice_modes(codes, devices=("cuda", "cpu")):
+    """On the first 2^21 + 4096 bases, through the CLI on the card and on
+    the CPU: a -G paired run (120 synthetic genes, 2,048 pairs, the
+    coverage search on), a --b2 single-end run (2,048 reads, 10% with a
+    1-2 bp indel) and a -C single-end run from colorspace FASTQ (2,048
+    reads, a third with a color error). Colorspace is held only here: a
+    full-width run would build a second 2^27-base index for a legacy
+    input. Every output file must be byte-identical."""
+    from tophat_tpu_torch.cli.main import main as cli_main
+
+    small = codes[:(1 << 21) + 4096]
+    juncs = pick_junctions(small, 16)
+    d = os.path.join(CACHE, "slice")
+    os.makedirs(d, exist_ok=True)
+    fa = os.path.join(d, "genome.fa")
+    write_fasta(fa, small)
+    gtf_text, transcripts, _ = make_annotation(small, juncs, 120, seed=31)
+    gtf = os.path.join(d, "genes.gtf")
+    with open(gtf, "w") as f:
+        f.write(gtf_text)
+    m1, m2, spans, unannotated = make_annotated_pairs(small, transcripts,
+                                                      juncs, 33, SMALL_PAIRS)
+    fq1, fq2 = (os.path.join(d, f"pairs_{k}.fq") for k in (1, 2))
+    write_fastq(fq1, m1, "p")
+    write_fastq(fq2, m2, "p")
+    b2_seqs, b2_spliced, b2_indel = make_b2_reads(small, juncs, 35,
+                                                  SMALL_PAIRS)
+    b2_fq = os.path.join(d, "b2.fq")
+    write_fastq(b2_fq, b2_seqs)
+    color_fq = os.path.join(d, "color.fq")
+    write_color_fastq(color_fq, make_reads(small, juncs, 37, SMALL_PAIRS), 39)
+    runs = {"gtf": ["-G", gtf, fa, fq1, fq2],
+            "b2": ["--b2", "--no-coverage-search", fa, b2_fq],
+            "color": ["-C", "--no-coverage-search", fa, color_fq]}
+    for dev in devices:
+        t0 = time.time()
+        for name, args in runs.items():
+            cli_main_checked(cli_main, ["-o", os.path.join(d, f"{name}_{dev}"),
+                                        "--device", dev] + args)
+        log(f"small -G / --b2 / -C runs on {dev}: {time.time() - t0:.1f} s")
+    a, b = devices
+    for name in runs:
+        for f in ("accepted_hits.sam", "junctions.bed", "insertions.bed",
+                  "deletions.bed") + (("align_summary.txt",)
+                                      if name == "gtf" else ()):
+            with open(os.path.join(d, f"{name}_{a}", f), "rb") as x, \
+                    open(os.path.join(d, f"{name}_{b}", f), "rb") as y:
+                if x.read() != y.read():
+                    fail(f"small input, {name} run: {f} differs between {a} "
+                         f"and {b}")
+    got = n_cigar_reads(os.path.join(d, f"gtf_{a}", "accepted_hits.sam"))
+    missed = sum(1 for i, m in zip(*np.nonzero(spans))
+                 if (f"p{i}", int(m) + 1) not in got)
+    missed += sum(1 for i in np.nonzero(unannotated)[0]
+                  if (f"p{i}", 1) not in got)
+    sam = os.path.join(d, f"b2_{a}", "accepted_hits.sam")
+    got_n, got_id = n_cigar_reads(sam), n_cigar_reads(sam, "ID")
+    missed_b2 = sum(1 for i in b2_spliced if (f"r{i}", 0) not in got_n)
+    missed_b2 += sum(1 for i, st in b2_indel.items()
+                     if (f"r{i}", 0, st) not in got_id)
+    with open(os.path.join(d, f"color_{a}", "accepted_hits.sam")) as f:
+        color_names = {ln.split("\t", 1)[0] for ln in f}
+    # contiguous reads (one SNP: two adjacent color mismatches) without a
+    # color error must align color-natively
+    missed_c = sum(1 for i in range(SMALL_PAIRS)
+                   if i % 4 and i % 3 != 1 and f"c{i}" not in color_names)
+    n_color = len(color_names)
+    if missed or missed_b2 or missed_c:
+        fail(f"small -G / --b2 / -C runs: {missed} annotated-junction or "
+             f"intron mates, {missed_b2} --b2 junction or indel reads, "
+             f"{missed_c} error-free contiguous colorspace reads missed")
+    log(f"small input (2^21 + 4096 bases): -G paired, --b2 and -C runs "
+        f"byte-identical on {a} and {b}; recall 100% (-G, --b2); "
+        f"{n_color}/{SMALL_PAIRS} colorspace reads aligned")
+
+
+N_GENES = 8400             # phase 8: 21,000 transcripts
+MIN_EVENTS = 30000         # phase 8 fails with fewer events
+
+
+def reads_on_transcripts(log_path) -> int:
+    """Reads placed on annotated transcripts, summed over a run's mates
+    and chunks (the transcriptome stage's lines in its tophat.log)."""
+    n = 0
+    with open(log_path) as f:
+        for line in f:
+            if "reads placed on annotated transcripts" in line:
+                n += int(line.split("transcriptome map: ")[1].split()[0])
+    return n
+
+
+def phase_annotated(codes, juncs, index):
+    """TopHat's annotated default run, `tophat -G genes.gtf
+    --transcriptome-index ... genome r1.fq r2.fq` (paired-end, coverage
+    search on), through the CLI on the phase-4 genome and index: a
+    synthetic annotation of N_GENES genes (21,000 transcripts, ~50,000
+    distinct introns, none of them a phase-4 intron) and 32,768 pairs of
+    2 x 100 bp (50% transcript fragments, 10% with mate 1 across a phase-4
+    intron, the rest contiguous). A first run builds the transcriptome
+    files and index and holds every realign call against its plain
+    version; a timed run reuses them and records stage seconds, E, every
+    realign call's R and E, launches and peak device memory. Fails if
+    recall is under 100% (annotated-junction mates, unannotated-intron
+    mates 1), no sparse realign was launched, or E < 30,000."""
+    import types
+
+    import torch
+
+    from tophat_tpu_torch.cli import main as cli_mod
+    from tophat_tpu_torch.index.fm import FMIndex
+    from tophat_tpu_torch.ops import events
+    from tophat_tpu_torch.pipeline import paired as paired_mod
+    from tophat_tpu_torch.pipeline import run as run_mod
+
+    fa = os.path.join(CACHE, "genome_2p27.fa")
+    t0 = time.time()
+    gtf_text, transcripts, introns = make_annotation(codes, juncs, N_GENES)
+    gtf = os.path.join(CACHE, "genes.gtf")
+    with open(gtf, "w") as f:
+        f.write(gtf_text)
+    reads = {}
+    for tag, seed in (("check", 41), ("steady", 42)):
+        m1, m2, spans, unannotated = make_annotated_pairs(
+            codes, transcripts, juncs, seed, N_PAIRS)
+        fqs = [os.path.join(CACHE, f"annot_{tag}_{k}.fq") for k in (1, 2)]
+        write_fastq(fqs[0], m1, "p")
+        write_fastq(fqs[1], m2, "p")
+        reads[tag] = (fqs, spans, unannotated)
+    log(f"annotated inputs: {N_GENES} genes, {len(transcripts)} transcripts, "
+        f"{len(introns)} distinct introns; 2 x {N_PAIRS} pairs "
+        f"({time.time() - t0:.1f} s)")
+    tix = os.path.join(CACHE, "tx", "genes")
+    argv = lambda out, fqs: ["-o", out, "-G", gtf, "--transcriptome-index",
+                             tix, "--tt-index", index, fa] + fqs
+
+    check = PathCheck()
+
+    build = StageClock()
+    build.wrap(cli_mod, "write_transcriptome_files",
+               "transcriptome files (.fa, .tlst, .gff, .ver)")
+    build.wrap(cli_mod, "build_transcriptome_index",
+               "transcriptome FM index build")
+    t0 = time.time()
+    try:
+        with RealignHooks(events, check):
+            cli_main_checked(cli_mod.main,
+                             argv(os.path.join(CACHE, "annot_out_check"),
+                                  reads["check"][0]))
+    finally:
+        build.restore()
+    log(f"annotated check run: {time.time() - t0:.1f} s (transcriptome "
+        f"build {build.seconds}); realign exact in {len(check.shapes)} "
+        "calls: " + ", ".join(check.shapes))
+    if not any(c.startswith("sparse") for c in check.shapes):
+        fail("the annotated check run made no sparse realign call")
+
+    clock = StageClock()
+    genome_index = types.SimpleNamespace(load=FMIndex.load)
+    saved_fm = cli_mod.FMIndex
+    cli_mod.FMIndex = genome_index       # the genome index's load alone
+    clock.wrap(cli_mod, "read_fasta", "read_fasta")
+    clock.wrap(genome_index, "load", "genome FMIndex.load")
+    clock.wrap(cli_mod, "parse_gtf", "GTF parse (parse_gtf, gtf_junctions)")
+    clock.wrap(cli_mod, "gtf_junctions",
+               "GTF parse (parse_gtf, gtf_junctions)")
+    clock.wrap(cli_mod, "build_transcriptome_index",
+               "transcriptome index reuse (sequences + FMIndex.load)")
+    clock.wrap(paired_mod, "_map_mate", "map")
+    clock.wrap(run_mod, "map_reads_transcriptome", " transcriptome map")
+    clock.wrap(paired_mod, "discover_events", "discovery")
+    clock.wrap(run_mod, "coverage_search_events", "coverage search")
+    clock.wrap(paired_mod, "candidates_for_mate",
+               "candidates (realign, collect, transcriptome, chains)")
+    clock.wrap(run_mod, "realign_events_sparse", "  of which realign, sparse")
+    clock.wrap(run_mod, "default_chains", "  of which default chains")
+    clock.wrap(paired_mod, "accumulate_event_stats", "stats + filter")
+    clock.wrap(paired_mod, "filter_junctions", "stats + filter")
+    n_events = []
+    finalize = paired_mod.SingleIndexMapper.finalize_events
+
+    def finalize_counted(self, known_events=None):
+        ev = finalize(self, known_events)
+        n_events.append(len(ev["left"]))
+        return ev
+
+    paired_mod.SingleIndexMapper.finalize_events = finalize_counted
+    calls = []
+    out = os.path.join(CACHE, "annot_out_steady")
+    fqs, spans, unannotated = reads["steady"]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    realign_launches(reset=True)
+    t0 = time.time()
+    try:
+        with RealignHooks(events, lambda kind, args, _: calls.append(
+                realign_call_shape(kind, args))):
+            cli_main_checked(cli_mod.main, argv(out, fqs))
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        launches = realign_launches()
+    finally:
+        paired_mod.SingleIndexMapper.finalize_events = finalize
+        clock.restore()
+        cli_mod.FMIndex = saved_fm
+    peak = torch.cuda.max_memory_allocated()
+
+    got = n_cigar_reads(os.path.join(out, "accepted_hits.sam"))
+    n_span = int(spans.sum())
+    missed_a = sum(1 for i, m in zip(*np.nonzero(spans))
+                   if (f"p{i}", int(m) + 1) not in got)
+    missed_u = sum(1 for i in np.nonzero(unannotated)[0]
+                   if (f"p{i}", 1) not in got)
+    recall_a = 100.0 * (n_span - missed_a) / n_span
+    recall_u = 100.0 * (1 - missed_u / int(unannotated.sum()))
+    placed = reads_on_transcripts(os.path.join(out, "logs", "tophat.log"))
+    aligned, disc = align_summary_pairs(os.path.join(out,
+                                                     "align_summary.txt"))
+    stages = dict(clock.seconds)
+    tmap = stages.pop(" transcriptome map", 0.0)
+    stages["transcriptome map (align + rebase)"] = tmap
+    stages["map: genome (prep, full-read align, segments, stitch)"] = \
+        stages.pop("map", 0.0) - tmap
+    top = sum(v for k, v in stages.items() if not k.startswith(" "))
+    stages["rest (FASTQ parse, selection, output)"] = wall - top
+    E = n_events[0] if n_events else 0
+    log(f"annotated steady run: {wall:.2f} s, {N_PAIRS / wall:.1f} pairs/s; "
+        f"E={E}; {placed} reads placed on transcripts; realign launches "
+        f"{launches} (dense, sparse); peak device memory "
+        f"{peak / 2**30:.3f} GiB")
+    calls_of = dict(build.calls, **clock.calls)
+    calls_of["transcriptome map (align + rebase)"] = clock.calls.get(
+        " transcriptome map", 0)
+    calls_of["map: genome (prep, full-read align, segments, stitch)"] = \
+        clock.calls.get("map", 0)
+    for k, v in list(build.seconds.items()) + list(stages.items()):
+        log(f"  stage {k}: {v:.3f} s" + calls_note(calls_of.get(k)))
+    log("  realign calls: " + ", ".join(calls))
+    log(f"annotated: recall {recall_a:.2f}% of {n_span} annotated-junction "
+        f"mates, {recall_u:.2f}% of {int(unannotated.sum())} unannotated-"
+        f"intron mates 1; concordant "
+        f"{100.0 * (aligned - disc) / N_PAIRS:.2f}% of pairs")
+    if launches[1] == 0:
+        fail("the annotated run never launched the sparse realign kernel")
+    if E < MIN_EVENTS:
+        fail(f"annotated run: E = {E} < {MIN_EVENTS} events")
+    if missed_a or missed_u:
+        fail(f"annotated run: recall {recall_a:.2f}% (annotated), "
+             f"{recall_u:.2f}% (unannotated) < 100%")
+    return dict(wall_s=wall, pairs_per_s=N_PAIRS / wall, events=E,
+                transcripts=len(transcripts), introns=len(introns),
+                reads_on_transcripts=placed, launches=launches,
+                path_err=check.err, realign_calls=calls,
+                peak_device_bytes=peak, recall_annotated_pct=recall_a,
+                recall_unannotated_pct=recall_u,
+                concordant_pct=100.0 * (aligned - disc) / N_PAIRS,
+                build_stages=build.seconds, stages=stages,
+                stage_calls=calls_of)
+
+
+def phase_bowtie2(codes, juncs, index):
+    """Bowtie2 mode at full width: `--b2 --no-coverage-search --tt-index`
+    single-end on the phase-4 genome, 32,768 x 100 bp reads (25% across a
+    phase-4 intron, 10% with a 1-2 bp indel 30-70 bp in): a run holding
+    every realign call against its plain version, then a timed run.
+    Fails if junction or indel-read recall is under 100% (an indel read
+    counts with an I/D record at its true position) or the gapped stage
+    placed nothing."""
+    import torch
+
+    from tophat_tpu_torch.cli import main as cli_mod
+    from tophat_tpu_torch.ops import events
+    from tophat_tpu_torch.pipeline import run as run_mod
+
+    fa = os.path.join(CACHE, "genome_2p27.fa")
+    data = {}
+    for tag, seed in (("check", 45), ("steady", 46)):
+        seqs, spliced, indel = make_b2_reads(codes, juncs, seed, N_READS)
+        fq = os.path.join(CACHE, f"b2_{tag}.fq")
+        write_fastq(fq, seqs)
+        data[tag] = (fq, spliced, indel)
+    argv = lambda out, fq: ["-o", out, "--b2", "--no-coverage-search",
+                            "--tt-index", index, fa, fq]
+    check = PathCheck()
+
+    t0 = time.time()
+    with RealignHooks(events, check):
+        cli_main_checked(cli_mod.main, argv(os.path.join(CACHE, "b2_check"),
+                                            data["check"][0]))
+    log(f"bowtie2 check run: {time.time() - t0:.1f} s; realign exact in "
+        f"{len(check.shapes)} calls: " + ", ".join(check.shapes))
+
+    clock = StageClock()
+    clock.wrap(run_mod, "gapped_from_segments", "gapped stage")
+    placements = [0]
+    gapped = run_mod.gapped_from_segments
+
+    def counted(*a, **k):
+        ev, res = gapped(*a, **k)
+        placements[0] += len(res)
+        return ev, res
+
+    run_mod.gapped_from_segments = counted
+    calls = []
+    out = os.path.join(CACHE, "b2_steady")
+    fq, spliced, indel = data["steady"]
+    realign_launches(reset=True)
+    torch.cuda.synchronize()
+    t0 = time.time()
+    try:
+        with RealignHooks(events, lambda kind, args, _: calls.append(
+                realign_call_shape(kind, args))):
+            cli_main_checked(cli_mod.main, argv(out, fq))
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        launches = realign_launches()
+    finally:
+        run_mod.gapped_from_segments = gapped
+        clock.restore()
+    sam = os.path.join(out, "accepted_hits.sam")
+    got_n, got_id = n_cigar_reads(sam), n_cigar_reads(sam, "ID")
+    missed_j = sum(1 for i in spliced if (f"r{i}", 0) not in got_n)
+    missed_i = sum(1 for i, st in indel.items()
+                   if (f"r{i}", 0, st) not in got_id)
+    recall_j = 100.0 * (1 - missed_j / len(spliced))
+    recall_i = 100.0 * (1 - missed_i / len(indel))
+    log(f"bowtie2 steady run: {wall:.2f} s, {N_READS / wall:.1f} reads/s; "
+        f"gapped stage {clock.seconds.get('gapped stage', 0.0):.3f} s, "
+        f"{placements[0]} direct gapped placements; realign launches "
+        f"{launches} (dense, sparse); calls: " + ", ".join(calls))
+    log(f"bowtie2: junction-read recall {recall_j:.2f}% of {len(spliced)}, "
+        f"indel-read recall {recall_i:.2f}% of {len(indel)}")
+    if placements[0] == 0:
+        fail("bowtie2 run: the gapped stage placed nothing")
+    if missed_j or missed_i:
+        fail(f"bowtie2 run: recall {recall_j:.2f}% (junctions), "
+             f"{recall_i:.2f}% (indels) < 100%")
+    return dict(wall_s=wall, reads_per_s=N_READS / wall,
+                gapped_s=clock.seconds.get("gapped stage", 0.0),
+                gapped_placements=placements[0], launches=launches,
+                path_err=check.err, realign_calls=calls,
+                recall_junction_pct=recall_j, recall_indel_pct=recall_i)
+
+
 def main():
     try:
         import torch
@@ -864,6 +1465,11 @@ def main():
     paired = phase_paired(spliced["codes"], spliced["juncs"],
                           spliced["index"])
     phase_small_search_modes(spliced["codes"])
+    phase_small_slice_modes(spliced["codes"])
+    annotated = phase_annotated(spliced["codes"], spliced["juncs"],
+                                spliced["index"])
+    bowtie2 = phase_bowtie2(spliced["codes"], spliced["juncs"],
+                            spliced["index"])
 
     print(json.dumps({
         "realign_cases": kernels,
@@ -871,16 +1477,18 @@ def main():
         "spliced_steady_s": spliced["steady_s"],
         "spliced_junction_read_recall_pct": spliced["recall_pct"],
         "unspliced_reads_per_s": unspliced_rps,
-        "paired": {k: v for k, v in paired.items() if k != "realign_calls"}}),
-        flush=True)
+        "paired": {k: v for k, v in paired.items() if k != "realign_calls"},
+        "annotated": annotated, "bowtie2": bowtie2}), flush=True)
     main_case = next(k for k in kernels if (k["R"], k["E"], k["L"], k["q"])
                      == (8192, 69, 100, 0))     # the main path's shape
     print(json.dumps({"kernels": [{
         "name": "realign", "route": "cuda",
         "source": "tophat_tpu_torch/csrc/realign.cu",
         "replaces": "tophat_tpu/ops/pallas/realign_kernel.py:44",
-        "launches": sum(spliced["launches"]) + sum(paired["launches"]),
-        "max_abs_err": max([spliced["path_err"], paired["path_err"]]
+        "launches": sum(sum(p["launches"])
+                        for p in (spliced, paired, annotated, bowtie2)),
+        "max_abs_err": max([p["path_err"]
+                            for p in (spliced, paired, annotated, bowtie2)]
                            + [k["max_abs_err"] for k in kernels]),
         "ms": main_case["ms"], "plain_ms": main_case["plain_ms"],
         "bound_ms": main_case["bound_ms"], "bound_by": main_case["bound_by"],

@@ -233,3 +233,46 @@ def test_paired_default_mode_on_card_matches_cpu(cuda, tmp_path):
     for f in files:
         assert (tmp_path / "cpu" / f).read_bytes() == \
             (tmp_path / "cuda" / f).read_bytes(), f
+
+
+@pytest.mark.gpu
+def test_gapped_scan_on_card_matches_cpu(cuda):
+    """bowtie2 mode's gapped scan (plain torch): all six outputs on the
+    card equal the CPU's."""
+    from test_torch_gapped import _scan_inputs  # numpy only at import time
+    from tophat_tpu_torch.ops.gapped import gapped_scan
+
+    args = _scan_inputs()
+    for g in (1, 2, 3):
+        want = gapped_scan(*(torch.as_tensor(a) for a in args), max_gap=g)
+        got = gapped_scan(*(torch.as_tensor(a, device=cuda) for a in args),
+                          max_gap=g)
+        for w, x in zip(want, got):
+            assert torch.equal(w, x.cpu())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", ["gtf_paired", "b2", "color"])
+def test_slice_modes_on_card_match_cpu(cuda, tmp_path, mode):
+    """-G paired (transcriptome index on the card), --b2 single-end and -C
+    paired through the CLI, on the card and on the CPU: identical files."""
+    from test_torch_colorspace import _write_inputs as color_inputs
+    from test_torch_transcriptome import _write_inputs
+    from tophat_tpu_torch.cli.main import main
+
+    if mode == "color":
+        fa, files = color_inputs(tmp_path, "fastq")
+        args = ["-C", fa, files[0][0], files[1][0]]
+    else:
+        fa, gtf, fqs = _write_inputs(tmp_path)
+        args = (["-G", gtf, fa] + fqs if mode == "gtf_paired"
+                else ["--b2", fa, fqs[0]])
+    files = ["accepted_hits.sam", "junctions.bed", "insertions.bed",
+             "deletions.bed"] + (["align_summary.txt"]
+                                 if mode != "b2" else [])
+    for dev in ("cpu", "cuda"):
+        assert main(["-o", str(tmp_path / dev), "--device", dev]
+                    + args) == 0
+    for f in files:
+        assert (tmp_path / "cpu" / f).read_bytes() == \
+            (tmp_path / "cuda" / f).read_bytes(), f

@@ -73,8 +73,7 @@ def test_cli_defaults_to_cuda_and_raises_without_it(tmp_path, monkeypatch):
               str(fq)])
 
 
-@pytest.mark.parametrize("flag", ["transcriptome_only", "fusion_search",
-                                  "bowtie2"])
+@pytest.mark.parametrize("flag", ["fusion_search"])
 def test_unported_modes_raise(tmp_path, flag):
     from tophat_tpu_torch.pipeline.params import Params
     from tophat_tpu_torch.pipeline.run import run_pipeline
@@ -87,8 +86,6 @@ def test_unported_modes_raise(tmp_path, flag):
 
 
 @pytest.mark.parametrize("flags,item", [
-    (["-C"], "transcriptome and colorspace"),
-    (["-G", "genes.gtf"], "transcriptome and colorspace"),
     (["--max-index-bases", "1000"], "grouped index")])
 def test_unported_cli_modes_raise(tmp_path, flags, item):
     from tophat_tpu_torch.cli.main import main
@@ -119,6 +116,35 @@ def test_paired_unported_modes_raise(tmp_path, what):
                             str(tmp_path / "out"), log=lambda *a: None,
                             device="cpu", **kw)
     assert not (tmp_path / "out").exists()
+
+
+def test_transcriptome_index_load_propagates_device_errors(tmp_path,
+                                                         monkeypatch):
+    """Loading a saved transcriptome index swallows only the errors of a
+    stale or corrupt file: a CUDA error while the tables upload (here an
+    out-of-memory) reaches the caller instead of a silent rebuild."""
+    from tophat_tpu_torch.index.fasta import Genome
+    from tophat_tpu_torch.index.fm import FMIndex
+    from tophat_tpu_torch.io.gtf import Transcript
+    from tophat_tpu_torch.pipeline import transcriptome
+
+    genome, _ = _tiny()
+    trs = {"t": Transcript("t", "c", "+", [(100, 300), (700, 900)])}
+    prefix = str(tmp_path / "genes")
+    transcriptome.build_transcriptome_index(genome, trs, prefix=prefix,
+                                            device="cpu")
+
+    def oom(path, device="cuda"):
+        raise torch.cuda.OutOfMemoryError("CUDA out of memory")
+
+    monkeypatch.setattr(FMIndex, "load", staticmethod(oom))
+    built = []
+    monkeypatch.setattr(transcriptome, "build_fm_index",
+                        lambda *a, **k: built.append(1))
+    with pytest.raises(torch.cuda.OutOfMemoryError):
+        transcriptome.build_transcriptome_index(genome, trs, prefix=prefix,
+                                                device="cpu")
+    assert not built
 
 
 def test_realign_wrapper_takes_plain_only_for_cpu_tensors(monkeypatch):

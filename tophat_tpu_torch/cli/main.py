@@ -1,15 +1,16 @@
 """tophat-compatible command line for the PyTorch port.
 
 Port of tophat_tpu/cli/main.py: the same parser (plus --device) and the
-single-end and paired-end parts of main — FASTA index build or --tt-index
-reuse, known events, and the chunked pipelines, with the coverage search
-on by default and the butterfly and microexon searches on request.
-Colorspace, transcriptome (-G/--transcriptome-index), grouped-index and
-the other modes whose stages are not ported raise NotImplementedError
-naming their ROADMAP item.
+same main — FASTA index build or --tt-index reuse, known events, GTF
+junctions and the transcriptome index (-G, --transcriptome-index with its
+build-only call, -T, -x, --no-gtf-juncs), colorspace input (-C) and the
+chunked single-end and paired-end pipelines, with the coverage search on
+by default, the butterfly and microexon searches and bowtie2 mode (--b2)
+on request. The grouped (multi-index) genome and fusion search raise
+NotImplementedError naming their ROADMAP item.
 
 Usage:
-  python -m tophat_tpu_torch.cli.main -o out [--tt-index P] \
+  python -m tophat_tpu_torch.cli.main -o out [--tt-index P] [-G genes.gtf] \
       genome.fa reads_1.fq [reads_2.fq]
 """
 
@@ -25,15 +26,22 @@ import numpy as np
 
 from tophat_tpu_torch.index.fasta import encode_seq, read_fasta
 from tophat_tpu_torch.index.fm import FMIndex, build_fm_index
+from tophat_tpu_torch.io.color import encode_color_read, read_csfasta
+from tophat_tpu_torch.io.fastq import read_all
+from tophat_tpu_torch.io.gtf import (gtf_junctions, parse_gtf,
+                                     validate_transcriptome,
+                                     write_transcriptome_files)
 from tophat_tpu_torch.ops.events import MAX_INS
 from tophat_tpu_torch.ops.splice import (KIND_DELETION, KIND_INSERTION,
                                          KIND_JUNCTION)
+from tophat_tpu_torch.pipeline.colorspace import run_pipeline_color
 from tophat_tpu_torch.pipeline.juncs import empty_events, merge_events
 from tophat_tpu_torch.pipeline.paired import run_pipeline_paired_streaming
 from tophat_tpu_torch.pipeline.params import Params
 from tophat_tpu_torch.pipeline.run import (iter_read_batches,
                                            resolve_device,
                                            run_pipeline_streaming)
+from tophat_tpu_torch.pipeline.transcriptome import build_transcriptome_index
 from tophat_tpu_torch.utils.log import StageLogger, get_resume_stage
 
 # the JAX package's per-index base cap (index/grouped.MAX_GROUP_BASES):
@@ -336,6 +344,23 @@ def _unported(what: str, item: str):
                               f"yet (ROADMAP Queue 1: {item})")
 
 
+def _color_records(files, qual_csv, params):
+    """(name, primer, colors, qual) records of colorspace reads files:
+    .csfasta (with an optional _QV.qual file each) or colorspace FASTQ."""
+    quals = qual_csv.split(",") if qual_csv else []
+    recs = []
+    for i, path in enumerate(files):
+        qp = quals[i] if i < len(quals) else None
+        if ".csfasta" in os.path.basename(path):
+            recs.extend(read_csfasta(path, qp))
+        else:
+            for name, seq, qual in read_all(path, params.quals_scale):
+                primer, colors = encode_color_read(seq)
+                q = qual[1:] if len(qual) == len(seq) else qual
+                recs.append((name, primer, colors, q))
+    return recs
+
+
 def params_from_args(args) -> Params:
     return Params(
         read_mismatches=args.read_mismatches,
@@ -429,12 +454,10 @@ def main(argv=None, resume=False):
         raise SystemExit("Error: --rg-id and --rg-sample must be "
                          "specified or omitted together")
     params = params_from_args(args)
-    if args.color:
-        _unported("colorspace (-C)", "transcriptome and colorspace")
-    if args.gtf or args.transcriptome_index:
-        _unported("-G/--transcriptome-index", "transcriptome and colorspace")
-    if args.reads1 is None:
-        raise SystemExit("Error: reads files required")
+    if args.transcriptome_only and not (args.gtf
+                                        or args.transcriptome_index):
+        raise SystemExit("Error: -T/--transcriptome-only requires "
+                         "-G/--GTF or --transcriptome-index")
     device = resolve_device(args.device)
 
     out_dir = args.output_dir
@@ -466,8 +489,81 @@ def main(argv=None, resume=False):
 
     known = load_known_events(genome, args.insertions, args.deletions,
                               args.raw_juncs)
+    gtf_accept = None
+    transcripts = None
+    gtf_path = args.gtf
+    tprefix = None
+    if args.transcriptome_index:
+        # --transcriptome-index semantics (reference: src/tophat.py:3915-
+        # 3947): a dir gets the GTF basename appended; a valid prebuilt set
+        # is reused (its .gff becomes the annotation), otherwise the data
+        # files are (re)built from -G.
+        tprefix = args.transcriptome_index
+        if os.path.isdir(tprefix) or tprefix.endswith(os.sep):
+            if not gtf_path:
+                raise SystemExit("Error: --transcriptome-index names a "
+                                 "directory but no -G/--GTF was given")
+            base = os.path.basename(gtf_path)
+            base = base[: base.rfind(".")] if "." in base else base
+            os.makedirs(tprefix, exist_ok=True)
+            tprefix = os.path.join(tprefix, base)
+        if validate_transcriptome(tprefix):
+            logger.log(f"transcriptome index: reusing {tprefix}.*")
+            gtf_path = tprefix + ".gff"
+        elif gtf_path:
+            d = os.path.dirname(tprefix)
+            if d:
+                os.makedirs(d, exist_ok=True)
+            transcripts = parse_gtf(gtf_path)
+            write_transcriptome_files(tprefix, genome, transcripts, gtf_path)
+            logger.log(f"transcriptome index: built {tprefix}.*")
+        else:
+            raise SystemExit(f"Error: transcriptome files at {tprefix!r} "
+                             "are missing/invalid and no -G/--GTF given")
+    trans = None
+    if gtf_path:
+        if transcripts is None:
+            transcripts = parse_gtf(gtf_path)
+        gtf_ev, gtf_accept = gtf_junctions(genome, transcripts)
+        if args.no_gtf_juncs:
+            # --no-gtf-juncs: annotated junctions stay in the event table
+            # (transcriptome hits still rebase through them) but get no
+            # automatic acceptance in filter_junctions
+            gtf_accept = None
+        logger.log(f"GTF: {len(transcripts)} transcripts, "
+                   f"{len(gtf_ev['left'])} known junctions")
+        known = merge_events(known, gtf_ev) if known is not None else gtf_ev
+        # _reads_vs_T: transcriptome FM index on the run's device (persisted
+        # beside the --transcriptome-index data files when given)
+        trans = build_transcriptome_index(genome, transcripts,
+                                          prefix=tprefix, log=logger.log,
+                                          device=device)
+
+    if args.reads1 is None:
+        # transcriptome build-only invocation (reference:
+        # transcriptome_buildonly, src/tophat.py:3948-3952)
+        if not args.transcriptome_index:
+            raise SystemExit("Error: reads files required (or "
+                             "--transcriptome-index -G to build only)")
+        logger.log("Transcriptome files prepared. This was the only task "
+                   "requested.")
+        logger.stage("alldone")
+        return 0
+
+    files1 = args.reads1.split(",")
     logger.stage("prep_reads")
-    batches = iter_read_batches(args.reads1.split(","), params.quals_scale,
+    if args.color:
+        # SOLiD colorspace path (-C): color-native genome alignment +
+        # reference-guided decode, then the standard base-space pipeline
+        recs1 = _color_records(files1, args.quals, params)
+        recs2 = (_color_records(args.reads2.split(","), args.quals2, params)
+                 if args.reads2 else None)
+        run_pipeline_color(genome, recs1, params, out_dir, records2=recs2,
+                           fm=fm, known_events=known, gtf_accept=gtf_accept,
+                           log=logger.log, device=device)
+        logger.stage("alldone")
+        return 0
+    batches = iter_read_batches(files1, params.quals_scale,
                                 params.batch_size,
                                 integer_quals=params.integer_quals)
     if args.reads2:
@@ -476,15 +572,17 @@ def main(argv=None, resume=False):
                                      integer_quals=params.integer_quals)
         run_pipeline_paired_streaming(
             genome, zip(batches, batches2), params, out_dir, fm=fm,
-            known_events=known, log=logger.log, device=device)
+            known_events=known, gtf_accept=gtf_accept, trans=trans,
+            log=logger.log, device=device)
     else:
         first = next(batches, None)
         if first is None:
             raise SystemExit("Error: no reads in input")
         run_pipeline_streaming(
             genome, itertools.chain([first], batches), params, out_dir,
-            fm=fm, known_events=known, tmp_dir=os.path.join(out_dir, "tmp"),
-            resume=resume, log=logger.log, device=device)
+            fm=fm, known_events=known, gtf_accept=gtf_accept, trans=trans,
+            tmp_dir=os.path.join(out_dir, "tmp"), resume=resume,
+            log=logger.log, device=device)
     logger.stage("alldone")
     if not args.keep_tmp:
         shutil.rmtree(os.path.join(out_dir, "tmp"), ignore_errors=True)

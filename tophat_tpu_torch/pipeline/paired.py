@@ -37,7 +37,8 @@ from tophat_tpu_torch.pipeline.report import (Candidate, EventStats,
                                               filter_junctions, select_best,
                                               write_align_summary)
 from tophat_tpu_torch.pipeline.run import (_index_for, _map_mate,
-                                           _v2_score_of, candidates_for_mate,
+                                           _trans_for, _v2_score_of,
+                                           candidates_for_mate,
                                            check_supported, merge_stats,
                                            resolve_device, search_tables)
 
@@ -120,21 +121,25 @@ class SingleIndexMapper:
     package shares its protocol with the grouped index's mapper, which is
     not ported yet)."""
 
-    def __init__(self, fm, genome, params, log=print):
+    def __init__(self, fm, genome, params, trans=None, log=print):
         self.fm = fm
         self.genome = genome
         self.params = params
+        self.trans = trans
         self.log = log
         self.tables = []
 
     def map_chunk_mate(self, batch, side: int):
         fm, params, genome = self.fm, self.params, self.genome
         offsets = genome.offsets.astype(np.int32)
-        m = _map_mate(fm, offsets, batch, params, self.log)
+        m = _map_mate(fm, offsets, batch, params, self.log, genome=genome,
+                      trans=self.trans)
         self.tables.append(discover_events(fm, offsets, m.gs, params,
                                            seg_tables=m.seg_tables,
                                            log=None, read_side=side))
         self.tables += search_tables(fm, genome, m, params)
+        if m.gapped_events is not None:
+            self.tables.append(m.gapped_events)
         return m
 
     def finalize_events(self, known_events=None):
@@ -149,17 +154,19 @@ class SingleIndexMapper:
 
 
 def run_pipeline_paired(genome: Genome, batch1, batch2, params, out_dir,
-                        fm=None, known_events=None, log=print, gfm=None,
-                        device="cuda"):
+                        fm=None, known_events=None, gtf_accept=None,
+                        trans=None, log=print, gfm=None, device="cuda"):
     """Single-chunk paired run (both mates fit one device batch)."""
     return run_pipeline_paired_streaming(
         genome, iter([(batch1, batch2)]), params, out_dir, fm=fm,
-        known_events=known_events, log=log, gfm=gfm, device=device)
+        known_events=known_events, gtf_accept=gtf_accept, trans=trans,
+        log=log, gfm=gfm, device=device)
 
 
 def run_pipeline_paired_streaming(genome: Genome, pair_iter, params,
                                   out_dir, fm=None, known_events=None,
-                                  log=print, gfm=None, device="cuda"):
+                                  gtf_accept=None, trans=None, log=print,
+                                  gfm=None, device="cuda"):
     """Chunked paired-end pipeline: mate pairs stream through fixed-size
     chunk pairs (same read count per mate — reads pair by line number), a
     global event union feeds per-chunk realignment, and pair selection /
@@ -177,7 +184,8 @@ def run_pipeline_paired_streaming(genome: Genome, pair_iter, params,
     t0 = time.time()
     os.makedirs(out_dir, exist_ok=True)
     fm = _index_for(genome, fm, dev, log)
-    mapper = SingleIndexMapper(fm, genome, params, log=log)
+    mapper = SingleIndexMapper(fm, genome, params,
+                               trans=_trans_for(trans, dev), log=log)
 
     chunks = []
     prep_all = [PrepStats(), PrepStats()]
@@ -201,7 +209,7 @@ def run_pipeline_paired_streaming(genome: Genome, pair_iter, params,
             mapper.fill_candidates(m, events, paired=True)
             merge_stats(stats, accumulate_event_stats(
                 m.cands, events, m.batch.lengths.astype(np.int32)))
-    filter_junctions(events, stats, params)
+    filter_junctions(events, stats, params, gtf_accept=gtf_accept)
     accepted = {e for e, st in stats.items() if st.accepted}
 
     with open(os.path.join(out_dir, "prep_reads.info"), "w") as f:

@@ -3,15 +3,16 @@ drive these stages from pipeline/paired.py).
 
 Port of tophat_tpu/pipeline/run.py (the spliced_alignment +
 compile_reports flow of the reference driver, src/tophat.py:3428, :2665):
-  prep -> full-read genome alignment -> IUM segmentation -> segment mapping
-  -> contiguous stitch -> junction/indel discovery (+ the coverage,
+  prep -> transcriptome mapping (-G) -> full-read genome alignment -> IUM
+  segmentation -> segment mapping -> contiguous stitch (+ bowtie2-mode
+  gapped alignment) -> junction/indel discovery (+ the coverage,
   butterfly and microexon searches) -> event realignment -> default-mode
   chains -> pass-1 stats + filter -> pass-2 selection -> outputs
 Device stages take torch tensors on `device`; every crossing back to the
 host is an explicit .cpu() (np.asarray of a CUDA tensor raises).
 
-Modes whose stages are not ported yet raise NotImplementedError naming
-their ROADMAP item; none of them routes into the JAX package.
+Fusion search is not ported yet: it raises NotImplementedError naming its
+ROADMAP item and never routes into the JAX package.
 """
 
 from __future__ import annotations
@@ -32,6 +33,7 @@ from tophat_tpu_torch.io.fastq import ReadBatch, batch_reads, read_all
 from tophat_tpu_torch.ops.align import (Alignments, align_reads_adaptive,
                                         kmer_fast_ok, transfer_alignments)
 from tophat_tpu_torch.ops.events import realign_events_sparse
+from tophat_tpu_torch.ops.gapped import gapped_from_segments
 from tophat_tpu_torch.ops.stitch import stitch_contiguous
 from tophat_tpu_torch.pipeline.butterfly import (butterfly_search_events,
                                                  microexon_events)
@@ -48,13 +50,13 @@ from tophat_tpu_torch.pipeline.report import (Candidate,
                                               write_outputs_multi)
 from tophat_tpu_torch.pipeline.segment import (build_genome_space,
                                                map_segments)
+from tophat_tpu_torch.pipeline.transcriptome import (
+    map_reads_transcriptome, transcriptome_candidates)
 from tophat_tpu_torch.utils.device import resolve_device
 
 # unported modes -> the ROADMAP Queue 1 item that ports them
 _UNPORTED = (
-    ("bowtie2", "ops/gapped.py (bowtie2 mode)"),
     ("fusion_search", "fusion search"),
-    ("transcriptome_only", "transcriptome and colorspace"),
 )
 
 
@@ -107,15 +109,59 @@ class MateState:
     seg_tables: tuple = None   # (pos, mm, valid) (rows, S, H) tensors
     stitched: tuple = None     # (pos, mm, ok) (rows, H) contiguous chains
     cands: Optional[Dict[int, list]] = None
+    gapped: list = None        # bowtie2-mode direct gapped results
+    gapped_events: Optional[dict] = None
+    trans_hits: Optional[dict] = None  # rebased transcriptome hits
 
 
-def _align_mate(fm, offsets, batch: ReadBatch, params: Params, log):
-    """Prep + full-read genome alignment. Returns (MateState without
-    spliced stages, ium mask, reads_f, reads_r, lengths)."""
+def _align_mate(fm, offsets, batch: ReadBatch, params: Params, log,
+                genome=None, trans=None):
+    """Prep + transcriptome mapping + full-read genome alignment. Returns
+    (MateState without spliced stages, ium mask, reads_f, reads_r,
+    lengths)."""
     keep, prep_stats = prep_filter(batch)
     reads_f = batch.codes
     reads_r = revcomp_rows(batch.codes, batch.lengths)
     lengths = batch.lengths.astype(np.int32)
+
+    # transcriptome mapping first (_reads_vs_T): reads placed on annotated
+    # transcripts skip the genome/segment path entirely, like the reference
+    # feeding only m2g_unmapped into _reads_vs_G (tophat.py:3326, 3538)
+    trans_hits = None
+    has_t = np.zeros(batch.size, bool)
+    if trans is not None and genome is not None and trans.n:
+        trans_hits = map_reads_transcriptome(trans, genome, reads_f,
+                                             reads_r, lengths, params)
+        # -x/--transcriptome-max-hits: reads with more transcriptome
+        # placements are discarded — they neither report nor continue to
+        # the genome stages
+        tmax = getattr(params, "transcriptome_max_hits", 0)
+        if tmax:
+            over = [r for r, h in trans_hits.items() if len(h) > tmax]
+            for r in over:
+                del trans_hits[r]
+                has_t[r] = True      # discarded, not IUM
+            if over:
+                log(f"transcriptome map: {len(over)} reads discarded "
+                    f"(> {tmax} transcriptome hits)")
+        for r in trans_hits:
+            has_t[r] = True
+        log(f"transcriptome map: {int(has_t.sum())} reads placed on "
+            f"annotated transcripts")
+
+    if getattr(params, "transcriptome_only", False):
+        # -T/--transcriptome-only: report only transcriptome placements;
+        # nothing maps to the genome and no spliced discovery runs
+        B, M = batch.size, 1
+        aln = Alignments(pos=np.zeros((B, M), np.int32),
+                         strand=np.zeros((B, M), np.int8),
+                         mm=np.zeros((B, M), np.int8),
+                         valid=np.zeros((B, M), bool),
+                         n_hits=np.zeros(B, np.int32),
+                         truncated=np.zeros(B, bool))
+        m = MateState(batch=batch, keep=keep, aln=aln, gs=None,
+                      prep_stats=prep_stats, trans_hits=trans_hits)
+        return m, np.zeros(B, bool), reads_f, reads_r, lengths
 
     min_len = int(lengths.min()) if len(lengths) else 0
     aln = align_reads_adaptive(
@@ -133,7 +179,7 @@ def _align_mate(fm, offsets, batch: ReadBatch, params: Params, log):
     valid = aln.valid & keep[:, None]
     n_hits = np.where(keep, aln.n_hits, 0)
     aln = dataclasses.replace(aln, valid=valid, n_hits=n_hits)
-    ium = keep & (n_hits == 0)
+    ium = keep & (n_hits == 0) & ~has_t
     # --read-realign-edit-dist: mapped reads whose best contiguous
     # alignment has at least this edit distance also enter the spliced
     # stages. Default (read_edit_dist + 1) realigns none.
@@ -143,17 +189,18 @@ def _align_mate(fm, offsets, batch: ReadBatch, params: Params, log):
     if rre <= params.read_edit_dist:
         mm_t = np.where(valid, aln.mm.astype(np.int32), 127)
         best_mm = mm_t.min(axis=1, initial=127)
-        ium |= keep & (n_hits > 0) & (best_mm >= rre)
+        ium |= keep & ~has_t & (n_hits > 0) & (best_mm >= rre)
     log(f"genome map: {int((n_hits > 0).sum())} mapped, {int(ium.sum())} IUM")
     m = MateState(batch=batch, keep=keep, aln=aln, gs=None,
-                  prep_stats=prep_stats)
+                  prep_stats=prep_stats, trans_hits=trans_hits)
     return m, ium, reads_f, reads_r, lengths
 
 
 def _spliced_mate(fm, offsets, m: MateState, params: Params,
-                  ium, reads_f, reads_r, lengths) -> None:
-    """Segment split + mapping + contiguous stitch for the IUM reads;
-    fills gs/seg_tables/stitched on `m`."""
+                  ium, reads_f, reads_r, lengths, log=print) -> None:
+    """Segment split + mapping + contiguous stitch (+ bowtie2-mode gapped
+    alignment) for the IUM reads; fills gs/seg_tables/stitched/gapped on
+    `m`."""
     gs = build_genome_space(reads_f, reads_r, lengths,
                             params.segment_length, row_mask=ium,
                             pad_rows_pow2=True)
@@ -164,13 +211,21 @@ def _spliced_mate(fm, offsets, m: MateState, params: Params,
             hits_per_seed=params.hits_per_seed, max_hits=16)
         st = stitch_contiguous(*m.seg_tables, gs.cuts, gs.nseg)
         m.stitched = tuple(x.cpu().numpy() for x in st)
+    if params.bowtie2 and m.seg_tables is not None:
+        # bowtie2-mode direct gapped alignment of the IUM reads (no
+        # segment-pair discovery needed; reference tophat.py:2253-2337)
+        m.gapped_events, m.gapped = gapped_from_segments(
+            fm.genome, gs, m.seg_tables, params, offsets=offsets)
+        if m.gapped:
+            log(f"bowtie2 gapped: {len(m.gapped)} direct indel alignments")
 
 
-def _map_mate(fm, offsets, batch: ReadBatch, params: Params,
-              log) -> MateState:
-    m, ium, reads_f, reads_r, lengths = _align_mate(fm, offsets, batch,
-                                                    params, log)
-    _spliced_mate(fm, offsets, m, params, ium, reads_f, reads_r, lengths)
+def _map_mate(fm, offsets, batch: ReadBatch, params: Params, log,
+              genome=None, trans=None) -> MateState:
+    m, ium, reads_f, reads_r, lengths = _align_mate(
+        fm, offsets, batch, params, log, genome=genome, trans=trans)
+    _spliced_mate(fm, offsets, m, params, ium, reads_f, reads_r, lengths,
+                  log=log)
     return m
 
 
@@ -181,6 +236,13 @@ def _index_for(genome: Genome, fm: Optional[FMIndex], dev: torch.device,
         return build_fm_index(genome, kmer_k=default_kmer_k(genome.n),
                               device=dev)
     return fm if fm.device == dev else fm.to(dev)
+
+
+def _trans_for(trans, dev: torch.device):
+    """The transcriptome index with its FM tables on `dev`."""
+    if trans is None or trans.fm.device == dev:
+        return trans
+    return dataclasses.replace(trans, fm=trans.fm.to(dev))
 
 
 def search_tables(fm, genome: Genome, m: MateState, params: Params,
@@ -212,15 +274,17 @@ def search_tables(fm, genome: Genome, m: MateState, params: Params,
 def pipeline_core(genome: Genome, batches: List[ReadBatch], params: Params,
                   fm: Optional[FMIndex] = None,
                   known_events: Optional[Dict[str, np.ndarray]] = None,
-                  log=print, device="cuda"):
+                  gtf_accept=None, trans=None, log=print, device="cuda"):
     """Run prep/map/discover/realign/filter for 1 (single) or 2 (paired)
     read batches. Returns (mates, events, stats, accepted, fm)."""
     check_supported(params)
     dev = resolve_device(device)
     fm = _index_for(genome, fm, dev, log)
+    trans = _trans_for(trans, dev)
     offsets = genome.offsets.astype(np.int32)
 
-    mates = [_map_mate(fm, offsets, b, params, log) for b in batches]
+    mates = [_map_mate(fm, offsets, b, params, log, genome=genome,
+                       trans=trans) for b in batches]
     # joint discovery over every mate's IUM reads
     tables = [discover_events(fm, offsets, m.gs, params,
                               seg_tables=m.seg_tables, log=log,
@@ -230,6 +294,8 @@ def pipeline_core(genome: Genome, batches: List[ReadBatch], params: Params,
         tables += search_tables(fm, genome, m, params, log, extend=False)
     for m in mates:
         tables += search_tables(fm, genome, m, params, log, coverage=False)
+    tables += [m.gapped_events for m in mates
+               if m.gapped_events is not None]
     if known_events is not None:
         tables.append(known_events)
     events = merge_events(*tables)
@@ -243,7 +309,7 @@ def pipeline_core(genome: Genome, batches: List[ReadBatch], params: Params,
     for m in mates:
         merge_stats(stats, accumulate_event_stats(
             m.cands, events, m.batch.lengths.astype(np.int32)))
-    filter_junctions(events, stats, params)
+    filter_junctions(events, stats, params, gtf_accept=gtf_accept)
     accepted = {e for e, st in stats.items() if st.accepted}
     return mates, events, stats, accepted, fm
 
@@ -274,9 +340,12 @@ def merge_stats(into: Dict[int, object], other: Dict[int, object]) -> None:
 
 def candidates_for_mate(fm, m: MateState, events, params, log,
                         paired=False) -> None:
-    """Realign one chunk/mate against the (global) event table, build its
-    candidate lists, then stitch default-mode chains for the reads still
-    unresolved. `paired` admits the pair-only short-anchor candidates."""
+    """Realign one chunk/mate against the (global) event table and build
+    its candidate lists, in the JAX package's order (candidate order feeds
+    selection): collected candidates, then the transcriptome placements
+    (which replace a read's list), then the bowtie2-mode direct gapped
+    candidates, then default-mode chains for the reads still unresolved.
+    `paired` admits the pair-only short-anchor candidates."""
     max_nseg = int(m.gs.nseg.max()) if m.gs.rows else 1
     realign_mm = params.segment_mismatches * max_nseg
     if m.gs.rows and len(events["left"]):
@@ -291,7 +360,44 @@ def candidates_for_mate(fm, m: MateState, events, params, log,
                                  stitched=m.stitched,
                                  genome_codes=host_codes(fm),
                                  chain_cands=None, paired=paired)
+
+    # transcriptome-mapped reads report ONLY their rebased transcript hits
+    # (the reference never genome-maps them: only m2g_unmapped feeds
+    # _reads_vs_G, tophat.py:3326)
+    if m.trans_hits:
+        for r, lst in transcriptome_candidates(m.trans_hits, events,
+                                               params).items():
+            m.cands[r] = lst
+    if m.gapped:
+        _gapped_candidates(m, events, log)
     default_chains(fm, m, events, params, log)
+
+
+def _gapped_candidates(m: MateState, events, log) -> None:
+    """Bowtie2-mode direct gapped candidates: they bypass the segment-path
+    indel admission (they come straight from the initial aligner)."""
+    ev_index = {}
+    for i in range(len(events["left"])):
+        ev_index[(int(events["kind"][i]), int(events["left"][i]),
+                  int(events["right"][i]))] = i
+    nb2 = 0
+    for row, pos, t, gap, mm2, key in m.gapped:
+        read = int(m.gs.read_idx[row])
+        if read < 0:
+            continue
+        ev = ev_index.get(key, -1)
+        if ev < 0:
+            continue
+        c = Candidate(read=read, pos=pos, strand=int(m.gs.strand[row]),
+                      mm=mm2, kind=int(events["kind"][ev]), ev=ev, t=t,
+                      gap=abs(gap), record_ok=True)
+        lst = m.cands.setdefault(read, [])
+        if not any(x.kind == c.kind and x.ev == ev and x.t == t
+                   and x.pos == pos for x in lst):
+            lst.append(c)
+            nb2 += 1
+    if nb2:
+        log(f"bowtie2 direct candidates: {nb2}")
 
 
 def default_chains(fm, m: MateState, events, params, log) -> None:
@@ -337,12 +443,12 @@ def _select(m: MateState, params, accepted, rng, score_of):
 def run_pipeline(genome: Genome, batch: ReadBatch, params: Params,
                  out_dir: str, fm: Optional[FMIndex] = None,
                  known_events: Optional[Dict[str, np.ndarray]] = None,
-                 log=print, device="cuda"):
+                 gtf_accept=None, trans=None, log=print, device="cuda"):
     """One batch through every stage, outputs written to `out_dir`."""
     t0 = time.time()
     mates, events, stats, accepted, fm = pipeline_core(
         genome, [batch], params, fm=fm, known_events=known_events,
-        log=log, device=device)
+        gtf_accept=gtf_accept, trans=trans, log=log, device=device)
     os.makedirs(out_dir, exist_ok=True)
     m = mates[0]
     with open(os.path.join(out_dir, "prep_reads.info"), "w") as f:
@@ -360,14 +466,16 @@ def run_pipeline(genome: Genome, batch: ReadBatch, params: Params,
 
 def run_pipeline_streaming(genome: Genome, batch_iter, params: Params,
                            out_dir: str, fm: Optional[FMIndex] = None,
-                           known_events=None, tmp_dir=None, resume=False,
-                           log=print, device="cuda"):
+                           known_events=None, gtf_accept=None, trans=None,
+                           tmp_dir=None, resume=False, log=print,
+                           device="cuda"):
     """Chunked single-end pipeline for read sets larger than one device
     batch: per-chunk map + discovery, a global event union, per-chunk
     realignment, global junction filtering, and merged output."""
     t0 = time.time()
     check_supported(params)
     dev = resolve_device(device)
+    trans = _trans_for(trans, dev)
     os.makedirs(out_dir, exist_ok=True)
     offsets = genome.offsets.astype(np.int32)
 
@@ -383,8 +491,9 @@ def run_pipeline_streaming(genome: Genome, batch_iter, params: Params,
     prep_all = PrepStats()
     for bi, batch in enumerate(batch_iter):
         m, chunk_tables = _mapped_chunk(fm_get, genome, offsets, batch,
-                                        params, log, tmp_dir=tmp_dir,
-                                        resume=resume, tag=f"chunk{bi:05d}")
+                                        params, log, trans=trans,
+                                        tmp_dir=tmp_dir, resume=resume,
+                                        tag=f"chunk{bi:05d}")
         tables.extend(chunk_tables)
         prep_all.merge(m.prep_stats)
         chunks.append(m)
@@ -408,7 +517,7 @@ def run_pipeline_streaming(genome: Genome, batch_iter, params: Params,
         candidates_for_mate(fm, m, events, params, log)
         merge_stats(stats, accumulate_event_stats(
             m.cands, events, m.batch.lengths.astype(np.int32)))
-    filter_junctions(events, stats, params)
+    filter_junctions(events, stats, params, gtf_accept=gtf_accept)
     accepted = {e for e, st in stats.items() if st.accepted}
 
     rng = np.random.default_rng(1)
@@ -422,8 +531,8 @@ def run_pipeline_streaming(genome: Genome, batch_iter, params: Params,
     return dict(events=events, stats=stats, parts=parts, fm=fm)
 
 
-def _mapped_chunk(fm_get, genome, offsets, batch, params, log, tmp_dir=None,
-                  resume=False, tag="chunk"):
+def _mapped_chunk(fm_get, genome, offsets, batch, params, log, trans=None,
+                  tmp_dir=None, resume=False, tag="chunk"):
     """Map + discover (+ search) one chunk, with optional artifact reuse:
     when `tmp_dir` is set the mapped state + event tables persist as
     <tmp_dir>/<tag>.pkl (segment tables as host numpy), and `resume=True`
@@ -445,10 +554,13 @@ def _mapped_chunk(fm_get, genome, offsets, batch, params, log, tmp_dir=None,
         except Exception:
             pass  # corrupt/stale artifact: redo the stage
     fm = fm_get()
-    m = _map_mate(fm, offsets, batch, params, log)
+    m = _map_mate(fm, offsets, batch, params, log, genome=genome,
+                  trans=trans)
     chunk_tables = [discover_events(fm, offsets, m.gs, params,
                                     seg_tables=m.seg_tables, log=None)]
     chunk_tables += search_tables(fm, genome, m, params)
+    if m.gapped_events is not None:
+        chunk_tables.append(m.gapped_events)
     if art:
         batch_ref = m.batch
         seg_ref = m.seg_tables
