@@ -45,8 +45,22 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      checked run, then a timed run with the gapped stage's seconds and
      placements; fails under 100% junction or indel-read recall or with
      no gapped placement
-Launches in the kernels line are summed over phases 4, 6, 8 and 9 (each
-counted from 0 just before its timed run), max_abs_err over every check.
+ 10. TopHat-Fusion (--fusion-search ... --tt-index, paired) through the
+     CLI on the same genome and index: 24 designed breaks (8 ff, 8 fr,
+     8 rf, partners >= 1 Mb apart) and 32,768 pairs (10% with mate 1
+     across a break, 10% spanning one, 20% with mate 1 across an
+     intron): a run holding every realign call (sparse, and dense over
+     every row's segments) against its plain version, then a timed run
+     with stage seconds, every realign call's R, E and L and peak device
+     memory, then tophat-fusion-post on the card; fails if a designed
+     break is missing from fusions.out, break-read or junction-read
+     recall is under 100%, either realign entry was never launched, or
+     result.txt holds no designed break. Phase 7 also runs a paired and
+     a single-end fusion run and fusion-post on the slice, on the card
+     and on the CPU, which must write identical files
+Launches in the kernels line are summed over phases 4, 6, 8, 9 and 10
+(each counted from 0 just before its timed run), max_abs_err over every
+check.
 Standard output ends with four lines: the measured numbers (JSON), the
 kernels (JSON), the nvidia-smi name/power line, and the result JSON.
 """
@@ -230,11 +244,12 @@ def phase_kernels():
     # the main path's widths, then wider rows (150-bp reads on the fast
     # path; 300 and 1,000 positions on the wide path, which has no cap),
     # the main path's own shape, an event table of a real transcriptome's
-    # size, and the annotated run's (phase 8) own shape
+    # size, the annotated run's (phase 8) own shape, and the fusion run's
+    # (phase 10) dense call over every row's segments
     cases = [(16384, 128, 100, 0), (16384, 128, 100, 3), (16384, 128, 25, 0),
              (8192, 128, 150, 0), (8192, 128, 300, 3), (8192, 128, 1000, 0),
              (8192, 69, 100, 0), (8192, 4096, 100, 0),
-             (4096, ANNOTATED_E, 100, 0)]
+             (4096, ANNOTATED_E, 100, 0), (65536, 76, 25, 0)]
     report = []
     for ci, (R, E, L, q) in enumerate(cases):
         shape = f"R={R} E={E} L={L} q={q}"
@@ -1438,6 +1453,393 @@ def phase_bowtie2(codes, juncs, index):
                 recall_junction_pct=recall_j, recall_indel_pct=recall_i)
 
 
+# --------------------------------------------------------------- phase 10
+
+FUSION_FLAGS = ["--fusion-search", "--keep-fasta-order", "--bowtie1",
+                "--no-coverage-search", "-r", "0", "--mate-std-dev", "80",
+                "--max-intron-length", "100000", "--fusion-min-dist",
+                "100000", "--fusion-anchor-length", "13"]
+FUSION_SHIFT = 12          # equivalent break shifts searched each way
+
+
+def fusion_read(codes, d: str, a: int, b: int, t: int, n: int = READ_LEN):
+    """n bases across a break after t read bases: ff = genome[..a] +
+    genome[b..]; fr = genome[..a] + revcomp(genome[..b]); rf =
+    revcomp(genome[a..]) + genome[b..]."""
+    from tophat_tpu_torch.index.fasta import revcomp
+
+    if d == "ff":
+        return np.concatenate([codes[a - t + 1:a + 1], codes[b:b + n - t]])
+    if d == "fr":
+        return np.concatenate([codes[a - t + 1:a + 1],
+                               revcomp(codes[b - (n - t) + 1:b + 1])])
+    return np.concatenate([revcomp(codes[a:a + t]), codes[b:b + n - t]])
+
+
+def pick_fusion_breaks(codes, n_each: int = 8, seed: int = 51,
+                       min_sep: int = 1_000_000):
+    """[(dir, a, b)]: n_each ff, fr and rf breaks at random positions of
+    the genome, the partners >= min_sep apart, every other one with its
+    second partner before the first."""
+    r = np.random.default_rng(seed)
+    n, margin = len(codes), 2000
+    out = []
+    for d in ("ff", "fr", "rf"):
+        for k in range(n_each):
+            while True:
+                a, b = (int(x) for x in r.integers(margin, n - margin, 2))
+                if abs(a - b) >= min_sep and (a < b) == (k % 2 == 0):
+                    break
+            out.append((d, a, b))
+    return out
+
+
+def equivalent_breaks(codes, d: str, a: int, b: int, t: int):
+    """The placements (a', b', t') that spell the same read as (a, b, t):
+    a break is only defined up to shifts across bases its two partners
+    share; the pipelines keep the leftmost."""
+    read = fusion_read(codes, d, a, b, t)
+    out = []
+    for j in range(-FUSION_SHIFT, FUSION_SHIFT + 1):
+        a2, b2 = {"ff": (a + j, b + j), "fr": (a + j, b - j),
+                  "rf": (a - j, b + j)}[d]
+        if 0 < t + j < READ_LEN and np.array_equal(
+                fusion_read(codes, d, a2, b2, t + j), read):
+            out.append((a2, b2, t + j))
+    return out
+
+
+def make_fusion_pairs(codes, juncs, breaks, seed: int, n_pairs: int):
+    """Mate pairs of 2 x READ_LEN bp, inner distance |N(0, 80)|, mate 2
+    the reverse complement of the fragment's other end: in 10% of pairs
+    (i % 10 == 0) mate 1 crosses a break of `breaks` 30-70 bp in (the
+    fragment goes on along the second partner); in 10% (i % 10 == 1) the
+    break lies between the mates (mate 1 on the first partner, mate 2 on
+    the second); in 20% (i % 10 in 2, 3) mate 1 crosses one of `juncs`
+    with >= 20 bp on each side; the rest are contiguous with one mismatch
+    per mate. Returns (m1, m2, {i: (dir, a, b, t)} of the break reads)."""
+    from tophat_tpu_torch.index.fasta import revcomp
+
+    r = np.random.default_rng(seed)
+    L = READ_LEN
+    juncs = [j for j in juncs if j[1] + 3 * L + 400 < len(codes)]
+    m1 = np.empty((n_pairs, L), np.int8)
+    m2 = np.empty((n_pairs, L), np.int8)
+    fused = {}
+
+    def downstream(d, b, used, inner):
+        """Mate 2 past `used` bases of the second partner."""
+        if d == "fr":
+            q = b - used - inner - L + 1
+            return codes[q:q + L]
+        q = b + used + inner
+        return revcomp(codes[q:q + L])
+
+    for i in range(n_pairs):
+        inner = int(round(abs(r.normal(0, 80))))
+        kind = i % 10
+        if kind < 2:
+            d, a, b = breaks[(i // 10) % len(breaks)]
+            if kind == 0:
+                t = int(r.integers(30, 71))
+                m1[i] = fusion_read(codes, d, a, b, t)
+                m2[i] = downstream(d, b, L - t, inner)
+                fused[i] = (d, a, b, t)
+            else:
+                y = int(r.integers(20, 150))
+                m1[i] = (revcomp(codes[a + y:a + y + L]) if d == "rf"
+                         else codes[a - y - L + 1:a - y + 1])
+                m2[i] = downstream(d, b, 0, inner)
+        elif kind < 4:
+            left, right = juncs[int(r.integers(0, len(juncs)))]
+            t = int(r.integers(20, L - 19))
+            m1[i] = np.concatenate([codes[left - t + 1:left + 1],
+                                    codes[right:right + L - t]])
+            s2 = right + L - t + inner
+            m2[i] = revcomp(codes[s2:s2 + L])
+        else:
+            s = int(r.integers(0, len(codes) - 3 * L - 400))
+            a_, b_ = codes[s:s + L].copy(), codes[s + L + inner:
+                                                   s + 2 * L + inner].copy()
+            for x in (a_, b_):
+                p = int(r.integers(0, L))
+                x[p] = (x[p] + 1) % 4
+            m1[i], m2[i] = a_, revcomp(b_)
+    return m1, m2, fused
+
+
+def fusion_recall(out_dir, codes, breaks, fused, n_pairs: int):
+    """(break-read recall %, junction-read recall %, breaks missing from
+    fusions.out). A break read counts when its mate-1 record lies at its
+    break (POS and the clipped CIGAR of an equivalent placement): paired
+    records carry no XF:Z tag in either package, and the single-end XF:Z
+    of a table-free FR/RF candidate names another event (ROADMAP Queue 3),
+    so the record's own placement is what is held. A break counts when
+    fusions.out has an equivalent one with its direction."""
+    L = READ_LEN
+    want = {}
+    for i, (d, a, b, t) in fused.items():
+        want[f"p{i}"] = {(a2 - t2 + 1, f"{t2}M{L - t2}S") if d != "rf"
+                         else (b2, f"{t2}S{L - t2}M")
+                         for a2, b2, t2 in equivalent_breaks(codes, d, a, b,
+                                                             t)}
+    sam = os.path.join(out_dir, "accepted_hits.sam")
+    found = set()
+    with open(sam) as f:
+        for line in f:
+            if line.startswith("@"):
+                continue
+            x = line.split("\t", 6)
+            if int(x[1]) & 0x80 == 0 and (int(x[3]) - 1, x[5]) in \
+                    want.get(x[0], ()):
+                found.add(x[0])
+    got = n_cigar_reads(sam)
+    spliced = [i for i in range(n_pairs) if i % 10 in (2, 3)]
+    recall_j = 100.0 * sum(any((f"p{i}", m) in got for m in (0, 1))
+                           for i in spliced) / len(spliced)
+    reported = set()
+    with open(os.path.join(out_dir, "fusions.out")) as f:
+        for line in f:
+            x = line.split("\t")
+            reported.add((int(x[1]), int(x[2]), x[3]))
+    missing = []
+    for d, a, b in breaks:
+        ts = [t for (d2, a2, b2, t) in fused.values() if (d2, a2, b2) ==
+              (d, a, b)]
+        eq = {(min(a2, b2), max(a2, b2), d) for t in ts
+              for a2, b2, _ in equivalent_breaks(codes, d, a, b, t)}
+        if not eq & reported:
+            missing.append((d, a, b))
+    return 100.0 * len(found) / len(fused), recall_j, missing
+
+
+def designed_in_result(path, codes, breaks, fused) -> int:
+    """How many designed breaks result.txt reports (any equivalent)."""
+    rows = set()
+    with open(path) as f:
+        for line in f:
+            if not line.startswith("#") and line.strip():
+                x = line.split("\t")
+                rows.add((int(x[3]), int(x[6])))
+    n = 0
+    for d, a, b in breaks:
+        eq = {(min(a2, b2), max(a2, b2)) for (d2, a0, b0, t) in
+              fused.values() if (d2, a0, b0) == (d, a, b)
+              for a2, b2, _ in equivalent_breaks(codes, d, a, b, t)}
+        n += bool(eq & rows)
+    return n
+
+
+def run_fusion_post(workdir, fa, device: str):
+    """tophat-fusion-post (--skip-blast --no-filter-by-annotation) over
+    the tophat_<sample>/ dirs in workdir; returns its seconds."""
+    from tophat_tpu_torch.cli.fusion_post import main as post_main
+
+    cwd = os.getcwd()
+    os.chdir(workdir)
+    t0 = time.time()
+    try:
+        rc = post_main(["--device", device, "--skip-blast",
+                        "--no-filter-by-annotation", fa])
+    finally:
+        os.chdir(cwd)
+    if rc != 0:
+        fail(f"fusion-post in {workdir} returned {rc}")
+    return time.time() - t0
+
+
+def phase_small_fusion(codes, devices=("cuda", "cpu")):
+    """On the first 2^21 + 4096 bases, through the CLI on the card and on
+    the CPU: a paired and a single-end TopHat-Fusion run (2,048 pairs,
+    phase 10's design and flags with partners >= 1 Mb apart) and
+    tophat-fusion-post over both; accepted_hits.sam, junctions.bed,
+    fusions.out, potential_fusion.txt and result.txt must be
+    byte-identical."""
+    from tophat_tpu_torch.cli.main import main as cli_main
+
+    small = codes[:(1 << 21) + 4096]
+    juncs = pick_junctions(small, 16)
+    breaks = pick_fusion_breaks(small, seed=53)
+    m1, m2, fused = make_fusion_pairs(small, juncs, breaks, 55, SMALL_PAIRS)
+    d = os.path.join(CACHE, "fusion_slice")
+    os.makedirs(d, exist_ok=True)
+    fa = os.path.join(d, "genome.fa")
+    write_fasta(fa, small)
+    fq1, fq2 = (os.path.join(d, f"pairs_{k}.fq") for k in (1, 2))
+    write_fastq(fq1, m1, "p")
+    write_fastq(fq2, m2, "p")
+    post_s = {}
+    for dev in devices:
+        t0 = time.time()
+        for sample, reads in (("paired", [fq1, fq2]), ("single", [fq1])):
+            cli_main_checked(cli_main, ["-o", os.path.join(
+                d, dev, f"tophat_{sample}"), "--device", dev] + FUSION_FLAGS
+                + [fa] + reads)
+        post_s[dev] = run_fusion_post(os.path.join(d, dev), fa, dev)
+        log(f"small fusion runs + fusion-post on {dev}: "
+            f"{time.time() - t0:.1f} s")
+    a, b = devices
+    files = [os.path.join(f"tophat_{s}", f) for s in ("paired", "single")
+             for f in ("accepted_hits.sam", "junctions.bed", "fusions.out")]
+    files += [os.path.join("tophatfusion_out", f)
+              for f in ("potential_fusion.txt", "result.txt")]
+    for f in files:
+        with open(os.path.join(d, a, f), "rb") as x, \
+                open(os.path.join(d, b, f), "rb") as y:
+            if x.read() != y.read():
+                fail(f"small fusion runs: {f} differs between {a} and {b}")
+    res = {}
+    for s in ("paired", "single"):
+        out = os.path.join(d, a, f"tophat_{s}")
+        res[s] = fusion_recall(out, small, breaks, fused, SMALL_PAIRS)
+        if res[s][2]:
+            fail(f"small fusion run ({s}): designed breaks missing from "
+                 f"fusions.out: {res[s][2]}")
+    n_res = designed_in_result(os.path.join(d, a, "tophatfusion_out",
+                                            "result.txt"), small, breaks,
+                               fused)
+    log(f"small input (2^21 + 4096 bases): paired and single-end fusion "
+        f"runs and fusion-post byte-identical on {a} and {b}; break-read "
+        f"recall {res['paired'][0]:.2f}% / {res['single'][0]:.2f}%, "
+        f"junction-read recall {res['paired'][1]:.2f}% / "
+        f"{res['single'][1]:.2f}% (paired / single); all {len(breaks)} "
+        f"breaks in fusions.out; {n_res} in result.txt; fusion-post "
+        + ", ".join(f"{k} {v:.1f} s" for k, v in post_s.items()))
+    return dict(recall={s: res[s][:2] for s in res}, result_breaks=n_res,
+                post_s=post_s)
+
+
+def phase_fusion(codes, juncs, index):
+    """TopHat-Fusion at full width: `tophat --fusion-search ... --tt-index`
+    paired through the CLI on the phase-4 genome and index, 24 designed
+    breaks (8 ff, 8 fr, 8 rf; partners >= 1 Mb apart) and 32,768 pairs
+    of 2 x 100 bp in two chunk pairs: a run holding every realign call
+    (sparse and dense) against its plain version, then a timed run with
+    stage seconds, every realign call's R, E and L, and peak device
+    memory; then tophat-fusion-post on the card over the timed run's
+    tophat_<sample>/ dir. Fails if a designed break is missing from
+    fusions.out, break-read or junction-read recall is under 100%, no
+    realign kernel was launched, or result.txt holds no designed break."""
+    import torch
+
+    from tophat_tpu_torch.cli import main as cli_mod
+    from tophat_tpu_torch.ops import events
+    from tophat_tpu_torch.pipeline import fusion_stats
+    from tophat_tpu_torch.pipeline import juncs as juncs_mod
+    from tophat_tpu_torch.pipeline import paired as paired_mod
+    from tophat_tpu_torch.pipeline import run as run_mod
+
+    fa = os.path.join(CACHE, "genome_2p27.fa")
+    t0 = time.time()
+    breaks = pick_fusion_breaks(codes)
+    reads = {}
+    for tag, seed in (("check", 61), ("steady", 62)):
+        m1, m2, fused = make_fusion_pairs(codes, juncs, breaks, seed,
+                                          N_PAIRS)
+        fqs = [os.path.join(CACHE, f"fusion_{tag}_{k}.fq") for k in (1, 2)]
+        write_fastq(fqs[0], m1, "p")
+        write_fastq(fqs[1], m2, "p")
+        reads[tag] = (fqs, fused)
+    log(f"fusion inputs: {len(breaks)} breaks, 2 x {N_PAIRS} pairs "
+        f"({time.time() - t0:.1f} s)")
+    argv = lambda out, fqs: (["-o", out, "--tt-index", index, "--batch-size",
+                              str(BATCH)] + FUSION_FLAGS + [fa] + fqs)
+
+    check = PathCheck()
+    t0 = time.time()
+    with RealignHooks(events, check):
+        cli_main_checked(cli_mod.main, argv(os.path.join(
+            CACHE, "fusion_check"), reads["check"][0]))
+    log(f"fusion check run: {time.time() - t0:.1f} s; realign exact in "
+        f"{len(check.shapes)} calls: " + ", ".join(check.shapes))
+    if not any(c.startswith("dense") for c in check.shapes):
+        fail("the fusion check run made no dense realign call")
+
+    clock = StageClock()
+    clock.wrap(cli_mod, "read_fasta", "read_fasta")
+    clock.wrap(paired_mod, "_map_mate", "map (prep, align, segments, stitch)")
+    clock.wrap(paired_mod, "discover_events",
+               "discovery (junctions, indels, FF fusions)")
+    clock.wrap(juncs_mod, "build_fusion_windows",
+               "  of which FF fusion windows + scan")
+    clock.wrap(juncs_mod, "scan_fusion_windows",
+               "  of which FF fusion windows + scan")
+    clock.wrap(paired_mod, "candidates_for_mate", "candidates")
+    clock.wrap(run_mod, "realign_events_sparse", "  of which realign, sparse")
+    clock.wrap(run_mod, "find_fr_fusions",
+               "  of which FR/RF scan + realign_fr_events")
+    clock.wrap(run_mod, "segment_event_hits",
+               "  of which segment event hits (realign, dense)")
+    clock.wrap(run_mod, "chain_stitch",
+               "  of which chain stitch + cross-strand chains")
+    clock.wrap(run_mod, "cross_strand_chains",
+               "  of which chain stitch + cross-strand chains")
+    clock.wrap(paired_mod, "accumulate_event_stats", "stats + filter")
+    clock.wrap(paired_mod, "filter_junctions", "stats + filter")
+    clock.wrap(paired_mod, "build_fusion_table", "fusion stats (fusions.out)")
+    clock.wrap(fusion_stats.FusionTable, "add_pair",
+               "fusion stats (fusions.out)")
+    clock.wrap(fusion_stats.FusionTable, "write",
+               "fusion stats (fusions.out)")
+    calls = []
+    work = os.path.join(CACHE, "fusion")
+    out = os.path.join(work, "tophat_smoke")
+    fqs, fused = reads["steady"]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    realign_launches(reset=True)
+    t0 = time.time()
+    try:
+        with RealignHooks(events, lambda kind, args, _: calls.append(
+                realign_call_shape(kind, args))):
+            cli_main_checked(cli_mod.main, argv(out, fqs))
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        launches = realign_launches()
+    finally:
+        clock.restore()
+    peak = torch.cuda.max_memory_allocated()
+    stages = dict(clock.seconds)
+    top = sum(v for k, v in stages.items() if not k.startswith(" "))
+    stages["rest (FASTQ parse, selection, output)"] = wall - top
+    recall_f, recall_j, missing = fusion_recall(out, codes, breaks, fused,
+                                                N_PAIRS)
+    n_fus = sum(1 for _ in open(os.path.join(out, "fusions.out")))
+    log(f"fusion steady run: {wall:.2f} s, {N_PAIRS / wall:.1f} pairs/s; "
+        f"{n_fus} fusions in fusions.out; realign launches {launches} "
+        f"(dense, sparse); peak device memory {peak / 2**30:.3f} GiB")
+    for k, v in stages.items():
+        log(f"  stage {k}: {v:.3f} s" + calls_note(clock.calls.get(k)))
+    log("  realign calls: " + ", ".join(calls))
+    log(f"fusion: break-read recall {recall_f:.2f}% of {len(fused)} mate-1 "
+        f"break reads; junction-read recall {recall_j:.2f}%; designed "
+        f"breaks missing from fusions.out: {missing}")
+    if missing:
+        fail(f"fusion run: designed breaks missing from fusions.out: "
+             f"{missing}")
+    if recall_f < 100.0 or recall_j < 100.0:
+        fail(f"fusion run: recall {recall_f:.2f}% (break reads), "
+             f"{recall_j:.2f}% (junction reads) < 100%")
+    if launches[0] == 0 or launches[1] == 0:
+        fail(f"the fusion run launched the realign kernel's entries "
+             f"{launches} (dense, sparse) times; both must run")
+
+    post_s = run_fusion_post(work, fa, "cuda")
+    n_res = designed_in_result(os.path.join(work, "tophatfusion_out",
+                                            "result.txt"), codes, breaks,
+                               fused)
+    log(f"fusion-post: {post_s:.1f} s; {n_res} of {len(breaks)} designed "
+        "breaks in result.txt")
+    if n_res == 0:
+        fail("fusion-post: result.txt holds no designed break")
+    return dict(wall_s=wall, pairs_per_s=N_PAIRS / wall, launches=launches,
+                path_err=check.err, realign_calls=calls,
+                peak_device_bytes=peak, recall_break_reads_pct=recall_f,
+                recall_junction_pct=recall_j, fusions_out_lines=n_fus,
+                stages=stages, stage_calls=clock.calls, post_s=post_s,
+                result_designed_breaks=n_res)
+
+
 def main():
     try:
         import torch
@@ -1470,6 +1872,10 @@ def main():
                                 spliced["index"])
     bowtie2 = phase_bowtie2(spliced["codes"], spliced["juncs"],
                             spliced["index"])
+    small_fusion = phase_small_fusion(spliced["codes"])
+    fusion = phase_fusion(spliced["codes"], spliced["juncs"],
+                          spliced["index"])
+    path_phases = (spliced, paired, annotated, bowtie2, fusion)
 
     print(json.dumps({
         "realign_cases": kernels,
@@ -1478,17 +1884,16 @@ def main():
         "spliced_junction_read_recall_pct": spliced["recall_pct"],
         "unspliced_reads_per_s": unspliced_rps,
         "paired": {k: v for k, v in paired.items() if k != "realign_calls"},
-        "annotated": annotated, "bowtie2": bowtie2}), flush=True)
+        "annotated": annotated, "bowtie2": bowtie2,
+        "small_fusion": small_fusion, "fusion": fusion}), flush=True)
     main_case = next(k for k in kernels if (k["R"], k["E"], k["L"], k["q"])
                      == (8192, 69, 100, 0))     # the main path's shape
     print(json.dumps({"kernels": [{
         "name": "realign", "route": "cuda",
         "source": "tophat_tpu_torch/csrc/realign.cu",
         "replaces": "tophat_tpu/ops/pallas/realign_kernel.py:44",
-        "launches": sum(sum(p["launches"])
-                        for p in (spliced, paired, annotated, bowtie2)),
-        "max_abs_err": max([p["path_err"]
-                            for p in (spliced, paired, annotated, bowtie2)]
+        "launches": sum(sum(p["launches"]) for p in path_phases),
+        "max_abs_err": max([p["path_err"] for p in path_phases]
                            + [k["max_abs_err"] for k in kernels]),
         "ms": main_case["ms"], "plain_ms": main_case["plain_ms"],
         "bound_ms": main_case["bound_ms"], "bound_by": main_case["bound_by"],

@@ -3,8 +3,9 @@
 They import torch and numpy only, so they also run on a machine without
 JAX: python -m pytest tests/test_torch_gpu.py -m gpu --noconftest -q
 (conftest.py imports JAX). The realign kernel is held against its plain
-torch version, and the whole single-end and paired-end pipelines on the
-card against the same pipelines on the CPU, byte for byte."""
+torch version, and the whole single-end and paired-end pipelines (fusion
+search and tophat-fusion-post included) on the card against the same
+pipelines on the CPU, byte for byte."""
 
 import numpy as np
 import pytest
@@ -276,3 +277,66 @@ def test_slice_modes_on_card_match_cpu(cuda, tmp_path, mode):
     for f in files:
         assert (tmp_path / "cpu" / f).read_bytes() == \
             (tmp_path / "cuda" / f).read_bytes(), f
+
+
+@pytest.mark.gpu
+def test_fusion_scans_on_card_match_cpu(cuda):
+    """FF fusion windows and their scan, FR/RF anchor pairs, their split
+    scan and the per-event realignment: the card's outputs equal the
+    CPU's."""
+    from test_torch_fusion import map_workload  # numpy only at import time
+    from tophat_tpu_torch.ops import fusion_fr, splice
+
+    codes, offs, gs, (pos, _, valid), _ = map_workload()
+    R = gs.rows // 2
+    sup_max = int(np.max(gs.cuts[:, 1:] - gs.cuts[:, :-1])) + 17
+    outs = []
+    for dev in ("cpu", cuda):
+        t = lambda a: torch.as_tensor(a, device=dev)
+        g, rg = t(codes), t(gs.readsg)
+        w = splice.build_fusion_windows(t(pos), t(valid), t(gs.cuts).long(),
+                                        t(gs.nseg).long(),
+                                        t(gs.lengths).long(), offs, 2000)
+        w, _ = splice.compact_windows(w, 4096)
+        res = list(splice.scan_fusion_windows(g, rg, w, sup_max))
+        p, _ = fusion_fr.build_fr_pairs(t(pos), t(valid), t(gs.cuts),
+                                        t(gs.lengths), 4096)
+        lens = t(gs.lengths[:R])
+        for pattern, d in (("prefix", "fr"), ("suffix", "rf")):
+            sc = fusion_fr.scan_fr_pairs(g, rg[:R], rg[R:], lens, p,
+                                         rg.shape[1], pattern)
+            res += list(sc)
+            ok = sc[4]
+            res += list(fusion_fr.realign_fr_events(
+                g, rg[:R], rg[R:], lens, sc[1][ok], sc[2][ok],
+                torch.ones(int(ok.sum()), dtype=torch.bool, device=dev), d))
+        outs.append([x.cpu() for x in res])
+    for a, b in zip(*outs):
+        assert torch.equal(a, b)
+    assert int(outs[0][3].sum()) > 0 and int(outs[0][8].sum()) > 0
+
+
+@pytest.mark.gpu
+def test_fusion_cli_and_post_on_card_match_cpu(cuda, tmp_path, monkeypatch):
+    """A paired --fusion-search CLI run and tophat-fusion-post on it, on
+    the card and on the CPU: identical files."""
+    from test_torch_fusion import FILES, write_inputs
+    from tophat_tpu_torch.cli.fusion_post import main as post
+    from tophat_tpu_torch.cli.main import main
+
+    fa, fq1, fq2, _ = write_inputs(tmp_path)
+    for dev in ("cpu", "cuda"):
+        assert main(["-o", str(tmp_path / dev / "tophat_s1"), "--device",
+                     dev, "--fusion-search", "--max-intron-length", "1000",
+                     "--fusion-min-dist", "2000", "--fusion-anchor-length",
+                     "13", "--no-coverage-search", fa, fq1, fq2]) == 0
+        monkeypatch.chdir(tmp_path / dev)
+        assert post(["--device", dev, "--no-filter-by-annotation",
+                     "--skip-blast", "--num-fusion-reads", "1",
+                     "--num-fusion-pairs", "0", fa]) == 0
+    for f in FILES:
+        assert (tmp_path / "cpu" / "tophat_s1" / f).read_bytes() == \
+            (tmp_path / "cuda" / "tophat_s1" / f).read_bytes(), f
+    for f in ("fusion_seq.map", "potential_fusion.txt", "result.txt"):
+        assert (tmp_path / "cpu" / "tophatfusion_out" / f).read_bytes() == \
+            (tmp_path / "cuda" / "tophatfusion_out" / f).read_bytes(), f

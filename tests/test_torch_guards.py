@@ -1,5 +1,6 @@
 """Guards of the port: it never imports JAX or the JAX package, it never
-falls back to the CPU on its own, and unported modes refuse to run."""
+falls back to the CPU on its own, unported modes refuse to run, and
+fusion search (ported) runs."""
 
 import os
 import subprocess
@@ -21,7 +22,7 @@ for name in names:
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.")
              or m == "tophat_tpu" or m.startswith("tophat_tpu."))
-print(len(names), bad)
+print(len(names), ",".join(names), bad)
 """
 
 
@@ -30,8 +31,10 @@ def test_port_imports_neither_jax_nor_tophat_tpu():
                          capture_output=True, text=True, timeout=300,
                          env={**os.environ, "PYTHONPATH": REPO})
     assert out.returncode == 0, out.stderr
-    n, bad = out.stdout.strip().split(" ", 1)
+    n, names, bad = out.stdout.strip().split(" ", 2)
     assert int(n) >= 25 and bad == "[]", out.stdout
+    for mod in ("ops.fusion_fr", "pipeline.fusion_stats", "cli.fusion_post"):
+        assert f"tophat_tpu_torch.{mod}" in names.split(","), mod
 
 
 def _tiny():
@@ -73,16 +76,25 @@ def test_cli_defaults_to_cuda_and_raises_without_it(tmp_path, monkeypatch):
               str(fq)])
 
 
-@pytest.mark.parametrize("flag", ["fusion_search"])
-def test_unported_modes_raise(tmp_path, flag):
+@pytest.mark.parametrize("mode", ["single", "paired"])
+def test_fusion_run_writes_fusions_out(tmp_path, mode):
+    """Fusion search is ported: a --fusion-search run on the tiny genome
+    completes on the CPU and writes fusions.out (empty: no fusion reads)."""
+    from tophat_tpu_torch.pipeline.paired import run_pipeline_paired
     from tophat_tpu_torch.pipeline.params import Params
     from tophat_tpu_torch.pipeline.run import run_pipeline
 
     genome, batch = _tiny()
-    params = Params(**{"coverage_search": False, flag: True})
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        run_pipeline(genome, batch, params, str(tmp_path / "out"),
-                     log=lambda *a: None, device="cpu")
+    params = Params(coverage_search=False, fusion_search=True)
+    out = tmp_path / "out"
+    if mode == "single":
+        run_pipeline(genome, batch, params, str(out), log=lambda *a: None,
+                     device="cpu")
+    else:
+        run_pipeline_paired(genome, batch, batch, params, str(out),
+                            log=lambda *a: None, device="cpu")
+    assert (out / "fusions.out").read_text() == ""
+    assert "r0" in (out / "accepted_hits.sam").read_text()
 
 
 @pytest.mark.parametrize("flags,item", [
@@ -100,21 +112,18 @@ def test_unported_cli_modes_raise(tmp_path, flags, item):
              + [str(fa), str(fq), str(fq)])
 
 
-@pytest.mark.parametrize("what", ["gfm", "fusion_search"])
+@pytest.mark.parametrize("what", ["gfm"])
 def test_paired_unported_modes_raise(tmp_path, what):
-    """The paired pipeline refuses the grouped index and fusion search,
-    naming their ROADMAP item, before it maps anything."""
+    """The paired pipeline refuses the grouped index, naming its ROADMAP
+    item, before it maps anything."""
     from tophat_tpu_torch.pipeline.paired import run_pipeline_paired
     from tophat_tpu_torch.pipeline.params import Params
 
     genome, batch = _tiny()
-    kw = {"gfm": object()} if what == "gfm" else {}
-    params = Params(fusion_search=what == "fusion_search")
-    item = "grouped index" if what == "gfm" else "fusion search"
-    with pytest.raises(NotImplementedError, match=f"ROADMAP.*{item}"):
-        run_pipeline_paired(genome, batch, batch, params,
+    with pytest.raises(NotImplementedError, match="ROADMAP.*grouped index"):
+        run_pipeline_paired(genome, batch, batch, Params(),
                             str(tmp_path / "out"), log=lambda *a: None,
-                            device="cpu", **kw)
+                            device="cpu", gfm=object())
     assert not (tmp_path / "out").exists()
 
 

@@ -183,9 +183,11 @@ def test_cli_resume_reuses_mapped_chunks(tmp_path):
 
 
 @pytest.mark.parametrize("flags", [[], ["--butterfly-search",
-                                        "--microexon-search"]])
+                                        "--microexon-search"],
+                                   ["--fusion-search"]])
 def test_cli_resume_keeps_search_tables(tmp_path, flags):
-    """With the coverage search on (the default), and with the butterfly
-    and microexon searches, the search tables persist with each chunk: a
-    resumed run writes the same files without searching again."""
+    """With the coverage search on (the default), with the butterfly and
+    microexon searches, and with fusion search, the search tables persist
+    with each chunk: a resumed run writes the same files without searching
+    again (fusion search then runs on the reloaded host tables)."""
     _resume_roundtrip(tmp_path, flags)

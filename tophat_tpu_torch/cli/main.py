@@ -5,9 +5,10 @@ same main — FASTA index build or --tt-index reuse, known events, GTF
 junctions and the transcriptome index (-G, --transcriptome-index with its
 build-only call, -T, -x, --no-gtf-juncs), colorspace input (-C) and the
 chunked single-end and paired-end pipelines, with the coverage search on
-by default, the butterfly and microexon searches and bowtie2 mode (--b2)
-on request. The grouped (multi-index) genome and fusion search raise
-NotImplementedError naming their ROADMAP item.
+by default, the butterfly and microexon searches, bowtie2 mode (--b2) and
+fusion search (--fusion-search: FF/FR/RF fusions, XF:Z tags, fusions.out;
+tophat-fusion-post is cli/fusion_post.py) on request. The grouped
+(multi-index) genome raises NotImplementedError naming its ROADMAP item.
 
 Usage:
   python -m tophat_tpu_torch.cli.main -o out [--tt-index P] [-G genes.gtf] \

@@ -19,6 +19,7 @@ from typing import Any
 import numpy as np
 import torch
 
+from tophat_tpu_torch.index.fasta import revcomp
 from tophat_tpu_torch.ops.rank import rank
 from tophat_tpu_torch.ops.search import backward_search, resolve_sa
 from tophat_tpu_torch.ops.verify import (count_mismatches_packed, pack_reads,
@@ -268,6 +269,19 @@ def _align_batch_core(fm, reads_f, reads_r, lengths, offsets, *,
                       truncated=t2[:B0] | t2[B0:])
 
 
+def seed_widths(fm, reads, lengths, max_mismatches: int):
+    """(B,) the widest SA interval among each read's pigeonhole pieces: the
+    hits_per_seed at which align_reads (without the k-mer fast path) keeps
+    every occurrence of every piece."""
+    reads, lengths = _as_device(fm, reads, lengths)
+    B, L = reads.shape
+    P = max_mismatches + 1
+    piece_len = (L + P - 1) // P + 1
+    q, _, _ = _piece_queries(reads, lengths.long(), P, piece_len)
+    lo, hi = backward_search(fm, q.reshape(B * P, piece_len))
+    return (hi - lo).reshape(B, P).max(dim=1).values
+
+
 def _as_device(fm, *arrays):
     return tuple(torch.as_tensor(a, device=fm.device) for a in arrays)
 
@@ -388,3 +402,19 @@ def transfer_alignments(al: Alignments, cap: int | None = None
         valid_t[read, slot] = True
     return Alignments(pos=pos_t, strand=strand_t, mm=mm_t, valid=valid_t,
                       n_hits=n_hits, truncated=truncated)
+
+
+def pad_reads(seqs, max_len: int | None = None):
+    """Host helper: list of int8 code arrays -> (reads_f, reads_r, lengths)
+    left-aligned, -1-padded numpy arrays ready for align_reads."""
+    B = len(seqs)
+    L = max_len or max((len(s) for s in seqs), default=1)
+    reads_f = np.full((B, L), -1, np.int8)
+    reads_r = np.full((B, L), -1, np.int8)
+    lengths = np.zeros(B, np.int32)
+    for i, s in enumerate(seqs):
+        n = min(len(s), L)
+        reads_f[i, :n] = s[:n]
+        reads_r[i, :n] = revcomp(np.asarray(s[:n], np.int8))
+        lengths[i] = n
+    return reads_f, reads_r, lengths

@@ -1,12 +1,13 @@
 """Splice-junction and small-indel discovery over segment-hit pairs.
 
-Port of the junction and indel part of tophat_tpu/ops/splice.py (the
-reference's segment_juncs split-segment search, src/segment_juncs.cpp):
-every read works in genome space (the read on strand +, its reverse
-complement on strand -), candidate windows come from pairs of segment hits
-with an intron-sized gap, and every split point of every window is scanned
-for GT-AG / GC-AG / AT-AC motifs (and their reverse complements) under a
-2-mismatch budget.
+Port of tophat_tpu/ops/splice.py (the reference's segment_juncs
+split-segment search, src/segment_juncs.cpp): every read works in genome
+space (the read on strand +, its reverse complement on strand -),
+candidate windows come from pairs of segment hits with an intron-sized
+gap, and every split point of every window is scanned for GT-AG / GC-AG /
+AT-AC motifs (and their reverse complements) under a 2-mismatch budget.
+Fusion windows pair hits on different contigs or far apart and keep the
+split with the fewest mismatches (no motif).
 
 Event kinds unify junctions, deletions and insertions into one table:
   kind 0: junction  (left = last exonic base, right = first exonic base)
@@ -211,6 +212,94 @@ def scan_windows(genome, readsg, win: PairWindows, sup_max: int):
     valid = (win.valid[:, None] & scan_ok & budget_ok & dinuc_ok
              & (fwd | rev) & (apos > dpos))
     return dpos - 1, apos + 2, rev, valid
+
+
+def _fusion_pairs_for_offset(seg_pos, seg_valid, cuts, nseg, offsets,
+                             fusion_min_dist, doff):
+    """Same-row hit pairs (partner `doff` segments to the right) placed on
+    different contigs or >= fusion_min_dist apart. Flat (R*S*H*H,)."""
+    R, S, H = seg_pos.shape
+    dev = seg_pos.device
+    pl = seg_pos[:, :, :, None]
+    vl = seg_valid[:, :, :, None]
+    pr = torch.roll(seg_pos, -doff, dims=1)[:, :, None, :]
+    vr = torch.roll(seg_valid, -doff, dims=1)[:, :, None, :]
+    j = torch.arange(S, device=dev)[None, :, None, None]
+    has_partner = (j + doff) < nseg[:, None, None, None]
+
+    llen = (cuts[:, 1:] - cuts[:, :-1])[:, :, None, None]
+    left_end = pl + llen
+    cid_l = torch.searchsorted(offsets, pl.contiguous(), right=True)
+    cid_r = torch.searchsorted(offsets, pr.contiguous(), right=True)
+    fusionish = ((cid_l != cid_r)
+                 | ((pr - left_end).abs() >= fusion_min_dist))
+    ok = vl & vr & has_partner & fusionish
+
+    rowi = torch.arange(R, device=dev)[:, None, None, None]
+    sup_start = cuts[:, 1:][:, :, None, None] - LOOK_BP
+    sup_end = _end_cut(cuts, doff)[:, :, None, None] + LOOK_BP
+
+    flat = lambda a: a.expand(ok.shape).reshape(-1)
+    return PairWindows(
+        row=flat(rowi), gl=flat(left_end), gr=flat(pr),
+        sup_start=flat(sup_start), sup_len=flat(sup_end - sup_start),
+        valid=ok.reshape(-1))
+
+
+def build_fusion_windows(seg_pos, seg_valid, cuts, nseg, lengths, offsets,
+                         fusion_min_dist: int):
+    """Candidate fusion windows: same-row segment-hit pairs (adjacent, or
+    skipping one unmapped break-spanning segment) whose placements are on
+    different contigs or >= fusion_min_dist apart on the same contig
+    (reference: detect_fusion gating, segment_juncs.cpp:3288). FF
+    orientation only; FR/RF come from ops/fusion_fr.py. `offsets` are the
+    contig start offsets (numpy or tensor)."""
+    seg_pos = seg_pos.long()
+    offsets = torch.as_tensor(offsets, device=seg_pos.device).long()
+    parts = [_fusion_pairs_for_offset(seg_pos, seg_valid, cuts, nseg,
+                                      offsets, fusion_min_dist, doff)
+             for doff in (1, 2)]
+    win = PairWindows(**{f.name: torch.cat([getattr(p, f.name)
+                                            for p in parts])
+                         for f in dataclasses.fields(PairWindows)})
+    rl = lengths[win.row]
+    s0 = torch.minimum(win.sup_start.clamp(min=0), rl)
+    s1 = torch.minimum((win.sup_start + win.sup_len).clamp(min=0), rl)
+    win.sup_start = s0
+    win.sup_len = s1 - s0
+    return win
+
+
+def scan_fusion_windows(genome, readsg, win: PairWindows, sup_max: int):
+    """Best breakpoint per fusion window: the leftmost split minimizing the
+    support span's mismatches against the left-anchored and right-anchored
+    genome windows (no splice motif: detect_fusion scans every split,
+    segment_juncs.cpp:2629). Returns per-window (left, right, best_mm,
+    valid)."""
+    W = win.row.shape[0]
+    dev = genome.device
+    t = torch.arange(sup_max, device=dev)[None, :]
+
+    sup_idx = win.sup_start[:, None] + t
+    in_sup = t < win.sup_len[:, None]
+    support = readsg[win.row[:, None], sup_idx.clamp(0, readsg.shape[1] - 1)]
+    support = torch.where(in_sup, support, torch.tensor(
+        -1, dtype=support.dtype, device=dev))
+
+    wl = win.gl[:, None] - LOOK_BP
+    wr = win.gr[:, None] + LOOK_BP
+    gl_codes = _genome_window(genome, wl + t)
+    pref_mm = torch.cumsum((_mismatch(gl_codes, support) & in_sup).long(), 1)
+    gr_codes = _genome_window(genome, wr - win.sup_len[:, None] + t)
+    suf_mm = _suffix_cumsum(_mismatch(gr_codes, support) & in_sup)
+    pref_before = torch.cat([pref_mm.new_zeros((W, 1)), pref_mm[:, :-1]],
+                            dim=1)
+
+    errs = torch.where(in_sup & (t >= 1), pref_before + suf_mm, BIG)
+    best, best_t = first_argmin(errs, 1)
+    left = wl[:, 0] + best_t - 1
+    right = wr[:, 0] - (win.sup_len - best_t)
+    return left, right, best, win.valid & (best <= WINDOW_MM)
 
 
 def compact_by_valid(valid, arrays, cap: int):

@@ -1,7 +1,7 @@
-"""Multi-event chain stitching for the default (non-fusion) mode.
+"""Multi-event chain stitching.
 
-Port of the default-mode part of tophat_tpu/pipeline/chains.py (the
-reference's long_spanning_reads join, long_spanning_reads.cpp:2222, 805):
+Port of tophat_tpu/pipeline/chains.py (the reference's long_spanning_reads
+join, long_spanning_reads.cpp:2222, 805):
 every segment gets genomic hits plus event-crossing hits, and a bounded DFS
 chains adjacent segments whose genome coordinates are contiguous,
 accumulating the crossed events. Only chains crossing >= 2 events are
@@ -10,9 +10,12 @@ realign_events_sparse.
 
 The per-segment event-hit tables come from the realign kernel
 (ops/events.realign_events over segment rows); the chain join itself is
-host-side Python over those tables, run only for reads still unresolved
-after contiguous + single-event candidates (pipeline/run.default_chains).
-The cross-strand (fusion) chains are not ported yet.
+host-side Python over those tables. In the default mode it runs only for
+reads still unresolved after contiguous + single-event candidates
+(pipeline/run.default_chains); with fusion search it runs over every row,
+and cross_strand_chains pairs forward-row and reverse-row chains of a read
+into FR/RF fusion chains whose pieces cross junctions or indels. Both take
+the same per-segment event hits (one realign call per mate).
 """
 
 from __future__ import annotations
@@ -32,6 +35,7 @@ from tophat_tpu_torch.pipeline.segment import GenomeSpaceReads, segment_rows
 MAX_TRIES = 10000   # reference: long_spanning_reads.cpp:2647
 MAX_EVENTS_PER_CHAIN = 3
 MAX_FUSIONS_PER_CHAIN = 1  # reference rejects >=2 fusions (:2698-2700)
+CROSS_EXT_MM = 2    # mismatch budget for fusion-break extensions
 
 
 def _host(a, rows=None):
@@ -90,10 +94,11 @@ class ChainCandidate:
                    if op[0] == "EV" and op[2] == KIND_FUSION)
 
 
-def _segment_event_hits(fm, gs, events, params):
+def segment_event_hits(fm, gs, events, params):
     """Per-segment event-crossing hits: realign every segment row against
-    the event table. Returns ((best_t, mm, ok) shaped (rows*S, E),
-    seg_len (rows, S))."""
+    the event table (the realign kernel's dense entry, rows*S x E). Returns
+    ((best_t, mm, ok) shaped (rows*S, E), seg_len (rows, S)); chain_stitch
+    and cross_strand_chains take it as `seg_hits`."""
     seg_reads, seg_len = segment_rows(gs)
     ev = dict(events)
     ev["valid"] = np.ones(len(ev["left"]), bool)
@@ -102,70 +107,77 @@ def _segment_event_hits(fm, gs, events, params):
             np.int32), ev, max_mm=params.segment_mismatches), seg_len
 
 
+def _hit_tables(fm, gs, seg_tables, events, params, seg_hits):
+    """(seg_pos, seg_mm, seg_valid, seg_len) host tables and the
+    (rows, S, E) event-hit tables (best_t, mm, ok)."""
+    seg_pos, seg_mm, seg_valid = (_host(x) for x in seg_tables)
+    if seg_hits is None:
+        seg_hits = segment_event_hits(fm, gs, events, params)
+    (ev_t, ev_mm, ev_ok), seg_len = seg_hits
+    rows, S = seg_pos.shape[:2]
+    seg_ev = tuple(x.reshape(rows, S, -1) for x in (ev_t, ev_mm, ev_ok))
+    return (seg_pos, seg_mm, seg_valid, seg_len), seg_ev
+
+
+def _row_hit_lists(gs, seg_tables, seg_ev, events, row):
+    """Per-segment hit lists for one genome-space row:
+    [(start, end, mm, ev, t_seg)], genomic + event-crossing."""
+    seg_pos, seg_mm, seg_valid, seg_len = seg_tables
+    ev_t, ev_mm, ev_ok = seg_ev
+    kinds = events["kind"]
+    lefts = events["left"]
+    rights = events["right"]
+    ilens = events["ins_len"]
+    nseg = int(gs.nseg[row])
+    H = seg_pos.shape[2]
+    hits = []
+    for j in range(nseg):
+        slen = int(seg_len[row, j])
+        lst = []
+        for h in range(H):
+            if seg_valid[row, j, h]:
+                p = int(seg_pos[row, j, h])
+                lst.append((p, p + slen, int(seg_mm[row, j, h]), -1, 0))
+        for e in np.nonzero(ev_ok[row, j])[0]:
+            t = int(ev_t[row, j, e])
+            kind = int(kinds[e])
+            start = int(lefts[e]) - t + 1
+            if kind == KIND_INSERTION:
+                end = int(lefts[e]) + 1 + (slen - t - int(ilens[e]))
+            else:
+                end = int(rights[e]) + (slen - t)
+            lst.append((start, end, int(ev_mm[row, j, e]), int(e), t))
+        hits.append(lst)
+    return hits, nseg
+
+
 def chain_stitch(fm, gs, seg_tables, events, params,
-                 max_chains_per_read: int = 8) -> List[ChainCandidate]:
-    """Assemble multi-event chains for every genome-space row."""
+                 max_chains_per_read: int = 8,
+                 seg_hits=None) -> List[ChainCandidate]:
+    """Assemble multi-event chains for every genome-space row. seg_hits:
+    segment_event_hits' result for these rows, computed here if None."""
     if gs.rows == 0 or len(events["left"]) == 0:
         return []
-    seg_pos, seg_mm, seg_valid = (_host(x) for x in seg_tables)
-    (ev_t, ev_mm, ev_ok), seg_len = _segment_event_hits(fm, gs, events,
-                                                        params)
-    rows, S, H = seg_pos.shape
-    ev_t = ev_t.reshape(rows, S, -1)
-    ev_mm = ev_mm.reshape(rows, S, -1)
-    ev_ok = ev_ok.reshape(rows, S, -1)
+    tables4, seg_ev = _hit_tables(fm, gs, seg_tables, events, params,
+                                  seg_hits)
+    seg_len = tables4[3]
     kinds = events["kind"]
     lefts = events["left"]
     rights = events["right"]
     ilens = events["ins_len"]
 
     out: List[ChainCandidate] = []
-    for row in range(rows):
+    for row in range(gs.rows):
         nseg = int(gs.nseg[row])
         if nseg < 2 or int(gs.read_idx[row]) < 0:
             continue
         # hit lists per segment: (start, end, mm, ev or -1, t_seg)
-        hits: List[List[Tuple[int, int, int, int, int]]] = []
-        for j in range(nseg):
-            slen = int(seg_len[row, j])
-            lst = []
-            for h in range(H):
-                if seg_valid[row, j, h]:
-                    p = int(seg_pos[row, j, h])
-                    lst.append((p, p + slen, int(seg_mm[row, j, h]), -1, 0))
-            for e in np.nonzero(ev_ok[row, j])[0]:
-                t = int(ev_t[row, j, e])
-                kind = int(kinds[e])
-                start = int(lefts[e]) - t + 1
-                if kind == KIND_INSERTION:
-                    end = int(lefts[e]) + 1 + (slen - t - int(ilens[e]))
-                else:
-                    end = int(rights[e]) + (slen - t)
-                lst.append((start, end, int(ev_mm[row, j, e]), int(e), t))
-            hits.append(lst)
+        hits, _ = _row_hit_lists(gs, tables4, seg_ev, events, row)
         if not hits[0]:
             continue
 
         chains = []
         tries = 0
-
-        def closures(end, s):
-            """Events that close a gap between adjacent UNGAPPED segment
-            hits ending at `end` and starting at `s` — merge_chain's pair
-            closure with the split up to 4 bases from the boundary
-            (long_spanning_reads.cpp:1341); for insertions the boundary
-            must fall inside the inserted span (:1036). Yields (ev, delta)
-            where delta = split read-offset minus the boundary offset."""
-            for e2 in range(len(kinds)):
-                k2 = int(kinds[e2])
-                d = int(lefts[e2]) + 1 - end
-                if k2 == KIND_INSERTION:
-                    q = int(ilens[e2])
-                    if -q <= d <= 0 and s == end - q:
-                        yield e2, d
-                else:
-                    if abs(d) <= 4 and s == int(rights[e2]) - d:
-                        yield e2, d
 
         def dfs(j, end, mm, evs, path):
             nonlocal tries
@@ -187,7 +199,7 @@ def chain_stitch(fm, gs, seg_tables, events, params,
                     dfs(j + 1, e, mm + hmm, nevs,
                         path + [("SEG", j, s, e, ev, t)])
                 else:
-                    for e2, d in closures(end, s):
+                    for e2, d in _closure_candidates(events, end, s):
                         cevs = nevs + [e2]
                         if len(cevs) > MAX_EVENTS_PER_CHAIN:
                             continue
@@ -294,3 +306,375 @@ def _chain_mm(genome, row_codes, pos0, ops, events):
             else:
                 gp = int(rights[ev]) + (gp - int(events["left"][ev]) - 1)
     return mm
+
+
+def _closure_candidates(events, end, s):
+    """Events that close a gap between adjacent ungapped hits ending at
+    `end` and starting at `s` (merge_chain pair closure, split within 4
+    bases of the boundary; insertion boundary inside the inserted span).
+    Yields (ev, delta)."""
+    kinds = events["kind"]
+    lefts = events["left"]
+    rights = events["right"]
+    ilens = events["ins_len"]
+    for e2 in range(len(kinds)):
+        k2 = int(kinds[e2])
+        d = int(lefts[e2]) + 1 - end
+        if k2 == KIND_INSERTION:
+            q = int(ilens[e2])
+            if -q <= d <= 0 and s == end - q:
+                yield e2, d
+        else:
+            if abs(d) <= 4 and s == int(rights[e2]) - d:
+                yield e2, d
+
+
+def _prefix_chains(hits, nseg, max_out=16, events=None):
+    """All contiguous chains covering segments 0..j (any j), as
+    (j, genome_end, mm, events, path); path holds ("SEG", s, e, ev, t)
+    and ("CLOSE", ev, delta) entries. Bounded enumeration; with `events`,
+    adjacent-hit gaps closable by an event continue the chain."""
+    out = []
+    frontier = [(-1, None, 0, (), ())]
+    for j in range(nseg):
+        nxt = []
+        for (_, end, mm, evs, path) in frontier:
+            for (s, e, hmm, ev, t) in hits[j]:
+                links = []
+                if j == 0 or s == end:
+                    links.append(None)
+                elif events is not None:
+                    links.extend(_closure_candidates(events, end, s))
+                for link in links[:4]:
+                    nevs = evs + (ev,) if ev >= 0 else evs
+                    npath = path
+                    if link is not None:
+                        nevs = nevs + (link[0],)
+                        npath = npath + (("CLOSE",) + tuple(link),)
+                    if len(nevs) > MAX_EVENTS_PER_CHAIN:
+                        continue
+                    nxt.append((j, e, mm + hmm, nevs,
+                                npath + (("SEG", s, e, ev, t),)))
+        frontier = nxt[:max_out]
+        out.extend(frontier)
+        if not frontier:
+            break
+    return out
+
+
+def _suffix_chains(hits, nseg, max_out=16, events=None):
+    """All contiguous chains covering segments j..nseg-1, as
+    (j, genome_start, mm, events, path)."""
+    out = []
+    frontier = [(nseg, None, 0, (), ())]
+    for j in range(nseg - 1, -1, -1):
+        nxt = []
+        for (_, start, mm, evs, path) in frontier:
+            for (s, e, hmm, ev, t) in hits[j]:
+                links = []
+                if j == nseg - 1 or e == start:
+                    links.append(None)
+                elif events is not None:
+                    links.extend(_closure_candidates(events, e, start))
+                for link in links[:4]:
+                    nevs = (ev,) + evs if ev >= 0 else evs
+                    npath = path
+                    if link is not None:
+                        nevs = (link[0],) + nevs
+                        npath = (("CLOSE",) + tuple(link),) + npath
+                    if len(nevs) > MAX_EVENTS_PER_CHAIN:
+                        continue
+                    nxt.append((j, s, mm + hmm, nevs,
+                                (("SEG", s, e, ev, t),) + npath))
+        frontier = nxt[:max_out]
+        out.extend(frontier)
+        if not frontier:
+            break
+    return out
+
+
+def _path_pos0(path):
+    """Genome start of the first SEG entry of a chain path."""
+    for entry in path:
+        if entry[0] == "SEG":
+            return int(entry[1])
+    return None
+
+
+def _ops_from_path(path, seg_len_row, events, extend_last=0):
+    """Assemble M/EV ops from a chain path of ("SEG", s, e, ev, t_seg) and
+    ("CLOSE", ev, delta) entries (segments consecutive from the path's
+    first); extend_last grows the final M run (fusion-break extension)."""
+    kinds = events["kind"]
+    lefts = events["left"]
+    rights = events["right"]
+    ilens = events["ins_len"]
+    ops: List[Tuple] = []
+
+    def add_m(n):
+        if n == 0:
+            return
+        if ops and ops[-1][0] == "M":
+            ops[-1] = ("M", ops[-1][1] + n)
+            if ops[-1][1] <= 0:
+                ops.pop()
+        elif n > 0:
+            ops.append(("M", n))
+
+    idx = 0
+    carry = 0
+    for entry in path:
+        if entry[0] == "CLOSE":
+            _, e2, d = entry
+            kind = int(kinds[e2])
+            gap = (int(ilens[e2]) if kind == KIND_INSERTION
+                   else max(int(rights[e2]) - int(lefts[e2]) - 1, 0))
+            add_m(d)
+            carry = -(gap + d) if kind == KIND_INSERTION else -d
+            ops.append(("EV", e2, kind, gap))
+            continue
+        _, s, e, ev, t = entry
+        slen = int(seg_len_row[idx])
+        idx += 1
+        if ev < 0:
+            add_m(slen + carry)
+            carry = 0
+        else:
+            kind = int(kinds[ev])
+            gap = (int(ilens[ev]) if kind == KIND_INSERTION
+                   else max(int(rights[ev]) - int(lefts[ev]) - 1, 0))
+            post = slen - t - (gap if kind == KIND_INSERTION else 0)
+            add_m(t + carry)
+            carry = 0
+            ops.append(("EV", ev, kind, gap))
+            add_m(post)
+    add_m(extend_last)
+    return ops
+
+
+def cross_strand_chains(fm, gs, seg_tables, events, params,
+                        max_pairs: int = 128, fr_events=None,
+                        seg_hits=None) -> List[ChainCandidate]:
+    """FR/RF fusion chains whose pieces may themselves cross events: pair a
+    forward-row prefix (suffix) chain with a reverse-row prefix (suffix)
+    chain of the same read and scan the uncovered middle for the fusion
+    break. Only pairs crossing >= 1 non-fusion event are emitted — pure
+    cross-strand fusions come from ops/fusion_fr.py.
+
+    Reference analog: detect_fusion over reverse-complemented sides
+    (segment_juncs.cpp:2629) combined with merge_chain gap closing.
+    seg_hits: segment_event_hits' result for these rows (None: computed
+    here)."""
+    if gs.rows == 0 or len(events["left"]) == 0:
+        return []
+    tables4, seg_ev = _hit_tables(fm, gs, seg_tables, events, params,
+                                  seg_hits)
+    seg_len = tables4[3]
+    genome = host_codes(fm)
+    n = genome.shape[0]
+    R = gs.rows // 2
+    # flank-record anchor floor (juncs_db fusion record geometry: >= 3
+    # aligned bases each side; fusion_anchor_length only gates FusionStat
+    # counting, fusions.cpp:193)
+    fa = 3
+
+    def ext_mm(read_codes, u0, u1, gpos0, step=1):
+        """Mismatches of read_codes[u0:u1] vs genome starting gpos0."""
+        if u1 <= u0:
+            return 0
+        idx = gpos0 + step * np.arange(u1 - u0)
+        inb = (idx >= 0) & (idx < n)
+        g = np.where(inb, genome[np.clip(idx, 0, n - 1)], 5)
+        rp = read_codes[u0:u1]
+        return int(((g != rp) | (g >= 4) | (rp >= 4)).sum())
+
+    out: List[ChainCandidate] = []
+    for r in range(R):
+        rf, rr = r, r + R
+        if int(gs.read_idx[rf]) < 0:
+            continue
+        L = int(gs.lengths[rf])
+        read_f = gs.readsg[rf]
+        read_r = gs.readsg[rr]
+        hits_f, nseg_f = _row_hit_lists(gs, tables4, seg_ev, events, rf)
+        hits_r, nseg_r = _row_hit_lists(gs, tables4, seg_ev, events, rr)
+        if not hits_f or not hits_r:
+            continue
+        cuts_f = gs.cuts[rf]
+        cuts_r = gs.cuts[rr]
+        maxseg = int(seg_len[rf].max())
+
+        best = []
+        # ---- FR: fwd prefix + rc prefix ----
+        pf = _prefix_chains(hits_f, nseg_f, events=events)
+        pr = _prefix_chains(hits_r, nseg_r, events=events)
+
+        # event-anchored virtual pieces: when one strand's piece is too
+        # short to hold any mappable segment, anchor it on an already-
+        # discovered cross-strand breakpoint (the role of segments mapping
+        # juncs_db fusion flank records) and pair it with the other
+        # strand's chain, which may itself cross junctions/indels.
+        for (pa, pb) in (fr_events or {}).get("fr", ()):
+            for (jb, endB, mmB, evsB, pathB) in pr:
+                if not evsB:
+                    continue
+                covB = int(cuts_r[jb + 1])
+                s = int(pb) - endB + covB + 1   # piece B total length
+                t = L - s
+                if not (fa <= t <= L - fa) or s < covB or s - covB > maxseg:
+                    continue
+                e1 = ext_mm(read_f, 0, t, int(pa) - t + 1)
+                e2 = ext_mm(read_r, covB, s, endB)
+                if e1 + e2 > CROSS_EXT_MM:
+                    continue
+                ops = [("M", t), ("FUS", int(pb), "fr")]
+                best.append(ChainCandidate(
+                    read=int(gs.read_idx[rf]), strand=0,
+                    pos=int(pa) - t + 1, mm=mmB + e1 + e2, ops=ops,
+                    events=tuple(evsB)))
+            for (ja, endA, mmA, evsA, pathA) in pf:
+                if not evsA:
+                    continue
+                covA = int(cuts_f[ja + 1])
+                t = int(pa) - endA + covA + 1   # piece A total length
+                if not (fa <= t <= L - fa) or t < covA or t - covA > maxseg:
+                    continue
+                e1 = ext_mm(read_f, covA, t, endA)
+                e2 = ext_mm(read_r, 0, L - t, int(pb) - (L - t) + 1)
+                if e1 + e2 > CROSS_EXT_MM:
+                    continue
+                ops = _ops_from_path(pathA, seg_len[rf], events,
+                                     extend_last=t - covA)
+                ops.append(("FUS", int(pb), "fr"))
+                best.append(ChainCandidate(
+                    read=int(gs.read_idx[rf]), strand=0,
+                    pos=_path_pos0(pathA), mm=mmA + e1 + e2, ops=ops,
+                    events=tuple(evsA)))
+        for (ra, rb) in (fr_events or {}).get("rf", ()):
+            # piece A = fwd suffix starting at ra; piece B = rc suffix
+            # starting at rb (covers the read's first t bases, revcomp)
+            for (jb, startB, mmB, evsB, pathB) in _suffix_chains(
+                    hits_r, nseg_r, events=events):
+                if not evsB:
+                    continue
+                tB0 = int(cuts_r[jb])
+                t = L - tB0 + (startB - int(rb))
+                if not (fa <= t <= L - fa):
+                    continue
+                back = tB0 - (L - t)
+                if back < 0 or back > maxseg:
+                    continue
+                e1 = ext_mm(read_f, t, L, int(ra))
+                e2 = ext_mm(read_r, L - t, tB0, int(rb))
+                if e1 + e2 > CROSS_EXT_MM:
+                    continue
+                ops = [("FUS", int(rb), "rf"), ("M", L - t)]
+                best.append(ChainCandidate(
+                    read=int(gs.read_idx[rf]), strand=0, pos=int(ra),
+                    mm=mmB + e1 + e2, ops=ops, events=tuple(evsB)))
+            for (ja, startA, mmA, evsA, pathA) in _suffix_chains(
+                    hits_f, nseg_f, events=events):
+                if not evsA:
+                    continue
+                tA0 = int(cuts_f[ja])
+                t = tA0 - (startA - int(ra))
+                if not (fa <= t <= L - fa):
+                    continue
+                back = tA0 - t
+                if back < 0 or back > maxseg:
+                    continue
+                e1 = ext_mm(read_f, t, tA0, int(ra))
+                e2 = ext_mm(read_r, L - t, L, int(rb))
+                if e1 + e2 > CROSS_EXT_MM:
+                    continue
+                ops = [("FUS", int(rb), "rf")]
+                ops += _ops_from_path(pathA, seg_len[rf][ja:], events)
+                if back:
+                    for i2, op in enumerate(ops):
+                        if op[0] == "M":
+                            ops[i2] = ("M", op[1] + back)
+                            break
+                best.append(ChainCandidate(
+                    read=int(gs.read_idx[rf]), strand=0, pos=int(ra),
+                    mm=mmA + e1 + e2, ops=ops, events=tuple(evsA)))
+
+        tried = 0
+        for (ja, endA, mmA, evsA, pathA) in pf:
+            covA = int(cuts_f[ja + 1])
+            for (jb, endB, mmB, evsB, pathB) in pr:
+                tried += 1
+                if tried > max_pairs:
+                    break
+                if not evsA and not evsB:
+                    continue
+                covB = int(cuts_r[jb + 1])
+                mid = L - covA - covB
+                if mid < 0 or mid > 2 * maxseg:
+                    continue
+                # best split in the uncovered middle
+                cand = None
+                for t in range(max(covA, 1), min(L - covB, L - 1) + 1):
+                    e1 = ext_mm(read_f, covA, t, endA)
+                    e2 = ext_mm(read_r, covB, L - t, endB)
+                    if e1 + e2 <= CROSS_EXT_MM and (cand is None
+                                                    or e1 + e2 < cand[1]):
+                        cand = (t, e1 + e2)
+                if cand is None:
+                    continue
+                t, ext = cand
+                if t < fa or L - t < fa:
+                    continue
+                ops = _ops_from_path(pathA, seg_len[rf], events,
+                                     extend_last=t - covA)
+                posB = endB + (L - t - covB) - 1
+                ops.append(("FUS", int(posB), "fr"))
+                best.append(ChainCandidate(
+                    read=int(gs.read_idx[rf]), strand=0,
+                    pos=_path_pos0(pathA), mm=mmA + mmB + ext, ops=ops,
+                    events=tuple(evsA) + tuple(evsB)))
+
+        # ---- RF: fwd suffix + rc suffix ----
+        sf = _suffix_chains(hits_f, nseg_f, events=events)
+        sr = _suffix_chains(hits_r, nseg_r, events=events)
+        tried = 0
+        for (ja, startA, mmA, evsA, pathA) in sf:
+            tA0 = int(cuts_f[ja])
+            for (jb, startB, mmB, evsB, pathB) in sr:
+                tried += 1
+                if tried > max_pairs:
+                    break
+                if not evsA and not evsB:
+                    continue
+                tB0 = int(cuts_r[jb])
+                # piece B covers read[0 : L - tB0]; piece A covers read[t:]
+                lo_t = max(L - tB0 - 0, 1)
+                mid = tA0 - (L - tB0)
+                if mid < 0 or mid > 2 * maxseg:
+                    continue
+                cand = None
+                for t in range(max(L - tB0, 1), min(tA0, L - 1) + 1):
+                    e1 = ext_mm(read_f, t, tA0, startA - (tA0 - t))
+                    e2 = ext_mm(read_r, L - t, tB0,
+                                startB - (tB0 - (L - t)))
+                    if e1 + e2 <= CROSS_EXT_MM and (cand is None
+                                                    or e1 + e2 < cand[1]):
+                        cand = (t, e1 + e2)
+                if cand is None:
+                    continue
+                t, ext = cand
+                if t < fa or L - t < fa:
+                    continue
+                ops = [("FUS", int(startB + (tB0 - (L - t))), "rf")]
+                ops += _ops_from_path(pathA, seg_len[rf][ja:], events)
+                # prepend the backward extension to the first M run
+                if t < tA0:
+                    for i2, op in enumerate(ops):
+                        if op[0] == "M":
+                            ops[i2] = ("M", op[1] + (tA0 - t))
+                            break
+                best.append(ChainCandidate(
+                    read=int(gs.read_idx[rf]), strand=0,
+                    pos=int(startA - (tA0 - t)), mm=mmA + mmB + ext,
+                    ops=ops, events=tuple(evsA) + tuple(evsB)))
+        out.extend(best[:4])
+    return out

@@ -2,7 +2,8 @@
 
 Port of tophat_tpu/pipeline/juncs.py: segment hit tables -> pair windows
 -> motif scans (device) -> a unique event table (host numpy), consumed by
-ops/events.realign_events. Fusion discovery is not ported yet.
+ops/events.realign_events; with fusion search, far or cross-contig hit
+pairs add FF fusion events (kind 3).
 """
 
 from __future__ import annotations
@@ -14,10 +15,13 @@ import numpy as np
 import torch
 
 from tophat_tpu_torch.ops.events import MAX_INS
-from tophat_tpu_torch.ops.splice import (KIND_DELETION, KIND_INSERTION,
-                                         KIND_JUNCTION, build_indel_pairs,
+from tophat_tpu_torch.ops.splice import (KIND_DELETION, KIND_FUSION,
+                                         KIND_INSERTION, KIND_JUNCTION,
+                                         build_fusion_windows,
+                                         build_indel_pairs,
                                          build_pair_windows,
                                          compact_scan_hits, compact_windows,
+                                         scan_fusion_windows,
                                          scan_indel_pairs, scan_windows)
 from tophat_tpu_torch.pipeline.segment import GenomeSpaceReads, map_segments
 
@@ -72,13 +76,11 @@ def _library_type_keep(params, strands, rev, read_side):
 def discover_events(fm, offsets, gs: GenomeSpaceReads, params,
                     seg_tables=None, log=None,
                     read_side: int = 0) -> Dict[str, np.ndarray]:
-    """Split-segment junction search + small-indel detection for one batch
-    of genome-space reads. Returns the deduped event table (numpy)."""
+    """Split-segment junction search + small-indel detection (+ FF fusion
+    discovery with params.fusion_search) for one batch of genome-space
+    reads. Returns the deduped event table (numpy)."""
     if gs.rows == 0:
         return empty_events()
-    if params.fusion_search:
-        raise NotImplementedError(
-            "fusion discovery is not ported yet (ROADMAP Queue 1, fusion)")
     if seg_tables is None:
         seg_tables = map_segments(
             fm, offsets, gs, segment_mismatches=params.segment_mismatches,
@@ -155,15 +157,36 @@ def discover_events(fm, offsets, gs: GenomeSpaceReads, params,
                       antisense=np.zeros(len(kind), bool),
                       ins_len=ins_len.astype(np.int8), ins_seq=ins_seq)
 
-    ev = merge_events(juncs, indels)
+    # --- fusions (FF pairs; reference: detect_fusion path) -----------------
+    fusions = empty_events()
+    if params.fusion_search:
+        fwin = build_fusion_windows(seg_pos, seg_valid, cuts, nseg, lengths,
+                                    offsets, params.fusion_min_dist)
+        fwin, f_ovf = compact_windows(fwin, MAX_WINDOWS)
+        if f_ovf:
+            warnings.warn(
+                f"fusion windows overflowed {MAX_WINDOWS} slots; some "
+                "candidates were dropped (raise MAX_WINDOWS or reduce the "
+                "chunk size)", stacklevel=2)
+        fl, fr, _, fvalid = (a.cpu().numpy() for a in scan_fusion_windows(
+            fm.genome, readsg, fwin, sup_max))
+        fl, fr = fl[fvalid], fr[fvalid]
+        fusions = dict(left=fl.astype(np.int32), right=fr.astype(np.int32),
+                       kind=np.full(len(fl), KIND_FUSION, np.int8),
+                       antisense=np.zeros(len(fl), bool),
+                       ins_len=np.zeros(len(fl), np.int8),
+                       ins_seq=np.full((len(fl), MAX_INS), -1, np.int8))
+
+    ev = merge_events(juncs, indels, fusions)
 
     # contig-consistency guard: junctions/deletions must not span contig
-    # boundaries of the concatenated genome
+    # boundaries of the concatenated genome; fusions are exempt
     if len(ev["left"]):
         offs = np.asarray(offsets, np.int64)
         cid_l = np.searchsorted(offs, ev["left"], side="right")
         cid_r = np.searchsorted(offs, ev["right"], side="right")
-        keep = ((ev["kind"] == KIND_INSERTION)
+        keep = ((ev["kind"] == KIND_FUSION)
+                | (ev["kind"] == KIND_INSERTION)
                 | ((cid_l == cid_r) & (ev["left"] < ev["right"])))
         ev = {k: v[keep] for k, v in ev.items()}
 
@@ -174,4 +197,7 @@ def discover_events(fm, offsets, gs: GenomeSpaceReads, params,
         log(f"Found {nj} potential split-segment junctions")
         log(f"Found {nd} potential small deletions")
         log(f"Found {ni} potential small insertions")
+        if params.fusion_search:
+            nf = int((ev["kind"] == KIND_FUSION).sum())
+            log(f"Found {nf} potential fusions")
     return ev

@@ -10,9 +10,10 @@ inner distance best matches inner_dist_mean wins.
 Output flag conventions copied from the gold regression outputs (v1.1.4
 era): PAIRED | READ1/READ2 | (MATE_UNMAPPED) | strand bits, RNEXT '=' and
 PNEXT = mate position when the mate mapped, RNEXT '*' otherwise, TLEN 0.
+With fusion search, fusions.out also counts mate-pair support.
 
-The grouped index and fusion search are not ported yet: they raise
-NotImplementedError naming their ROADMAP item.
+The grouped index is not ported yet: it raises NotImplementedError naming
+its ROADMAP item.
 """
 
 from __future__ import annotations
@@ -29,6 +30,7 @@ from tophat_tpu_torch.index.fasta import Genome, decode_seq
 from tophat_tpu_torch.io import sam as samio
 from tophat_tpu_torch.io.bam import BamRecord, BamWriter
 from tophat_tpu_torch.ops.splice import KIND_INSERTION, KIND_JUNCTION
+from tophat_tpu_torch.pipeline.fusion_stats import build_fusion_table
 from tophat_tpu_torch.pipeline.juncs import discover_events, merge_events
 from tophat_tpu_torch.pipeline.prep import PrepStats
 from tophat_tpu_torch.pipeline.report import (Candidate, EventStats,
@@ -39,8 +41,8 @@ from tophat_tpu_torch.pipeline.report import (Candidate, EventStats,
 from tophat_tpu_torch.pipeline.run import (_index_for, _map_mate,
                                            _trans_for, _v2_score_of,
                                            candidates_for_mate,
-                                           check_supported, merge_stats,
-                                           resolve_device, search_tables)
+                                           merge_stats, resolve_device,
+                                           search_tables)
 
 
 @dataclasses.dataclass
@@ -179,7 +181,6 @@ def run_pipeline_paired_streaming(genome: Genome, pair_iter, params,
         raise NotImplementedError(
             "the grouped (multi-index) genome is not ported to "
             "tophat_tpu_torch yet (ROADMAP Queue 1: grouped index)")
-    check_supported(params)
     dev = resolve_device(device)
     t0 = time.time()
     os.makedirs(out_dir, exist_ok=True)
@@ -418,6 +419,21 @@ def run_pipeline_paired_streaming(genome: Genome, pair_iter, params,
     w.close()
 
     _write_beds(out_dir, genome, events, final_stats)
+    if params.fusion_search:
+        parts = []
+        for (batch1, batch2, sel0, sel1) in chunk_selected:
+            parts += [(batch1, sel0), (batch2, sel1)]
+        ft = build_fusion_table(genome, events, params, parts)
+        # mate-pair evidence (pair_support, fusions.cpp:497)
+        for (batch1, batch2, sel0, sel1) in chunk_selected:
+            for r in range(max(batch1.size, batch2.size)):
+                s1 = sel0.get(r, []) if r < batch1.size else []
+                s2 = sel1.get(r, []) if r < batch2.size else []
+                if (s1 and s2 and len(s1) <= params.fusion_multipairs
+                        and len(s2) <= params.fusion_multipairs):
+                    ft.add_pair(s1[0], s2[0], int(batch1.lengths[r]),
+                                int(batch2.lengths[r]))
+        ft.write(os.path.join(out_dir, "fusions.out"))
 
     write_align_summary(
         out_dir, ("Left reads", total1, mapped1, multi1, 0),

@@ -30,6 +30,7 @@ from tophat_tpu_torch.index.fasta import Genome
 from tophat_tpu_torch.io import sam as samio
 from tophat_tpu_torch.ops.splice import (KIND_DELETION, KIND_FUSION,
                                    KIND_INSERTION, KIND_JUNCTION)
+from tophat_tpu_torch.pipeline.fusion_stats import build_fusion_table
 
 MISMATCH_PENALTY = 6   # bowtie2 mp max (reference: common.h bowtie2_* defaults)
 GAP_OPEN = 5
@@ -817,8 +818,8 @@ def write_outputs_multi(out_dir: str, genome: Genome, params, parts,
 
     _write_beds(out_dir, genome, events, final_stats)
     if params.fusion_search:
-        raise NotImplementedError(
-            "fusions.out is not ported yet (ROADMAP Queue 1, fusion item)")
+        build_fusion_table(genome, events, params, parts).write(
+            os.path.join(out_dir, "fusions.out"))
 
     write_align_summary(out_dir, ("Reads", total, n_aligned_reads,
                                    multimapped, 0), None, None, None,

@@ -8,11 +8,11 @@ compile_reports flow of the reference driver, src/tophat.py:3428, :2665):
   gapped alignment) -> junction/indel discovery (+ the coverage,
   butterfly and microexon searches) -> event realignment -> default-mode
   chains -> pass-1 stats + filter -> pass-2 selection -> outputs
+With fusion search, discovery adds FF fusion events, and each mate's
+candidates add FR/RF fusions (ops/fusion_fr.py) and chains over every row,
+cross-strand ones included (pipeline/chains.py).
 Device stages take torch tensors on `device`; every crossing back to the
 host is an explicit .cpu() (np.asarray of a CUDA tensor raises).
-
-Fusion search is not ported yet: it raises NotImplementedError naming its
-ROADMAP item and never routes into the JAX package.
 """
 
 from __future__ import annotations
@@ -33,11 +33,15 @@ from tophat_tpu_torch.io.fastq import ReadBatch, batch_reads, read_all
 from tophat_tpu_torch.ops.align import (Alignments, align_reads_adaptive,
                                         kmer_fast_ok, transfer_alignments)
 from tophat_tpu_torch.ops.events import realign_events_sparse
+from tophat_tpu_torch.ops.fusion_fr import find_fr_fusions
 from tophat_tpu_torch.ops.gapped import gapped_from_segments
+from tophat_tpu_torch.ops.splice import KIND_FUSION
 from tophat_tpu_torch.ops.stitch import stitch_contiguous
 from tophat_tpu_torch.pipeline.butterfly import (butterfly_search_events,
                                                  microexon_events)
-from tophat_tpu_torch.pipeline.chains import chain_stitch, subset_rows
+from tophat_tpu_torch.pipeline.chains import (chain_stitch,
+                                              cross_strand_chains,
+                                              segment_event_hits, subset_rows)
 from tophat_tpu_torch.pipeline.coverage import coverage_search_events
 from tophat_tpu_torch.pipeline.juncs import discover_events, merge_events
 from tophat_tpu_torch.pipeline.params import Params
@@ -53,20 +57,6 @@ from tophat_tpu_torch.pipeline.segment import (build_genome_space,
 from tophat_tpu_torch.pipeline.transcriptome import (
     map_reads_transcriptome, transcriptome_candidates)
 from tophat_tpu_torch.utils.device import resolve_device
-
-# unported modes -> the ROADMAP Queue 1 item that ports them
-_UNPORTED = (
-    ("fusion_search", "fusion search"),
-)
-
-
-def check_supported(params: Params) -> None:
-    """Raise NotImplementedError for a mode whose stages are not ported."""
-    for flag, item in _UNPORTED:
-        if getattr(params, flag, False):
-            raise NotImplementedError(
-                f"{flag} is not ported to tophat_tpu_torch yet "
-                f"(ROADMAP Queue 1: {item})")
 
 
 def revcomp_rows(codes: np.ndarray, lengths: np.ndarray) -> np.ndarray:
@@ -277,7 +267,6 @@ def pipeline_core(genome: Genome, batches: List[ReadBatch], params: Params,
                   gtf_accept=None, trans=None, log=print, device="cuda"):
     """Run prep/map/discover/realign/filter for 1 (single) or 2 (paired)
     read batches. Returns (mates, events, stats, accepted, fm)."""
-    check_supported(params)
     dev = resolve_device(device)
     fm = _index_for(genome, fm, dev, log)
     trans = _trans_for(trans, dev)
@@ -342,9 +331,11 @@ def candidates_for_mate(fm, m: MateState, events, params, log,
                         paired=False) -> None:
     """Realign one chunk/mate against the (global) event table and build
     its candidate lists, in the JAX package's order (candidate order feeds
-    selection): collected candidates, then the transcriptome placements
-    (which replace a read's list), then the bowtie2-mode direct gapped
-    candidates, then default-mode chains for the reads still unresolved.
+    selection): collected candidates (with fusion search: chains over
+    every row, cross-strand ones included), then the transcriptome
+    placements (which replace a read's list), then the bowtie2-mode direct
+    gapped candidates, then the FR/RF fusion candidates (fusion search) or
+    default-mode chains for the reads still unresolved (otherwise).
     `paired` admits the pair-only short-anchor candidates."""
     max_nseg = int(m.gs.nseg.max()) if m.gs.rows else 1
     realign_mm = params.segment_mismatches * max_nseg
@@ -356,10 +347,32 @@ def candidates_for_mate(fm, m: MateState, events, params, log,
     else:
         z = np.zeros(0, np.int32)
         spl = (z, z.copy(), z.copy(), z.copy())
+    fusion = params.fusion_search and m.gs.rows
+    fr_results = []
+    fr_event_pairs = {"fr": (), "rf": ()}
+    if fusion:
+        fr_results = find_fr_fusions(fm, m.gs, m.seg_tables, params)
+        for res in fr_results:
+            pairs = sorted({(int(a), int(b)) for a, b in
+                            zip(res["posA"], res["posB"])}
+                           | {(int(b), int(a)) for a, b in
+                              zip(res["posA"], res["posB"])})
+            fr_event_pairs[res["pattern"]] = tuple(pairs)[:64]
+    chain_cands = None
+    if fusion and len(events["left"]):
+        # one dense realign of the segments serves both chain searches
+        seg_hits = segment_event_hits(fm, m.gs, events, params)
+        chain_cands = chain_stitch(fm, m.gs, m.seg_tables, events, params,
+                                   seg_hits=seg_hits)
+        chain_cands += cross_strand_chains(fm, m.gs, m.seg_tables, events,
+                                           params, fr_events=fr_event_pairs,
+                                           seg_hits=seg_hits)
+        if chain_cands:
+            log(f"chain stitch: {len(chain_cands)} multi-event chains")
     m.cands = collect_candidates(m.aln, m.gs, events, *spl, params,
                                  stitched=m.stitched,
                                  genome_codes=host_codes(fm),
-                                 chain_cands=None, paired=paired)
+                                 chain_cands=chain_cands, paired=paired)
 
     # transcriptome-mapped reads report ONLY their rebased transcript hits
     # (the reference never genome-maps them: only m2g_unmapped feeds
@@ -370,7 +383,36 @@ def candidates_for_mate(fm, m: MateState, events, params, log,
             m.cands[r] = lst
     if m.gapped:
         _gapped_candidates(m, events, log)
-    default_chains(fm, m, events, params, log)
+    if fusion:
+        _fr_candidates(m, fr_results, log)
+    if not params.fusion_search:
+        default_chains(fm, m, events, params, log)
+
+
+def _fr_candidates(m: MateState, fr_results, log) -> None:
+    """Cross-strand (FR/RF) fusion candidates, appended after the others."""
+    nfr = 0
+    for res in fr_results:
+        for rr, t, pa, pb, mm2 in zip(res["read"], res["t"], res["posA"],
+                                      res["posB"], res["mm"]):
+            read = int(m.gs.read_idx[int(rr)])
+            if read < 0:  # pow2 padding row
+                continue
+            rl = int(m.gs.lengths[int(rr)])
+            t = int(t)
+            if t < 3 or rl - t < 3:  # record-geometry floor; the 20bp
+                continue             # rule gates counting, not reporting
+            pos = int(pa) - t + 1 if res["pattern"] == "fr" else int(pa)
+            c = Candidate(read=read, pos=pos, strand=0, mm=int(mm2),
+                          kind=KIND_FUSION, ev=-1, t=t,
+                          fdir=res["pattern"], fpos2=int(pb))
+            lst = m.cands.setdefault(read, [])
+            if not any(x.kind == KIND_FUSION and x.pos == c.pos
+                       and x.t == c.t and x.fdir == c.fdir for x in lst):
+                lst.append(c)
+                nfr += 1
+    if nfr:
+        log(f"cross-strand fusion candidates: {nfr}")
 
 
 def _gapped_candidates(m: MateState, events, log) -> None:
@@ -473,7 +515,6 @@ def run_pipeline_streaming(genome: Genome, batch_iter, params: Params,
     batch: per-chunk map + discovery, a global event union, per-chunk
     realignment, global junction filtering, and merged output."""
     t0 = time.time()
-    check_supported(params)
     dev = resolve_device(device)
     trans = _trans_for(trans, dev)
     os.makedirs(out_dir, exist_ok=True)
