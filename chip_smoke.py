@@ -23,23 +23,25 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
   6. TopHat's default invocation, paired-end with the coverage search on,
      through the CLI (--tt-index, no --no-coverage-search) on the phase-4
      genome and index, 32,768 pairs of 2 x 100 bp (mate 1 crosses an
-     intron in 25% of pairs): a run holding every realign call against
-     its plain version, then a timed run with stage seconds; fails if
-     mate-1 junction-read recall is under 100% or that run launched no
-     sparse realign kernel
+     intron in 25% of pairs): a run of 8,192 pairs holding every realign
+     call against its plain version, then a timed run of 32,768 pairs
+     with stage seconds; fails if mate-1 junction-read recall is under
+     100% or that run launched no sparse realign kernel
   7. on a 2^21 + 4096-base slice: the paired default mode, a single-end
      run with the butterfly and microexon searches, and through the CLI a
-     -G paired run (120 synthetic genes), a --b2 single-end run and a -C
-     run from colorspace FASTQ, on the card and on the CPU, which must
-     write identical files
+     -G paired run (120 synthetic genes), a --b2 single-end run, a -C
+     run from colorspace FASTQ and a paired run of the slice as three
+     contigs in two contig groups (--max-index-bases), on the card and on
+     the CPU, which must write identical files
   8. TopHat's annotated default run through the CLI (-G genes.gtf
      --transcriptome-index, paired, coverage search on) on the phase-4
      genome: a synthetic annotation of 21,000 transcripts (~50,000
-     introns) and 32,768 pairs; a run that builds the transcriptome files
-     and index and holds every realign call against its plain version,
-     then a timed run with stage seconds, E, every realign call's R and E
-     and peak device memory; fails under 100% recall, with no sparse
-     realign launch, or with E < 30,000
+     introns) and 32,768 pairs; a run of 8,192 pairs that builds the
+     transcriptome files and index and holds every realign call against
+     its plain version, then a timed run of 32,768 pairs with stage
+     seconds, E, every realign call's R and E and peak device memory;
+     fails under 100% recall, with no sparse realign launch, or with
+     E < 30,000
   9. bowtie2 mode (--b2 --no-coverage-search) single-end on the same
      genome, 32,768 reads (25% spliced, 10% with a 1-2 bp indel): a
      checked run, then a timed run with the gapped stage's seconds and
@@ -49,18 +51,38 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      CLI on the same genome and index: 24 designed breaks (8 ff, 8 fr,
      8 rf, partners >= 1 Mb apart) and 32,768 pairs (10% with mate 1
      across a break, 10% spanning one, 20% with mate 1 across an
-     intron): a run holding every realign call (sparse, and dense over
-     every row's segments) against its plain version, then a timed run
-     with stage seconds, every realign call's R, E and L and peak device
-     memory, then tophat-fusion-post on the card; fails if a designed
-     break is missing from fusions.out, break-read or junction-read
-     recall is under 100%, either realign entry was never launched, or
-     result.txt holds no designed break. Phase 7 also runs a paired and
-     a single-end fusion run and fusion-post on the slice, on the card
-     and on the CPU, which must write identical files
-Launches in the kernels line are summed over phases 4, 6, 8, 9 and 10
-(each counted from 0 just before its timed run), max_abs_err over every
-check.
+     intron): a run of 8,192 pairs holding every realign call (the sparse
+     entry, over read rows and over every row's segments) against its
+     plain version, then a timed run with stage seconds, every realign
+     call's R, E and L and peak device memory, then tophat-fusion-post
+     on the card; fails if a designed break is missing from fusions.out,
+     break-read or junction-read recall is under 100%, the sparse entry
+     was not launched or the dense one was, or result.txt holds no
+     designed break. Phase 7 also runs a paired and a single-end fusion
+     run and fusion-post on the slice, on the card and on the CPU, which
+     must write identical files
+ 12. TopHat-Fusion with an annotation (phase 10's flags plus phase 8's
+     -G genes.gtf --transcriptome-index), paired, 16,384 pairs of phase
+     10's design: the chain path realigns every row's segments against
+     ~50,000 events through the sparse entry; a timed run with E, the
+     chain stage's seconds and peak device memory, every realign call
+     then held against its plain version on up to 2,048 of its rows;
+     fails below 100% break-read or junction-read recall, with a break
+     missing from fusions.out, E < 30,000 or over 12 GiB of device memory
+ 11. the whole-genome (contig-group) path: the phase-4 genome as 8
+     contigs of 2^24 bases through the CLI with --max-index-bases 2^25
+     (4 groups, one resident on the card at a time) at the grouped
+     design point (k = 13, sa_rate 4): 8,192 reads single-end without
+     the coverage search, grouped (group indexes built in forked workers)
+     and single-index, which must write identical files; then a timed
+     run of 32,768 pairs in the paired default mode (coverage search on)
+     with pairs/s, group swaps, each group's FMIndex bytes (B/base and
+     the projection to a 3.1 Gbp genome in 2 groups) and peak device
+     memory; every realign call of these runs held against its plain
+     version; fails under 100% junction-read recall
+Phases run in the order 1-10, 12, 11. Launches in the kernels line are
+summed over phases 4, 6, 8, 9, 10, 11 and 12 (each counted from 0 just
+before its timed run), max_abs_err over every check.
 Standard output ends with four lines: the measured numbers (JSON), the
 kernels (JSON), the nvidia-smi name/power line, and the result JSON.
 """
@@ -81,6 +103,7 @@ N_READS = 32768
 BATCH = 16384
 UNSPLICED_ITERS = 8
 N_PAIRS = 32768             # phase 6: two chunk pairs at --batch-size 16384
+CHECK_PAIRS = 8192          # the checked runs of phases 6, 8 and 10
 SMALL_PAIRS = 2048
 
 
@@ -352,23 +375,35 @@ def realign_call_shape(kind, args):
             f"L={args[0].shape[1]} q={args[4]}")
 
 
-def hold_realign(kind, args, got):
+def hold_realign(kind, args, got, rows=None):
     """Hold one realign call of the main path against realign_plain:
     a dense call's tables directly; a sparse call's records against
     pack_sparse of the plain tables, and the dense entry on the same
     inputs too. The plain version runs on slices of E_SLICE events (its
     (R, E) int64 tables at an annotation's E would take tens of GB).
-    Returns (max abs error of the dense tables, the call's shape)."""
+    rows (sorted, unique): hold only these read rows of the call (the
+    call's records of these rows, renumbered in their order). Returns
+    (max abs error of the dense tables, the call's shape)."""
     import torch
 
     from tophat_tpu_torch.ops.realign_kernel import (pack_sparse,
                                                      realign_group,
                                                      realign_plain)
 
+    shape = realign_call_shape(kind, args)
+    if rows is not None:
+        sel = torch.as_tensor(rows, dtype=torch.long, device=got[0].device)
+        if kind == "sparse":
+            got = got[:, torch.isin(got[0].long(), sel)].clone()
+            got[0] = torch.searchsorted(sel, got[0].long()).int()
+        else:
+            got = tuple(x[sel] for x in got)
+        args = ((args[0][sel].contiguous(), args[1][sel].contiguous())
+                + tuple(args[2:]))
+        shape += f" (rows held: {len(rows)})"
     reads, lengths, flank_l, comb, q, max_mm = args[:6]
     R, E = reads.shape[0], flank_l.shape[0]
     dense = got if kind == "dense" else realign_group(*args[:6])
-    shape = realign_call_shape(kind, args)
     err, recs = 0, []
     for e0 in range(0, E, E_SLICE):
         e1 = min(E, e0 + E_SLICE)
@@ -396,15 +431,48 @@ def hold_realign(kind, args, got):
 class PathCheck:
     """RealignHooks' on_call for a checked run: holds every realign call
     against the plain version (hold_realign), keeping the largest error
-    and each call's shape."""
+    and each call's shape. With max_rows, a call of more rows is held on
+    a subset of them (hold_rows)."""
 
-    def __init__(self):
-        self.err, self.shapes = 0, []
+    def __init__(self, max_rows: int = 0):
+        self.err, self.shapes, self.max_rows = 0, [], max_rows
 
     def __call__(self, kind, args, out):
-        err, shape = hold_realign(kind, args, out)
+        rows = None
+        if self.max_rows and args[0].shape[0] > self.max_rows:
+            rows = hold_rows(kind, out, args[0].shape[0], self.max_rows)
+        err, shape = hold_realign(kind, args, out, rows)
         self.err = max(self.err, err)
         self.shapes.append(shape)
+
+
+def keep_calls(kept: list):
+    """RealignHooks' on_call for a timed run: appends a copy of each
+    call's (kind, inputs, output) to `kept`, to be held by a PathCheck
+    after the run."""
+    import torch
+
+    def on_call(kind, args, out):
+        kept.append((kind, tuple(a.clone() if torch.is_tensor(a) else a
+                                 for a in args),
+                     out.clone() if kind == "sparse"
+                     else tuple(o.clone() for o in out)))
+    return on_call
+
+
+def hold_rows(kind, out, R: int, n: int, seed: int = 0):
+    """Sorted rows of a realign call to hold when it has too many for the
+    plain version: half of them spread evenly over the rows that have ok
+    records (a sparse call's records, a dense call's ok table), the rest
+    drawn at random."""
+    import torch
+
+    has = torch.unique(out[0] if kind == "sparse"
+                       else torch.nonzero(out[2].any(1))[:, 0]).cpu().numpy()
+    pick = has[np.linspace(0, len(has) - 1, min(len(has), n // 2)).astype(
+        np.int64)] if len(has) else has
+    rand = np.random.default_rng(seed).choice(R, n - len(pick), replace=False)
+    return np.unique(np.concatenate([pick, rand]).astype(np.int64))
 
 
 # ---------------------------------------------------------------- phase 4
@@ -453,12 +521,15 @@ def make_reads(codes, juncs, seed: int, n_reads: int = N_READS):
     return np.stack(seqs)
 
 
-def write_fasta(path, codes, width: int = 4096):
+def write_fasta(path, codes, width: int = 4096, cuts=(0,)):
+    """FASTA of `codes`; contig chr<i + 1> starts at cuts[i]."""
     lut = np.frombuffer(b"ACGTN", np.uint8)
+    ends = list(cuts[1:]) + [len(codes)]
     with open(path, "wb") as f:
-        f.write(b">chr1\n")
-        for s in range(0, len(codes), width):
-            f.write(lut[codes[s:s + width]].tobytes() + b"\n")
+        for i, (a, b) in enumerate(zip(cuts, ends)):
+            f.write(b">chr%d\n" % (i + 1))
+            for s in range(a, b, width):
+                f.write(lut[codes[s:min(s + width, b)]].tobytes() + b"\n")
 
 
 def write_fastq(path, seqs, prefix: str = "r"):
@@ -646,12 +717,14 @@ def phase_unspliced(index_path, codes):
 
 # ---------------------------------------------------------------- phase 6
 
-def make_pairs(codes, juncs, seed: int, n_pairs: int):
+def make_pairs(codes, juncs, seed: int, n_pairs: int, cut: int = 0):
     """Mate pairs of 2 x READ_LEN bp. The inner distance is drawn from
     N(50, 20) (TopHat's -r / --mate-std-dev defaults), clipped at 0; mate 2
     is the reverse complement downstream of mate 1. In 25% of pairs (p0,
     p4, ...) mate 1 crosses one of `juncs` with >= 20 bp on each side; the
-    other pairs are contiguous with one mismatch in each mate."""
+    other pairs are contiguous with one mismatch in each mate. With `cut`,
+    no contiguous pair crosses a multiple of it (contigs of `cut` bases;
+    the caller picks `juncs` whose pairs stay inside one)."""
     from tophat_tpu_torch.index.fasta import revcomp
 
     r = np.random.default_rng(seed)
@@ -670,6 +743,8 @@ def make_pairs(codes, juncs, seed: int, n_pairs: int):
             m2[i] = revcomp(codes[s2:s2 + L])
         else:
             s = int(r.integers(0, len(codes) - 3 * L - 400))
+            while cut and s // cut != (s + 2 * L + inner - 1) // cut:
+                s = int(r.integers(0, len(codes) - 3 * L - 400))
             a = codes[s:s + L].copy()
             b = codes[s + L + inner:s + 2 * L + inner].copy()
             for x in (a, b):
@@ -748,12 +823,12 @@ def phase_paired(codes, juncs, index):
     fa = os.path.join(CACHE, "genome_2p27.fa")
     t0 = time.time()
     fqs = {}
-    for tag, seed in (("check", 15), ("steady", 16)):
-        m1, m2 = make_pairs(codes, juncs, seed, N_PAIRS)
+    for tag, seed, n in (("check", 15, CHECK_PAIRS), ("steady", 16, N_PAIRS)):
+        m1, m2 = make_pairs(codes, juncs, seed, n)
         fqs[tag] = [os.path.join(CACHE, f"pairs_{tag}_{k}.fq") for k in (1, 2)]
         write_fastq(fqs[tag][0], m1, "p")
         write_fastq(fqs[tag][1], m2, "p")
-    log(f"paired inputs: 2 x {N_PAIRS} pairs of 2 x {READ_LEN} bp "
+    log(f"paired inputs: {CHECK_PAIRS} + {N_PAIRS} pairs of 2 x {READ_LEN} bp "
         f"({time.time() - t0:.1f} s)")
     argv = lambda out, reads: ["-o", out, "--tt-index", index, fa] + reads
 
@@ -1110,12 +1185,18 @@ def write_color_fastq(path, seqs, seed: int):
                     f"{'I' * (len(s) + 1)}\n")
 
 
+SLICE_CUTS = (0, 700_000, 1_400_000)   # phase 7's grouped case: 3 contigs
+SLICE_GROUP_BASES = 1_500_000           # -> 2 groups (2 contigs, 1)
+
+
 def phase_small_slice_modes(codes, devices=("cuda", "cpu")):
     """On the first 2^21 + 4096 bases, through the CLI on the card and on
     the CPU: a -G paired run (120 synthetic genes, 2,048 pairs, the
     coverage search on), a --b2 single-end run (2,048 reads, 10% with a
-    1-2 bp indel) and a -C single-end run from colorspace FASTQ (2,048
-    reads, a third with a color error). Colorspace is held only here: a
+    1-2 bp indel), a -C single-end run from colorspace FASTQ (2,048
+    reads, a third with a color error) and a grouped paired run (the
+    slice as three contigs under --max-index-bases, two contig groups,
+    default mode, the -G run's pairs). Colorspace is held only here: a
     full-width run would build a second 2^27-base index for a legacy
     input. Every output file must be byte-identical."""
     from tophat_tpu_torch.cli.main import main as cli_main
@@ -1126,6 +1207,8 @@ def phase_small_slice_modes(codes, devices=("cuda", "cpu")):
     os.makedirs(d, exist_ok=True)
     fa = os.path.join(d, "genome.fa")
     write_fasta(fa, small)
+    fa3 = os.path.join(d, "genome_3c.fa")
+    write_fasta(fa3, small, cuts=SLICE_CUTS)
     gtf_text, transcripts, _ = make_annotation(small, juncs, 120, seed=31)
     gtf = os.path.join(d, "genes.gtf")
     with open(gtf, "w") as f:
@@ -1143,18 +1226,26 @@ def phase_small_slice_modes(codes, devices=("cuda", "cpu")):
     write_color_fastq(color_fq, make_reads(small, juncs, 37, SMALL_PAIRS), 39)
     runs = {"gtf": ["-G", gtf, fa, fq1, fq2],
             "b2": ["--b2", "--no-coverage-search", fa, b2_fq],
-            "color": ["-C", "--no-coverage-search", fa, color_fq]}
+            "color": ["-C", "--no-coverage-search", fa, color_fq],
+            "grouped": ["--max-index-bases", str(SLICE_GROUP_BASES), fa3,
+                        fq1, fq2]}
     for dev in devices:
         t0 = time.time()
         for name, args in runs.items():
             cli_main_checked(cli_main, ["-o", os.path.join(d, f"{name}_{dev}"),
                                         "--device", dev] + args)
-        log(f"small -G / --b2 / -C runs on {dev}: {time.time() - t0:.1f} s")
+        log(f"small -G / --b2 / -C / grouped runs on {dev}: "
+            f"{time.time() - t0:.1f} s")
     a, b = devices
+    for dev in devices:
+        with open(os.path.join(d, f"grouped_{dev}", "logs",
+                               "tophat.log")) as f:
+            if "partitioned into 2 contig groups" not in f.read():
+                fail(f"small grouped run on {dev}: not 2 contig groups")
     for name in runs:
         for f in ("accepted_hits.sam", "junctions.bed", "insertions.bed",
                   "deletions.bed") + (("align_summary.txt",)
-                                      if name == "gtf" else ()):
+                                      if name in ("gtf", "grouped") else ()):
             with open(os.path.join(d, f"{name}_{a}", f), "rb") as x, \
                     open(os.path.join(d, f"{name}_{b}", f), "rb") as y:
                 if x.read() != y.read():
@@ -1181,9 +1272,10 @@ def phase_small_slice_modes(codes, devices=("cuda", "cpu")):
         fail(f"small -G / --b2 / -C runs: {missed} annotated-junction or "
              f"intron mates, {missed_b2} --b2 junction or indel reads, "
              f"{missed_c} error-free contiguous colorspace reads missed")
-    log(f"small input (2^21 + 4096 bases): -G paired, --b2 and -C runs "
-        f"byte-identical on {a} and {b}; recall 100% (-G, --b2); "
-        f"{n_color}/{SMALL_PAIRS} colorspace reads aligned")
+    log(f"small input (2^21 + 4096 bases): -G paired, --b2, -C and grouped "
+        f"paired (3 contigs, 2 groups) runs byte-identical on {a} and {b}; "
+        f"recall 100% (-G, --b2); {n_color}/{SMALL_PAIRS} colorspace reads "
+        "aligned")
 
 
 N_GENES = 8400             # phase 8: 21,000 transcripts
@@ -1231,15 +1323,15 @@ def phase_annotated(codes, juncs, index):
     with open(gtf, "w") as f:
         f.write(gtf_text)
     reads = {}
-    for tag, seed in (("check", 41), ("steady", 42)):
+    for tag, seed, n in (("check", 41, CHECK_PAIRS), ("steady", 42, N_PAIRS)):
         m1, m2, spans, unannotated = make_annotated_pairs(
-            codes, transcripts, juncs, seed, N_PAIRS)
+            codes, transcripts, juncs, seed, n)
         fqs = [os.path.join(CACHE, f"annot_{tag}_{k}.fq") for k in (1, 2)]
         write_fastq(fqs[0], m1, "p")
         write_fastq(fqs[1], m2, "p")
         reads[tag] = (fqs, spans, unannotated)
     log(f"annotated inputs: {N_GENES} genes, {len(transcripts)} transcripts, "
-        f"{len(introns)} distinct introns; 2 x {N_PAIRS} pairs "
+        f"{len(introns)} distinct introns; {CHECK_PAIRS} + {N_PAIRS} pairs "
         f"({time.time() - t0:.1f} s)")
     tix = os.path.join(CACHE, "tx", "genes")
     argv = lambda out, fqs: ["-o", out, "-G", gtf, "--transcriptome-index",
@@ -1460,6 +1552,7 @@ FUSION_FLAGS = ["--fusion-search", "--keep-fasta-order", "--bowtie1",
                 "--max-intron-length", "100000", "--fusion-min-dist",
                 "100000", "--fusion-anchor-length", "13"]
 FUSION_SHIFT = 12          # equivalent break shifts searched each way
+SEGMENT_L = 25             # --segment-length: the chain path's row width
 
 
 def fusion_read(codes, d: str, a: int, b: int, t: int, n: int = READ_LEN):
@@ -1718,8 +1811,10 @@ def phase_fusion(codes, juncs, index):
     stage seconds, every realign call's R, E and L, and peak device
     memory; then tophat-fusion-post on the card over the timed run's
     tophat_<sample>/ dir. Fails if a designed break is missing from
-    fusions.out, break-read or junction-read recall is under 100%, no
-    realign kernel was launched, or result.txt holds no designed break."""
+    fusions.out, break-read or junction-read recall is under 100%, the
+    sparse realign entry was not launched over read rows and over segment
+    rows, the dense entry was launched, or result.txt holds no designed
+    break."""
     import torch
 
     from tophat_tpu_torch.cli import main as cli_mod
@@ -1733,14 +1828,13 @@ def phase_fusion(codes, juncs, index):
     t0 = time.time()
     breaks = pick_fusion_breaks(codes)
     reads = {}
-    for tag, seed in (("check", 61), ("steady", 62)):
-        m1, m2, fused = make_fusion_pairs(codes, juncs, breaks, seed,
-                                          N_PAIRS)
+    for tag, seed, n in (("check", 61, CHECK_PAIRS), ("steady", 62, N_PAIRS)):
+        m1, m2, fused = make_fusion_pairs(codes, juncs, breaks, seed, n)
         fqs = [os.path.join(CACHE, f"fusion_{tag}_{k}.fq") for k in (1, 2)]
         write_fastq(fqs[0], m1, "p")
         write_fastq(fqs[1], m2, "p")
         reads[tag] = (fqs, fused)
-    log(f"fusion inputs: {len(breaks)} breaks, 2 x {N_PAIRS} pairs "
+    log(f"fusion inputs: {len(breaks)} breaks, {CHECK_PAIRS} + {N_PAIRS} pairs "
         f"({time.time() - t0:.1f} s)")
     argv = lambda out, fqs: (["-o", out, "--tt-index", index, "--batch-size",
                               str(BATCH)] + FUSION_FLAGS + [fa] + fqs)
@@ -1752,8 +1846,10 @@ def phase_fusion(codes, juncs, index):
             CACHE, "fusion_check"), reads["check"][0]))
     log(f"fusion check run: {time.time() - t0:.1f} s; realign exact in "
         f"{len(check.shapes)} calls: " + ", ".join(check.shapes))
-    if not any(c.startswith("dense") for c in check.shapes):
-        fail("the fusion check run made no dense realign call")
+    if not any(c.startswith("sparse") and f" L={SEGMENT_L} " in c
+               for c in check.shapes):
+        fail("the fusion check run made no sparse realign call over "
+             "segment rows")
 
     clock = StageClock()
     clock.wrap(cli_mod, "read_fasta", "read_fasta")
@@ -1769,7 +1865,7 @@ def phase_fusion(codes, juncs, index):
     clock.wrap(run_mod, "find_fr_fusions",
                "  of which FR/RF scan + realign_fr_events")
     clock.wrap(run_mod, "segment_event_hits",
-               "  of which segment event hits (realign, dense)")
+               "  of which segment event hits (sparse realign, records)")
     clock.wrap(run_mod, "chain_stitch",
                "  of which chain stitch + cross-strand chains")
     clock.wrap(run_mod, "cross_strand_chains",
@@ -1820,9 +1916,10 @@ def phase_fusion(codes, juncs, index):
     if recall_f < 100.0 or recall_j < 100.0:
         fail(f"fusion run: recall {recall_f:.2f}% (break reads), "
              f"{recall_j:.2f}% (junction reads) < 100%")
-    if launches[0] == 0 or launches[1] == 0:
+    if launches[0] or not launches[1]:
         fail(f"the fusion run launched the realign kernel's entries "
-             f"{launches} (dense, sparse) times; both must run")
+             f"{launches} (dense, sparse) times; the chain path must take "
+             "the sparse entry only")
 
     post_s = run_fusion_post(work, fa, "cuda")
     n_res = designed_in_result(os.path.join(work, "tophatfusion_out",
@@ -1840,6 +1937,376 @@ def phase_fusion(codes, juncs, index):
                 result_designed_breaks=n_res)
 
 
+# --------------------------------------------------------------- phase 11
+
+GROUP_CONTIGS = 8           # the phase-4 genome as 8 contigs of 2^24 bases
+GROUP_MAX_BASES = 1 << 25   # --max-index-bases: 4 groups of 2 contigs
+GROUP_SE_READS = 8192
+GROUP_ENV = {"TOPHAT_TPU_KMER_K": "13", "TOPHAT_TPU_SA_RATE": "4"}
+HUMAN_BASES = 3_100_000_000  # the projection: a human genome, 2 groups
+CARD_BYTES = 80e9
+
+
+def fm_table_bytes(fm) -> dict:
+    """Bytes of each of an FMIndex's tensors, as they sit on the card."""
+    from tophat_tpu_torch.index.fm import TABLES
+
+    return {k: getattr(fm, k).numel() * getattr(fm, k).element_size()
+            for k in TABLES}
+
+
+def phase_grouped(codes, juncs, index):
+    """The whole-genome (contig-group) path at full width: the phase-4
+    genome written as 8 contigs of 2^24 bases and run through the CLI
+    with --max-index-bases 2^25 (4 groups of 2 contigs, one resident on
+    the card at a time), at the index design point of every real grouped
+    run (k = 13, sa_rate 4: a genome over 2^28 bases). TopHat's default
+    mode, paired, coverage search on; no intron and no pair crosses a
+    contig cut. First 8,192 of the timed run's mate-1 reads run
+    single-end without the coverage search: grouped (the group indexes
+    build in forked workers and are cached under .smoke_cache/; every
+    realign call held against its plain version as it is made) and
+    single-index (the phase-4 index, which covers the same bases); the
+    two must write identical files (their recall is reported: without
+    the coverage search, reads with a 20-24 base anchor are not all
+    found, in either run). Then a timed run of 32,768 pairs records
+    stage seconds, group swaps, each group's FMIndex bytes, peak device
+    memory and the realign calls, keeping each call's inputs and
+    records, which are held against the plain version after it. Fails
+    under 100% junction-read recall in the timed run, with other than 4
+    groups, with no sparse realign launch or with any dense one."""
+    import torch
+
+    from tophat_tpu_torch.cli import main as cli_mod
+    from tophat_tpu_torch.index.fm import FMIndex
+    from tophat_tpu_torch.ops import events
+    from tophat_tpu_torch.pipeline import grouped as grouped_mod
+    from tophat_tpu_torch.pipeline import paired as paired_mod
+    from tophat_tpu_torch.pipeline import run as run_mod
+
+    cut = len(codes) // GROUP_CONTIGS
+    fa = os.path.join(CACHE, "genome_8x2p24.fa")
+    if not os.path.exists(fa):
+        write_fasta(fa, codes, cuts=tuple(range(0, len(codes), cut)))
+    # introns whose pairs (mate 2 up to 3 L + 400 past the intron) stay
+    # inside one contig
+    gjuncs = [(a, b) for a, b in juncs if (a - READ_LEN) // cut
+              == (b + 3 * READ_LEN + 400) // cut]
+    t0 = time.time()
+    m1, m2 = make_pairs(codes, gjuncs, 72, N_PAIRS, cut=cut)
+    fqs = [os.path.join(CACHE, f"grp_steady_{k}.fq") for k in (1, 2)]
+    write_fastq(fqs[0], m1, "p")
+    write_fastq(fqs[1], m2, "p")
+    se_fq = os.path.join(CACHE, "grp_se.fq")
+    write_fastq(se_fq, m1[:GROUP_SE_READS], "p")
+    log(f"grouped inputs: {GROUP_CONTIGS} contigs of {cut} bases, "
+        f"{len(gjuncs)} introns; {N_PAIRS} pairs "
+        f"({time.time() - t0:.1f} s)")
+    gprefix = os.path.join(CACHE, "grp_2p27")
+    argv = lambda out, reads, *flags: (
+        ["-o", out, "--tt-index", gprefix, "--max-index-bases",
+         str(GROUP_MAX_BASES)] + list(flags) + [fa] + reads)
+
+    saved_env = {k: os.environ.get(k) for k in GROUP_ENV}
+    os.environ.update(GROUP_ENV)
+    built = []
+    build = cli_mod.build_grouped_fm
+
+    def build_kept(*a, **k):
+        built.append(build(*a, **k))
+        return built[-1]
+
+    cli_mod.build_grouped_fm = build_kept
+    bclock = StageClock()
+    bclock.wrap(cli_mod, "build_grouped_fm", "group index build or load")
+    try:
+        check = PathCheck()
+        se = {}
+        for kind, args in (("grouped", argv(os.path.join(
+                CACHE, "grp_se_grouped"), [se_fq], "--no-coverage-search")),
+                           ("single", ["-o", os.path.join(
+                               CACHE, "grp_se_single"), "--no-coverage-search",
+                               "--tt-index", index, fa, se_fq])):
+            t1 = time.time()
+            with RealignHooks(events, check):
+                cli_main_checked(cli_mod.main, args)
+            se[kind] = (args[1], time.time() - t1)
+        build_s = bclock.seconds.get("group index build or load", 0.0)
+        log(f"grouped single-end runs: grouped {se['grouped'][1]:.1f} s "
+            f"(group index build {build_s:.1f} s), single-index "
+            f"{se['single'][1]:.1f} s; realign exact in "
+            f"{len(check.shapes)} calls: " + ", ".join(check.shapes))
+        gfm = built[-1]
+        if gfm.n_groups != 4:
+            fail(f"grouped run: {gfm.n_groups} contig groups, not 4")
+
+        clock = StageClock()
+        clock.wrap(cli_mod, "read_fasta", "read_fasta")
+        clock.wrap(cli_mod, "build_grouped_fm",
+                   "group index load (4 cached groups)")
+        clock.wrap(FMIndex, "to", "group swaps (FMIndex.to)")
+        clock.wrap(grouped_mod, "align_reads_adaptive",
+                   "full-read align (per group)")
+        clock.wrap(grouped_mod, "_spliced_mate",
+                   "segments + stitch (per group)")
+        clock.wrap(grouped_mod, "discover_events", "discovery")
+        clock.wrap(grouped_mod, "coverage_search_events", "coverage search")
+        clock.wrap(grouped_mod, "candidates_for_mate",
+                   "candidates (realign, collect)")
+        clock.wrap(run_mod, "realign_events_sparse",
+                   "  of which realign, sparse")
+        clock.wrap(grouped_mod, "default_chains", "default chains")
+        clock.wrap(paired_mod, "accumulate_event_stats", "stats + filter")
+        clock.wrap(paired_mod, "filter_junctions", "stats + filter")
+        n_events = []
+        finalize = grouped_mod.GroupedMapper.finalize_events
+
+        def finalize_counted(self, known_events=None):
+            ev = finalize(self, known_events)
+            n_events.append(len(ev["left"]))
+            return ev
+
+        grouped_mod.GroupedMapper.finalize_events = finalize_counted
+        kept = []
+        out = os.path.join(CACHE, "grp_out_steady")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        realign_launches(reset=True)
+        t0 = time.time()
+        try:
+            with RealignHooks(events, keep_calls(kept)):
+                cli_main_checked(cli_mod.main, argv(out, fqs))
+            torch.cuda.synchronize()
+            wall = time.time() - t0
+            launches = realign_launches()
+        finally:
+            grouped_mod.GroupedMapper.finalize_events = finalize
+            clock.restore()
+        peak = torch.cuda.max_memory_allocated()
+        calls = [realign_call_shape(kind, args) for kind, args, _ in kept]
+        held = PathCheck()
+        for kind, args, got in kept:
+            held(kind, args, got)
+        del kept
+    finally:
+        bclock.restore()
+        cli_mod.build_grouped_fm = build
+        for k, v in saved_env.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+    for f in ("accepted_hits.sam", "junctions.bed", "insertions.bed",
+              "deletions.bed", "align_summary.txt"):
+        with open(os.path.join(se["grouped"][0], f), "rb") as x, \
+                open(os.path.join(se["single"][0], f), "rb") as y:
+            if x.read() != y.read():
+                fail(f"grouped single-end run: {f} differs from the "
+                     "single-index run")
+    se_recall = junction_recall(os.path.join(se["grouped"][0],
+                                             "accepted_hits.sam"),
+                                GROUP_SE_READS, prefix="p")
+
+    groups = []
+    for g, fm in enumerate(gfm.fms):
+        tb = fm_table_bytes(fm)
+        fixed = tb["kmer_lo"] + tb["kmer_hi"]
+        groups.append(dict(bases=fm.n, bytes=sum(tb.values()),
+                           b_per_base=sum(tb.values()) / fm.n,
+                           kmer_table_bytes=fixed,
+                           other_b_per_base=(sum(tb.values()) - fixed) / fm.n,
+                           tables=tb))
+    # a human genome in 2 groups at the same design point: the k-mer
+    # tables are a fixed 2 x 4^13 int32 per group, the rest scales with
+    # the group's bases
+    per_base = max(x["other_b_per_base"] for x in groups)
+    fixed = max(x["kmer_table_bytes"] for x in groups)
+    human_group = fixed + per_base * HUMAN_BASES / 2
+    recall = junction_recall(os.path.join(out, "accepted_hits.sam"), N_PAIRS,
+                             prefix="p", flag_bit=0x40)
+    aligned, disc = align_summary_pairs(os.path.join(out,
+                                                     "align_summary.txt"))
+    swaps = clock.calls.get("group swaps (FMIndex.to)", 0)
+    swap_s = clock.seconds.get("group swaps (FMIndex.to)", 0.0)
+    stages = dict(clock.seconds)
+    top = sum(v for k, v in stages.items() if not k.startswith(" "))
+    stages["rest (FASTQ parse, prep, selection, output)"] = wall - top
+    log(f"grouped steady run: {wall:.2f} s, {N_PAIRS / wall:.1f} pairs/s; "
+        f"{gfm.n_groups} groups, {swaps} group swaps in {swap_s:.3f} s; "
+        f"events E={n_events}; realign launches {launches} (dense, sparse); "
+        f"peak device memory {peak / 2**30:.3f} GiB")
+    for k, v in stages.items():
+        log(f"  stage {k}: {v:.3f} s" + calls_note(clock.calls.get(k)))
+    log("  realign calls, each held exact after the run: "
+        + ", ".join(calls))
+    for g, x in enumerate(groups):
+        log(f"  group {g}: {x['bases']} bases, FMIndex tensors "
+            f"{x['bytes'] / 2**20:.1f} MiB = {x['b_per_base']:.3f} B/base "
+            f"(k-mer tables {x['kmer_table_bytes'] / 2**20:.1f} MiB, the "
+            f"rest {x['other_b_per_base']:.3f} B/base)")
+    log(f"grouped: projection to {HUMAN_BASES} bases in 2 groups: "
+        f"{human_group / 1e9:.2f} GB per resident group, "
+        f"{2 * human_group / 1e9:.2f} GB for both "
+        + ("(all groups fit resident at once on an 80 GB card)"
+           if 2 * human_group < CARD_BYTES else "(they do not fit at once)"))
+    log(f"grouped: junction-read recall (mate 1) {recall:.2f}%; concordant "
+        f"{100.0 * (aligned - disc) / N_PAIRS:.2f}% of pairs; single-end "
+        f"{GROUP_SE_READS} reads grouped and single-index byte-identical, "
+        f"recall {se_recall:.2f}%")
+    if launches[0] or not launches[1]:
+        fail(f"the grouped run launched the realign kernel's entries "
+             f"{launches} (dense, sparse) times; it must take the sparse "
+             "entry only")
+    if recall < 100.0:
+        fail(f"grouped run: junction-read recall {recall:.2f}% < 100%")
+    return dict(wall_s=wall, pairs_per_s=N_PAIRS / wall, n_groups=gfm.n_groups,
+                group_swaps=swaps, group_swap_s=swap_s,
+                index_build_s=build_s, groups=groups,
+                events=n_events[0] if n_events else 0, launches=launches,
+                path_err=max(check.err, held.err), realign_calls=calls,
+                peak_device_bytes=peak, recall_pct=recall,
+                concordant_pct=100.0 * (aligned - disc) / N_PAIRS,
+                se_identical=True, se_recall_pct=se_recall,
+                se_grouped_s=se["grouped"][1], se_single_s=se["single"][1],
+                human_bytes_per_group=human_group,
+                human_groups_fit_at_once=2 * human_group < CARD_BYTES,
+                stages=stages, stage_calls=clock.calls)
+
+
+# --------------------------------------------------------------- phase 12
+
+FUSION_GTF_PAIRS = 16384
+FUSION_GTF_MAX_GIB = 12.0   # the dense chain path needed ~59 GB here
+HOLD_MAX_ROWS = 2048        # rows of each realign call held in phase 12
+
+
+def phase_fusion_gtf(codes, juncs, index):
+    """TopHat-Fusion with an annotation: phase 10's flags plus phase 8's
+    `-G genes.gtf --transcriptome-index` (its files, reused), paired, on
+    16,384 pairs of phase 10's design in one chunk pair, through the CLI.
+    Every row's segments reach the chain path's realign against the
+    annotation-sized event table, through the kernel's sparse entry (the
+    dense (rows * S, E) tables would take ~59 GB). One timed run records
+    E, wall, pairs/s, the chain stage's seconds and peak device memory,
+    and keeps every realign call's inputs and records; each call is then
+    held against its plain version on up to 2,048 of its rows. Fails if
+    a designed break is missing from fusions.out, break-read or
+    junction-read recall is under 100%, E < 30,000, peak device memory
+    exceeds 12 GiB, or the dense entry ran or the sparse one did not."""
+    import torch
+
+    from tophat_tpu_torch.cli import main as cli_mod
+    from tophat_tpu_torch.ops import events
+    from tophat_tpu_torch.pipeline import paired as paired_mod
+    from tophat_tpu_torch.pipeline import run as run_mod
+
+    fa = os.path.join(CACHE, "genome_2p27.fa")
+    gtf = os.path.join(CACHE, "genes.gtf")
+    tix = os.path.join(CACHE, "tx", "genes")
+    breaks = pick_fusion_breaks(codes)
+    m1, m2, fused = make_fusion_pairs(codes, juncs, breaks, 63,
+                                      FUSION_GTF_PAIRS)
+    fqs = [os.path.join(CACHE, f"fusion_gtf_{k}.fq") for k in (1, 2)]
+    write_fastq(fqs[0], m1, "p")
+    write_fastq(fqs[1], m2, "p")
+    work = os.path.join(CACHE, "fusion_gtf")
+    out = os.path.join(work, "tophat_smoke")
+    argv = (["-o", out, "--tt-index", index, "--batch-size", str(BATCH),
+             "-G", gtf, "--transcriptome-index", tix] + FUSION_FLAGS
+            + [fa] + fqs)
+
+    clock = StageClock()
+    clock.wrap(cli_mod, "read_fasta", "read_fasta")
+    clock.wrap(cli_mod, "build_transcriptome_index",
+               "transcriptome index reuse")
+    clock.wrap(paired_mod, "_map_mate", "map (transcriptome, genome)")
+    clock.wrap(paired_mod, "discover_events", "discovery")
+    clock.wrap(paired_mod, "candidates_for_mate", "candidates")
+    clock.wrap(run_mod, "realign_events_sparse",
+               "  of which realign, sparse (read rows)")
+    clock.wrap(run_mod, "find_fr_fusions", "  of which FR/RF scan")
+    clock.wrap(run_mod, "segment_event_hits",
+               "  of which chain stage: segment event hits (sparse)")
+    clock.wrap(run_mod, "chain_stitch",
+               "  of which chain stage: chain stitch + cross-strand")
+    clock.wrap(run_mod, "cross_strand_chains",
+               "  of which chain stage: chain stitch + cross-strand")
+    clock.wrap(paired_mod, "accumulate_event_stats", "stats + filter")
+    clock.wrap(paired_mod, "filter_junctions", "stats + filter")
+    clock.wrap(paired_mod, "build_fusion_table", "fusion stats")
+    n_events = []
+    finalize = paired_mod.SingleIndexMapper.finalize_events
+
+    def finalize_counted(self, known_events=None):
+        ev = finalize(self, known_events)
+        n_events.append(len(ev["left"]))
+        return ev
+
+    paired_mod.SingleIndexMapper.finalize_events = finalize_counted
+    kept = []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    realign_launches(reset=True)
+    t0 = time.time()
+    try:
+        with RealignHooks(events, keep_calls(kept)):
+            cli_main_checked(cli_mod.main, argv)
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        launches = realign_launches()
+    finally:
+        paired_mod.SingleIndexMapper.finalize_events = finalize
+        clock.restore()
+    peak = torch.cuda.max_memory_allocated()
+    stages = dict(clock.seconds)
+    top = sum(v for k, v in stages.items() if not k.startswith(" "))
+    stages["rest (FASTQ parse, selection, output)"] = wall - top
+    chain_s = sum(v for k, v in stages.items() if "chain stage" in k)
+    check = PathCheck(max_rows=HOLD_MAX_ROWS)
+    t0 = time.time()
+    for kind, args, got in kept:
+        check(kind, args, got)
+    hold_s = time.time() - t0
+    del kept
+    torch.cuda.empty_cache()
+    recall_f, recall_j, missing = fusion_recall(out, codes, breaks, fused,
+                                                FUSION_GTF_PAIRS)
+    E = n_events[0] if n_events else 0
+    log(f"fusion -G run: {wall:.2f} s, {FUSION_GTF_PAIRS / wall:.1f} "
+        f"pairs/s; E={E}; chain stage {chain_s:.3f} s; realign launches "
+        f"{launches} (dense, sparse); peak device memory "
+        f"{peak / 2**30:.3f} GiB")
+    for k, v in stages.items():
+        log(f"  stage {k}: {v:.3f} s" + calls_note(clock.calls.get(k)))
+    log(f"  realign exact on the held rows ({hold_s:.1f} s): "
+        + ", ".join(check.shapes))
+    log(f"fusion -G: break-read recall {recall_f:.2f}% of {len(fused)}; "
+        f"junction-read recall {recall_j:.2f}%; designed breaks missing "
+        f"from fusions.out: {missing}")
+    if missing:
+        fail(f"fusion -G run: designed breaks missing from fusions.out: "
+             f"{missing}")
+    if recall_f < 100.0 or recall_j < 100.0:
+        fail(f"fusion -G run: recall {recall_f:.2f}% (break reads), "
+             f"{recall_j:.2f}% (junction reads) < 100%")
+    if E < MIN_EVENTS:
+        fail(f"fusion -G run: E = {E} < {MIN_EVENTS} events")
+    if peak > FUSION_GTF_MAX_GIB * 2**30:
+        fail(f"fusion -G run: peak device memory {peak / 2**30:.3f} GiB > "
+             f"{FUSION_GTF_MAX_GIB} GiB")
+    if launches[0] or not launches[1]:
+        fail(f"the fusion -G run launched the realign kernel's entries "
+             f"{launches} (dense, sparse) times; the chain path must take "
+             "the sparse entry only")
+    return dict(wall_s=wall, pairs_per_s=FUSION_GTF_PAIRS / wall, events=E,
+                chain_s=chain_s, launches=launches, path_err=check.err,
+                held_calls=check.shapes, peak_device_bytes=peak,
+                recall_break_reads_pct=recall_f,
+                recall_junction_pct=recall_j, stages=stages,
+                stage_calls=clock.calls)
+
+
 def main():
     try:
         import torch
@@ -1851,6 +2318,7 @@ def main():
         fail("tophat_tpu_torch/ not found beside chip_smoke.py: run it "
              "from the root of a checkout")
     sys.path.insert(0, REPO)
+    t_start = time.time()
     card = card_line()
     log(f"card: {card}")
 
@@ -1875,7 +2343,13 @@ def main():
     small_fusion = phase_small_fusion(spliced["codes"])
     fusion = phase_fusion(spliced["codes"], spliced["juncs"],
                           spliced["index"])
-    path_phases = (spliced, paired, annotated, bowtie2, fusion)
+    fusion_gtf = phase_fusion_gtf(spliced["codes"], spliced["juncs"],
+                                  spliced["index"])
+    grouped = phase_grouped(spliced["codes"], spliced["juncs"],
+                            spliced["index"])
+    path_phases = (spliced, paired, annotated, bowtie2, fusion, fusion_gtf,
+                   grouped)
+    log(f"smoke phases done in {time.time() - t_start:.1f} s")
 
     print(json.dumps({
         "realign_cases": kernels,
@@ -1885,7 +2359,9 @@ def main():
         "unspliced_reads_per_s": unspliced_rps,
         "paired": {k: v for k, v in paired.items() if k != "realign_calls"},
         "annotated": annotated, "bowtie2": bowtie2,
-        "small_fusion": small_fusion, "fusion": fusion}), flush=True)
+        "small_fusion": small_fusion, "fusion": fusion,
+        "fusion_gtf": fusion_gtf, "grouped": grouped,
+        "seconds": time.time() - t_start}), flush=True)
     main_case = next(k for k in kernels if (k["R"], k["E"], k["L"], k["q"])
                      == (8192, 69, 100, 0))     # the main path's shape
     print(json.dumps({"kernels": [{

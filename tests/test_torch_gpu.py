@@ -4,8 +4,8 @@ They import torch and numpy only, so they also run on a machine without
 JAX: python -m pytest tests/test_torch_gpu.py -m gpu --noconftest -q
 (conftest.py imports JAX). The realign kernel is held against its plain
 torch version, and the whole single-end and paired-end pipelines (fusion
-search and tophat-fusion-post included) on the card against the same
-pipelines on the CPU, byte for byte."""
+search, tophat-fusion-post and the contig-group index included) on the
+card against the same pipelines on the CPU, byte for byte."""
 
 import numpy as np
 import pytest
@@ -187,7 +187,7 @@ def _workload(n, seed=5, L=76):
 def test_pipeline_on_card_matches_cpu(cuda, tmp_path, n):
     from tophat_tpu_torch.index.fasta import Genome
     from tophat_tpu_torch.io.fastq import batch_reads
-    from tophat_tpu_torch.ops.realign_kernel import realign_group
+    from tophat_tpu_torch.ops.realign_kernel import realign_group_sparse
     from tophat_tpu_torch.pipeline.params import Params
     from tophat_tpu_torch.pipeline.run import run_pipeline
 
@@ -197,8 +197,8 @@ def test_pipeline_on_card_matches_cpu(cuda, tmp_path, n):
         run_pipeline(genome, batch_reads(recs), Params(coverage_search=False),
                      str(tmp_path / dev), log=lambda *a: None, device=dev)
         if dev == "cpu":
-            before = realign_group.launches
-    assert realign_group.launches > before
+            before = realign_group_sparse.launches
+    assert realign_group_sparse.launches > before
     for f in ("accepted_hits.sam", "junctions.bed", "insertions.bed",
               "deletions.bed"):
         assert (tmp_path / "cpu" / f).read_bytes() == \
@@ -212,7 +212,7 @@ def test_paired_default_mode_on_card_matches_cpu(cuda, tmp_path):
     from test_torch_paired import _pairs  # numpy only at import time
     from tophat_tpu_torch.index.fasta import Genome
     from tophat_tpu_torch.io.fastq import batch_reads
-    from tophat_tpu_torch.ops.realign_kernel import realign_group
+    from tophat_tpu_torch.ops.realign_kernel import realign_group_sparse
     from tophat_tpu_torch.pipeline.paired import \
         run_pipeline_paired_streaming
     from tophat_tpu_torch.pipeline.params import Params
@@ -224,13 +224,13 @@ def test_paired_default_mode_on_card_matches_cpu(cuda, tmp_path):
              "insertions.bed", "deletions.bed", "align_summary.txt")
     for dev in ("cpu", "cuda"):
         if dev == "cuda":
-            before = realign_group.launches
+            before = realign_group_sparse.launches
         chunks = ((batch_reads(r1[s:s + 24]), batch_reads(r2[s:s + 24]))
                   for s in range(0, len(r1), 24))
         run_pipeline_paired_streaming(genome, chunks, Params(),
                                       str(tmp_path / dev),
                                       log=lambda *a: None, device=dev)
-    assert realign_group.launches > before
+    assert realign_group_sparse.launches > before
     for f in files:
         assert (tmp_path / "cpu" / f).read_bytes() == \
             (tmp_path / "cuda" / f).read_bytes(), f
@@ -340,3 +340,45 @@ def test_fusion_cli_and_post_on_card_match_cpu(cuda, tmp_path, monkeypatch):
     for f in ("fusion_seq.map", "potential_fusion.txt", "result.txt"):
         assert (tmp_path / "cpu" / "tophatfusion_out" / f).read_bytes() == \
             (tmp_path / "cuda" / "tophatfusion_out" / f).read_bytes(), f
+
+
+@pytest.mark.gpu
+def test_grouped_run_on_card_matches_cpu(cuda, tmp_path):
+    """The contig-group fixture (two groups, one resident on the card at a
+    time), paired in TopHat's default mode, on the card and on the CPU:
+    identical files; the sparse realign kernel ran on the card."""
+    from test_torch_grouped import OUTPUTS, run_library
+    from tophat_tpu_torch.ops.realign_kernel import realign_group_sparse
+
+    run_library("torch", tmp_path / "cpu", "paired", device="cpu")
+    before = realign_group_sparse.launches
+    run_library("torch", tmp_path / "cuda", "paired", device="cuda")
+    assert realign_group_sparse.launches > before
+    for f in OUTPUTS + ("align_summary.txt", "unmapped.bam"):
+        assert (tmp_path / "cpu" / f).read_bytes() == \
+            (tmp_path / "cuda" / f).read_bytes(), f
+
+
+@pytest.mark.gpu
+def test_chain_segment_hits_on_card_match_dense_plain(cuda):
+    """The chain path's segment hits from the realign kernel's sparse entry
+    on the card equal the ok entries of the dense plain version's tables
+    on the CPU, and so do the chains built from them."""
+    from test_torch_grouped import _chain_inputs, dense_segment_hits
+    from tophat_tpu_torch.ops.realign_kernel import realign_group_sparse
+    from tophat_tpu_torch.pipeline import chains
+    from tophat_tpu_torch.pipeline.params import Params
+
+    fm, gs, tables, events = _chain_inputs(1)
+    params = Params()
+    card = fm.to(cuda)
+    before = realign_group_sparse.launches
+    got = chains.segment_event_hits(card, gs, events, params)
+    assert realign_group_sparse.launches > before
+    want = dense_segment_hits(fm, gs, events, params)
+    for a, b in zip(got[0], want[0]):
+        assert np.array_equal(a, b)
+    assert len(got[0][1]) > 0
+    assert chains.chain_stitch(card, gs, tables, events, params,
+                               seg_hits=got) == \
+        chains.chain_stitch(fm, gs, tables, events, params, seg_hits=want)

@@ -1,0 +1,452 @@
+"""Contig-group (whole-genome) parity: the port's grouped index and grouped
+pipeline against the JAX package's — single-end and paired library runs,
+CLI runs with --max-index-bases (single-end, -G, --fusion-search), the
+group split, the group caches (either package reusing the other's), the
+int64 rebase and merge — and against the port's own single-index run;
+plus the chain path's sparse segment hits against the dense tables they
+replace, and a single-index --fusion-search -G run against the JAX
+package's. Exact equality of every integer output and every output file.
+
+No JAX at import time: test_torch_gpu.py reuses the fixture on a machine
+without JAX."""
+
+import os
+
+import numpy as np
+import pytest
+import torch
+
+K = 12_000                  # bases per contig
+L = 76
+MAX_BASES = 25_000          # two contigs per group -> two groups
+NAMES = [f"chr{i}" for i in range(4)]
+OUTPUTS = ("accepted_hits.sam", "junctions.bed", "insertions.bed",
+           "deletions.bed")
+QUIET = lambda *a: None     # noqa: E731
+
+
+def _rc(s):
+    return np.where(s < 4, 3 - s, s)[::-1].astype(np.int8)
+
+
+def _seq(codes):
+    return "".join("ACGTN"[c] for c in codes)
+
+
+def grouped_fixture(seed=41):
+    """The JAX package's grouped fixture (tests/test_grouped.py): four
+    12-kb contigs; contigs 0 and 2 carry a GT-AG intron, contig 1 a 2-bp
+    deletion; contiguous reads on every contig, junction reads on 0 and 2,
+    deletion reads on 1, junk. Added here: mates 2 (the reverse complement
+    60 bp past the read's end on its contig; junk for junk) and six ff
+    fusion reads, four within group 0 (chr0 -> chr1) and two across the
+    groups (chr0 -> chr2, which grouped fusion search does not see).
+    Returns (codes, offsets, mate-1 records, mate-2 records, juncs)."""
+    rng = np.random.default_rng(seed)
+    contigs = [rng.integers(0, 4, K).astype(np.int8) for _ in range(4)]
+    juncs = {}
+    for ci in (0, 2):
+        c = contigs[ci]
+        a, il = 4_000, 300
+        c[a] = 2
+        c[a + 1] = 3
+        c[a + il - 2] = 0
+        c[a + il - 1] = 2
+        juncs[ci] = (a - 1, a + il)
+    del_at = 6_000
+    codes = np.concatenate(contigs)
+    offsets = np.concatenate([[0], np.cumsum([len(c) for c in contigs])])
+
+    r1, r2 = [], []
+
+    def add(name, seq, ci, end):
+        r1.append((name, _seq(seq), b"I" * L))
+        m2 = (_rc(contigs[ci][end + 60:end + 60 + L]) if ci >= 0
+              else rng.integers(0, 4, L).astype(np.int8))
+        r2.append((name, _seq(m2), b"I" * L))
+
+    for ci in range(4):
+        for k in range(6):
+            s = 1000 + 700 * k
+            seq = contigs[ci][s: s + L].copy()
+            seq[10 + k] = (seq[10 + k] + 1) % 4
+            add(f"c{ci}_{k}", seq, ci, s + L)
+    for ci in (0, 2):
+        lft, rgt = juncs[ci]
+        for k in range(8):
+            t = 20 + 4 * k
+            seq = np.concatenate([contigs[ci][lft - t + 1: lft + 1],
+                                  contigs[ci][rgt: rgt + L - t]])
+            add(f"j{ci}_{k}", seq, ci, rgt + L - t)
+    for k in range(6):
+        s = del_at - 30 - 2 * k
+        seq = np.concatenate([contigs[1][s: del_at],
+                              contigs[1][del_at + 2: s + L + 2]])[:L]
+        add(f"d{k}", seq, 1, s + L + 2)
+    for k in range(4):
+        add(f"x{k}", rng.integers(0, 4, L).astype(np.int8), -1, 0)
+    for k, (cb, b) in enumerate([(1, 9000)] * 4 + [(2, 9000)] * 2):
+        t = 30 + 4 * k
+        a = 8000
+        seq = np.concatenate([contigs[0][a - t + 1: a + 1],
+                              contigs[cb][b: b + L - t]])
+        add(f"f{k}", seq, cb, b + L - t)
+    return codes, offsets.astype(np.int64), r1, r2, juncs
+
+
+GTF = "".join(
+    f'{c}\ttest\texon\t{s + 1}\t{e}\t.\t+\t.\tgene_id "{g}"; '
+    f'transcript_id "{t}";\n'
+    for c, g, t, exons in [
+        ("chr0", "g0", "t0", [(3600, 4000), (4300, 4700)]),
+        ("chr2", "g2", "t2", [(3700, 4000), (4300, 4900)]),
+        ("chr3", "g3", "t3", [(2000, 2300), (2800, 3100), (5000, 5400)])]
+    for s, e in exons)
+
+
+def _pkg(which):
+    if which == "jax":
+        from tophat_tpu.index import grouped as index
+        from tophat_tpu.index.fasta import Genome
+        from tophat_tpu.io.fastq import batch_reads
+        from tophat_tpu.pipeline import grouped, paired, run
+        from tophat_tpu.pipeline.params import Params
+        return Genome, batch_reads, Params, index, grouped, paired, run
+    from tophat_tpu_torch.index import grouped as index
+    from tophat_tpu_torch.index.fasta import Genome
+    from tophat_tpu_torch.io.fastq import batch_reads
+    from tophat_tpu_torch.pipeline import grouped, paired, run
+    from tophat_tpu_torch.pipeline.params import Params
+    return Genome, batch_reads, Params, index, grouped, paired, run
+
+
+def run_library(which, out, mode, grouped=True, device="cpu", **params):
+    """A grouped (or single-index) library run of the fixture; the port's
+    runs on `device`."""
+    Genome, batch_reads, Params, index, gp, paired, run = _pkg(which)
+    dev = {} if which == "jax" else {"device": device}
+    codes, offsets, r1, r2, _ = grouped_fixture()
+    genome = Genome(codes=codes, offsets=offsets, names=NAMES)
+    gfm = index.build_grouped_fm(genome, max_bases=MAX_BASES) \
+        if grouped else None
+    if gfm is not None:
+        assert gfm.n_groups == 2
+    P = Params(**params)
+    if mode == "paired":
+        paired.run_pipeline_paired(genome, batch_reads(r1), batch_reads(r2),
+                                   P, str(out), log=QUIET, gfm=gfm, **dev)
+    elif grouped:
+        gp.run_pipeline_grouped(genome, batch_reads(r1), P, str(out), gfm,
+                                log=QUIET, **dev)
+    else:
+        run.run_pipeline(genome, batch_reads(r1), P, str(out), log=QUIET,
+                         **dev)
+    return out
+
+
+def write_fixture(path):
+    """FASTA, mate FASTQs and genes.gtf of the fixture; returns their
+    paths (fa, fq1, fq2, gtf)."""
+    codes, offsets, r1, r2, _ = grouped_fixture()
+    fa = path / "g.fa"
+    with open(fa, "w") as f:
+        for i, name in enumerate(NAMES):
+            f.write(f">{name}\n{_seq(codes[offsets[i]:offsets[i + 1]])}\n")
+    fqs = []
+    for k, recs in ((1, r1), (2, r2)):
+        fq = path / f"r_{k}.fq"
+        with open(fq, "w") as f:
+            for name, seq, qual in recs:
+                f.write(f"@{name}\n{seq}\n+\n{qual.decode()}\n")
+        fqs.append(str(fq))
+    gtf = path / "genes.gtf"
+    gtf.write_text(GTF)
+    return str(fa), fqs[0], fqs[1], str(gtf)
+
+
+def _same(a, b, files):
+    for f in files:
+        assert (a / f).read_bytes() == (b / f).read_bytes(), f
+
+
+@pytest.mark.parametrize("mode", ["single", "paired"])
+def test_grouped_run_matches_jax(tmp_path, mode):
+    """Library grouped runs over two groups in TopHat's default mode
+    (coverage search on), single-end and paired: identical files."""
+    a = run_library("jax", tmp_path / "jax", mode)
+    b = run_library("torch", tmp_path / "torch", mode)
+    _same(a, b, OUTPUTS + ("align_summary.txt",))
+    bed = (b / "junctions.bed").read_text()
+    assert "chr0" in bed and "chr2" in bed
+
+
+def test_grouped_run_matches_single_index(tmp_path):
+    """The port's grouped run writes what its single-index run writes
+    (the JAX package's own contract, coverage search off)."""
+    a = run_library("torch", tmp_path / "single", "single", grouped=False,
+                    coverage_search=False)
+    b = run_library("torch", tmp_path / "grouped", "single",
+                    coverage_search=False)
+    _same(a, b, OUTPUTS + ("align_summary.txt",))
+
+
+CLI_CASES = {
+    "single": [],
+    "paired_gtf": ["-G", "GTF"],
+    "paired_fusion": ["--fusion-search", "--fusion-min-dist", "2000",
+                      "--fusion-anchor-length", "13",
+                      "--no-coverage-search"],
+}
+
+
+@pytest.mark.parametrize("case", list(CLI_CASES))
+def test_grouped_cli_matches_jax(tmp_path, case):
+    """CLI runs with --max-index-bases (two groups; the group caches go
+    beside the FASTA, the default prefix): single-end default mode, a
+    paired -G run and a paired --fusion-search run. Identical files; the
+    fusion run finds the chr0 -> chr1 fusion (one group) and not the
+    chr0 -> chr2 one (two groups: the JAX package's limit, kept)."""
+    from tophat_tpu.cli.main import main as jmain
+    from tophat_tpu_torch.cli.main import main as tmain
+
+    fa, fq1, fq2, gtf = write_fixture(tmp_path)
+    flags = [gtf if x == "GTF" else x for x in CLI_CASES[case]]
+    reads = [fq1] if case == "single" else [fq1, fq2]
+    argv = ["--max-index-bases", str(MAX_BASES)] + flags + [fa] + reads
+    assert jmain(["-o", str(tmp_path / "jax")] + argv) == 0
+    assert os.path.exists(fa + ".g1.tt.npz")
+    assert tmain(["-o", str(tmp_path / "torch"), "--device", "cpu"]
+                 + argv) == 0
+    files = OUTPUTS + (("align_summary.txt",) if len(reads) == 2 else ())
+    if case == "paired_fusion":
+        files += ("fusions.out",)
+        fus = (tmp_path / "torch" / "fusions.out").read_text()
+        assert "chr0-chr1" in fus and "chr0-chr2" not in fus
+    _same(tmp_path / "jax", tmp_path / "torch", files)
+    log = (tmp_path / "torch" / "logs" / "tophat.log").read_text()
+    assert "2 contig groups" in log and "reusing FM index" in log
+
+
+@pytest.mark.parametrize("max_bases,want", [
+    (1000, [(0, 3)]), (70, [(0, 2), (2, 3)]),
+    (40, [(0, 1), (1, 2), (2, 3)]), (30, None)])
+def test_group_ranges_match_jax(max_bases, want):
+    from tophat_tpu.index.fasta import Genome as JGenome
+    from tophat_tpu.index.grouped import contig_group_ranges as jranges
+    from tophat_tpu_torch.index.fasta import Genome
+    from tophat_tpu_torch.index.grouped import contig_group_ranges
+
+    args = dict(codes=np.zeros(100, np.int8),
+                offsets=np.array([0, 40, 70, 100]), names=["a", "b", "c"])
+    if want is None:
+        for fn, G in ((contig_group_ranges, Genome), (jranges, JGenome)):
+            with pytest.raises(SystemExit):
+                fn(G(**args), max_bases=max_bases)
+        return
+    got = contig_group_ranges(Genome(**args), max_bases=max_bases)
+    assert got == [range(a, b) for a, b in want]
+    assert got == jranges(JGenome(**args), max_bases=max_bases)
+
+
+def test_grouped_fm_cache_reuse(tmp_path):
+    """<prefix>.g<i>.tt.npz: the port reuses its own cache and one the JAX
+    package wrote; the tables equal a fresh build's."""
+    from tophat_tpu.index.fasta import Genome as JGenome
+    from tophat_tpu.index.grouped import build_grouped_fm as jbuild
+    from tophat_tpu_torch.index.fasta import Genome
+    from tophat_tpu_torch.index.grouped import build_grouped_fm
+
+    rng = np.random.default_rng(3)
+    args = dict(codes=rng.integers(0, 4, 3000).astype(np.int8),
+                offsets=np.array([0, 1500, 3000]), names=["a", "b"])
+    for who, prefix in (("torch", tmp_path / "t"), ("jax", tmp_path / "j")):
+        if who == "torch":
+            g1 = build_grouped_fm(Genome(**args), max_bases=1600,
+                                  cache_prefix=str(prefix))
+            assert g1.fms[0].device.type == "cpu"
+        else:
+            jbuild(JGenome(**args), max_bases=1600, cache_prefix=str(prefix))
+        assert os.path.exists(f"{prefix}.g1.tt.npz")
+        msgs = []
+        g2 = build_grouped_fm(Genome(**args), max_bases=1600,
+                              cache_prefix=str(prefix), log=msgs.append)
+        assert sum("reusing" in m for m in msgs) == 2, msgs
+        for a, b in zip(g1.fms, g2.fms):
+            for t in ("sa", "packed_bwt", "occ_ck", "genome"):
+                assert torch.equal(getattr(a, t), getattr(b, t)), t
+        assert np.array_equal(g2.bases, [0, 1500])
+
+
+def test_rebase_and_merge_keep_int64():
+    """Group-local candidates and event tables rebased to a base of
+    3 * 2^30 (past int32) keep exact int64 values."""
+    from tophat_tpu.pipeline import grouped as jg
+    from tophat_tpu_torch.pipeline import grouped as tg
+    from tophat_tpu_torch.pipeline.juncs import empty_events
+    from tophat_tpu_torch.pipeline.report import Candidate
+
+    base = 3 << 30
+    ev = empty_events()
+    local = dict(ev, left=np.array([5, 2_000_000_000], np.int32),
+                 right=np.array([900, 2_000_000_300], np.int32),
+                 kind=np.zeros(2, np.int8), antisense=np.zeros(2, bool),
+                 ins_len=np.zeros(2, np.int8),
+                 ins_seq=np.full((2, ev["ins_seq"].shape[1]), -1, np.int8))
+    merged = tg._merge_event_tables([ev, local], [0, base])
+    assert merged["left"].dtype == np.int64
+    assert merged["left"].tolist() == [base + 5, base + 2_000_000_000]
+    assert merged["right"].tolist() == [base + 900, base + 2_000_000_300]
+    want = jg._merge_event_tables([ev, local], [0, base])
+    for k in merged:
+        assert np.array_equal(merged[k], want[k]), k
+
+    def cands():
+        return {0: [Candidate(read=0, pos=2_000_000_100, strand=0, mm=0,
+                              kind=-2, ev=-1, t=0, fpos2=1_999_999_000,
+                              chain_events=(0, 1),
+                              chain_ops=(("M", 10), ("EV", 1, 0, 50),
+                                         ("FUS", 1_500_000_000, "fr")))]}
+    got, ref = cands(), cands()
+    tg._rebase_candidates(got, base, 7)
+    jg._rebase_candidates(ref, base, 7)
+    c = got[0][0]
+    assert c.pos == base + 2_000_000_100 and c.fpos2 == base + 1_999_999_000
+    assert c.chain_events == (7, 8)
+    assert c.chain_ops == (("M", 10), ("EV", 8, 0, 50),
+                           ("FUS", base + 1_500_000_000, "fr"))
+    assert vars(c) == vars(ref[0][0])
+
+
+def _chain_inputs(seed):
+    """Seeded random chain inputs: a 40-kb genome, 60 random events
+    (junctions, deletions, 1-3 bp insertions) plus 12 planted pairs that
+    reads cross twice, and those reads (with mismatches) among random
+    ones; genome-space rows and segment tables from the port's CPU index."""
+    from tophat_tpu_torch.index.fasta import encode_seq
+    from tophat_tpu_torch.index.fm import build_fm_index
+    from tophat_tpu_torch.ops.align import pad_reads
+    from tophat_tpu_torch.pipeline.juncs import dedup_events
+    from tophat_tpu_torch.pipeline.segment import (build_genome_space,
+                                                   map_segments)
+
+    rng = np.random.default_rng(seed)
+    n = 40_000
+    codes = rng.integers(0, 4, n).astype(np.int8)
+    lefts, rights, kinds, ilens = [], [], [], []
+    seqs = []
+    for k in range(12):
+        a = int(rng.integers(500, n - 5000))
+        b = a + int(rng.integers(80, 400))
+        c = b + int(rng.integers(30, 45))
+        d = c + int(rng.integers(80, 400))
+        lefts += [a, c]
+        rights += [b, d]
+        kinds += [0, 1 if k % 3 == 0 else 0]
+        ilens += [0, 0]
+        t = int(rng.integers(20, 35))
+        r = np.concatenate([codes[a - t + 1:a + 1], codes[b:c + 1],
+                            codes[d:d + 100]])[:L]
+        if k % 2:
+            r[int(rng.integers(0, L))] ^= 1
+        seqs.append(r)
+    for k in range(60):
+        a = int(rng.integers(100, n - 6000))
+        q = int(rng.integers(1, 4)) if k % 5 == 0 else 0
+        lefts.append(a)
+        rights.append(a + 1 if q else a + int(rng.integers(2, 5000)))
+        kinds.append(2 if q else int(k % 3 == 0))
+        ilens.append(q)
+    ins_seq = np.full((len(lefts), 8), -1, np.int8)
+    for i, q in enumerate(ilens):
+        ins_seq[i, :q] = rng.integers(0, 4, q)
+    events = dedup_events(dict(
+        left=np.array(lefts, np.int32), right=np.array(rights, np.int32),
+        kind=np.array(kinds, np.int8),
+        antisense=np.zeros(len(lefts), bool),
+        ins_len=np.array(ilens, np.int8), ins_seq=ins_seq))
+    seqs += [codes[s:s + L].copy() for s in rng.integers(0, n - L, 20)]
+    seqs += [rng.integers(0, 4, L).astype(np.int8) for _ in range(4)]
+    rf, rr, lens = pad_reads([encode_seq(_seq(s)) for s in seqs])
+    gs = build_genome_space(rf, rr, lens, 25, pad_rows_pow2=True)
+    fm = build_fm_index(codes, device="cpu")
+    tables = map_segments(fm, np.array([0, n]), gs, segment_mismatches=2,
+                          hits_per_seed=32, max_hits=16)
+    return fm, gs, tuple(a.numpy() for a in tables), events
+
+
+def dense_segment_hits(fm, gs, events, params):
+    """The segment hits the chain path took before it went sparse: the
+    realign kernel's dense (rows*S, E) tables, their ok entries listed per
+    segment row in ascending event order (np.nonzero), in
+    segment_event_hits' form."""
+    from tophat_tpu_torch.ops.events import realign_events
+    from tophat_tpu_torch.pipeline.segment import segment_rows
+
+    seg_reads, seg_len = segment_rows(gs)
+    ev = dict(events, valid=np.ones(len(events["left"]), bool))
+    bt, mm, ok = realign_events(
+        fm.genome.cpu(), seg_reads,
+        np.maximum(seg_len.reshape(-1), 1).astype(np.int32), ev,
+        max_mm=params.segment_mismatches)
+    rows, evs = np.nonzero(ok)
+    offsets = np.zeros(ok.shape[0] + 1, np.int64)
+    np.cumsum(ok.sum(1), out=offsets[1:])
+    return (offsets, evs, bt[rows, evs], mm[rows, evs]), seg_len
+
+
+@pytest.mark.parametrize("seed", [1, 2])
+def test_chains_sparse_hits_equal_dense(seed):
+    """chain_stitch and cross_strand_chains give the same chains from the
+    sparse segment hits (the realign kernel's sparse entry) as from the
+    dense tables the chain path read before."""
+    from tophat_tpu_torch.pipeline import chains
+    from tophat_tpu_torch.pipeline.params import Params
+
+    fm, gs, tables, events = _chain_inputs(seed)
+    params = Params()
+    sparse = chains.segment_event_hits(fm, gs, events, params)
+    dense = dense_segment_hits(fm, gs, events, params)
+    for a, b in zip(sparse[0], dense[0]):
+        assert np.array_equal(a, b)
+    assert len(sparse[0][1]) > 0
+    got = chains.chain_stitch(fm, gs, tables, events, params,
+                              seg_hits=sparse)
+    want = chains.chain_stitch(fm, gs, tables, events, params,
+                               seg_hits=dense)
+    assert [vars(c) for c in got] == [vars(c) for c in want]
+    assert len(got) >= 6
+    assert chains.chain_stitch(fm, gs, tables, events, params) == got
+    got = chains.cross_strand_chains(fm, gs, tables, events, params,
+                                     seg_hits=sparse)
+    want = chains.cross_strand_chains(fm, gs, tables, events, params,
+                                      seg_hits=dense)
+    assert [vars(c) for c in got] == [vars(c) for c in want]
+
+
+def test_fusion_gtf_run_matches_jax(tmp_path):
+    """A single-index paired --fusion-search -G CLI run (the chain path
+    over every row against the annotated event table) writes the JAX
+    package's files."""
+    from test_torch_fusion import FILES, write_inputs
+    from tophat_tpu.cli.main import main as jmain
+    from tophat_tpu_torch.cli.main import main as tmain
+
+    fa, fq1, fq2, _ = write_inputs(tmp_path)
+    gtf = tmp_path / "genes.gtf"
+    gtf.write_text(
+        'chrA\ttest\texon\t2001\t2300\t.\t+\t.\tgene_id "a"; '
+        'transcript_id "a1";\n'
+        'chrA\ttest\texon\t2701\t3000\t.\t+\t.\tgene_id "a"; '
+        'transcript_id "a1";\n'
+        'chrB\ttest\texon\t5001\t5200\t.\t-\t.\tgene_id "b"; '
+        'transcript_id "b1";\n'
+        'chrB\ttest\texon\t5601\t5800\t.\t-\t.\tgene_id "b"; '
+        'transcript_id "b1";\n')
+    argv = ["-G", str(gtf), "--fusion-search", "--max-intron-length",
+            "1000", "--fusion-min-dist", "2000", "--fusion-anchor-length",
+            "13", "--no-coverage-search", fa, fq1, fq2]
+    assert jmain(["-o", str(tmp_path / "jax")] + argv) == 0
+    assert tmain(["-o", str(tmp_path / "torch"), "--device", "cpu"]
+                 + argv) == 0
+    _same(tmp_path / "jax", tmp_path / "torch", FILES)
+    assert (tmp_path / "torch" / "fusions.out").read_text().count("\n") >= 6

@@ -1,6 +1,7 @@
 """Guards of the port: it never imports JAX or the JAX package, it never
-falls back to the CPU on its own, unported modes refuse to run, and
-fusion search (ported) runs."""
+falls back to the CPU on its own, the modes ported last (fusion search,
+the grouped index) run, and a saved index's load swallows only the errors
+of a stale file."""
 
 import os
 import subprocess
@@ -33,7 +34,8 @@ def test_port_imports_neither_jax_nor_tophat_tpu():
     assert out.returncode == 0, out.stderr
     n, names, bad = out.stdout.strip().split(" ", 2)
     assert int(n) >= 25 and bad == "[]", out.stdout
-    for mod in ("ops.fusion_fr", "pipeline.fusion_stats", "cli.fusion_post"):
+    for mod in ("ops.fusion_fr", "pipeline.fusion_stats", "cli.fusion_post",
+                "index.grouped", "pipeline.grouped"):
         assert f"tophat_tpu_torch.{mod}" in names.split(","), mod
 
 
@@ -97,34 +99,91 @@ def test_fusion_run_writes_fusions_out(tmp_path, mode):
     assert "r0" in (out / "accepted_hits.sam").read_text()
 
 
+def _two_contigs():
+    """_tiny's genome cut into two 1,000-base contigs (two groups under a
+    1,000-base index cap) and its read."""
+    from tophat_tpu_torch.index.fasta import Genome
+
+    genome, batch = _tiny()
+    return Genome(codes=genome.codes, offsets=np.array([0, 1000, 2000]),
+                  names=["c", "d"]), batch
+
+
 @pytest.mark.parametrize("flags,item", [
     (["--max-index-bases", "1000"], "grouped index")])
 def test_unported_cli_modes_raise(tmp_path, flags, item):
+    """The CLI modes once left unported now run: a genome over
+    --max-index-bases maps through the contig groups (paired here)."""
     from tophat_tpu_torch.cli.main import main
 
-    genome, _ = _tiny()
+    genome, batch = _two_contigs()
     fa = tmp_path / "g.fa"
-    fa.write_text(">c\n" + "".join("ACGT"[c] for c in genome.codes) + "\n")
+    fa.write_text("".join(
+        f">{name}\n" + "".join("ACGT"[c] for c in genome.codes[a:b]) + "\n"
+        for name, a, b in zip(genome.names, genome.offsets,
+                              genome.offsets[1:])))
     fq = tmp_path / "r.fq"
-    fq.write_text("@r0\n" + "ACGT" * 10 + "\n+\n" + "I" * 40 + "\n")
-    with pytest.raises(NotImplementedError, match=f"ROADMAP.*{item}"):
-        main(["-o", str(tmp_path / "out"), "--device", "cpu"] + flags
-             + [str(fa), str(fq), str(fq)])
+    fq.write_text("@r0\n" + "".join("ACGT"[c] for c in genome.codes[100:150])
+                  + "\n+\n" + "I" * 50 + "\n")
+    out = tmp_path / "out"
+    assert main(["-o", str(out), "--device", "cpu"] + flags
+                + [str(fa), str(fq), str(fq)]) == 0
+    assert "2 contig groups" in (out / "logs" / "tophat.log").read_text()
+    assert os.path.exists(str(fa) + ".g1.tt.npz")
+    assert "r0" in (out / "accepted_hits.sam").read_text()
 
 
 @pytest.mark.parametrize("what", ["gfm"])
 def test_paired_unported_modes_raise(tmp_path, what):
-    """The paired pipeline refuses the grouped index, naming its ROADMAP
-    item, before it maps anything."""
+    """The paired pipeline, once refusing the grouped index, maps through
+    it: a read on the second group's contig lands there."""
+    from tophat_tpu_torch.index.grouped import build_grouped_fm
     from tophat_tpu_torch.pipeline.paired import run_pipeline_paired
     from tophat_tpu_torch.pipeline.params import Params
 
-    genome, batch = _tiny()
-    with pytest.raises(NotImplementedError, match="ROADMAP.*grouped index"):
-        run_pipeline_paired(genome, batch, batch, Params(),
-                            str(tmp_path / "out"), log=lambda *a: None,
-                            device="cpu", gfm=object())
-    assert not (tmp_path / "out").exists()
+    genome, batch = _two_contigs()
+    gfm = build_grouped_fm(genome, max_bases=1000)
+    assert gfm.n_groups == 2 and gfm.fms[1].device.type == "cpu"
+    run_pipeline_paired(genome, batch, batch, Params(),
+                        str(tmp_path / "out"), log=lambda *a: None,
+                        device="cpu", gfm=gfm)
+    sam = (tmp_path / "out" / "accepted_hits.sam").read_text()
+    assert "\tc\t101\t" in sam
+
+
+def test_grouped_index_load_propagates_device_errors(tmp_path, monkeypatch):
+    """Loading a saved group index swallows only the errors of a stale or
+    corrupt file: a truncated .g0.tt.npz is rebuilt, and a CUDA error while
+    the tables load (here an out-of-memory) reaches the caller instead of
+    a silent rebuild."""
+    from tophat_tpu_torch.index import grouped
+    from tophat_tpu_torch.index.fm import FMIndex
+
+    genome, _ = _two_contigs()
+    prefix = str(tmp_path / "g")
+    first = grouped.build_grouped_fm(genome, max_bases=1000,
+                                     cache_prefix=prefix)
+    path = prefix + ".g0.tt.npz"
+    data = open(path, "rb").read()
+    with open(path, "wb") as f:
+        f.write(data[: len(data) // 2])
+    msgs = []
+    again = grouped.build_grouped_fm(genome, max_bases=1000,
+                                     cache_prefix=prefix, log=msgs.append)
+    assert sum("reusing" in m for m in msgs) == 1, msgs
+    assert torch.equal(again.fms[0].sa, first.fms[0].sa)
+    assert FMIndex.load(path, device="cpu").n == 1000
+
+    def oom(path, device="cuda"):
+        raise torch.cuda.OutOfMemoryError("CUDA out of memory")
+
+    monkeypatch.setattr(FMIndex, "load", staticmethod(oom))
+    built = []
+    monkeypatch.setattr(grouped, "build_fm_index",
+                        lambda *a, **k: built.append(1))
+    with pytest.raises(torch.cuda.OutOfMemoryError):
+        grouped.build_grouped_fm(genome, max_bases=1000, cache_prefix=prefix)
+    assert not built
 
 
 def test_transcriptome_index_load_propagates_device_errors(tmp_path,

@@ -7,8 +7,10 @@ build-only call, -T, -x, --no-gtf-juncs), colorspace input (-C) and the
 chunked single-end and paired-end pipelines, with the coverage search on
 by default, the butterfly and microexon searches, bowtie2 mode (--b2) and
 fusion search (--fusion-search: FF/FR/RF fusions, XF:Z tags, fusions.out;
-tophat-fusion-post is cli/fusion_post.py) on request. The grouped
-(multi-index) genome raises NotImplementedError naming its ROADMAP item.
+tophat-fusion-post is cli/fusion_post.py) on request. A genome longer
+than --max-index-bases (by default the int32-safe MAX_GROUP_BASES) is
+partitioned into contig groups, one FM index each (index/grouped.py,
+cached as <prefix>.g<i>.tt.npz), and maps through pipeline/grouped.py.
 
 Usage:
   python -m tophat_tpu_torch.cli.main -o out [--tt-index P] [-G genes.gtf] \
@@ -27,6 +29,7 @@ import numpy as np
 
 from tophat_tpu_torch.index.fasta import encode_seq, read_fasta
 from tophat_tpu_torch.index.fm import FMIndex, build_fm_index
+from tophat_tpu_torch.index.grouped import MAX_GROUP_BASES, build_grouped_fm
 from tophat_tpu_torch.io.color import encode_color_read, read_csfasta
 from tophat_tpu_torch.io.fastq import read_all
 from tophat_tpu_torch.io.gtf import (gtf_junctions, parse_gtf,
@@ -36,18 +39,15 @@ from tophat_tpu_torch.ops.events import MAX_INS
 from tophat_tpu_torch.ops.splice import (KIND_DELETION, KIND_INSERTION,
                                          KIND_JUNCTION)
 from tophat_tpu_torch.pipeline.colorspace import run_pipeline_color
+from tophat_tpu_torch.pipeline.grouped import run_pipeline_grouped
 from tophat_tpu_torch.pipeline.juncs import empty_events, merge_events
 from tophat_tpu_torch.pipeline.paired import run_pipeline_paired_streaming
 from tophat_tpu_torch.pipeline.params import Params
-from tophat_tpu_torch.pipeline.run import (iter_read_batches,
+from tophat_tpu_torch.pipeline.run import (iter_read_batches, load_reads,
                                            resolve_device,
                                            run_pipeline_streaming)
 from tophat_tpu_torch.pipeline.transcriptome import build_transcriptome_index
 from tophat_tpu_torch.utils.log import StageLogger, get_resume_stage
-
-# the JAX package's per-index base cap (index/grouped.MAX_GROUP_BASES):
-# larger genomes need the grouped index, which is not ported yet
-MAX_GROUP_BASES = (1 << 31) - (1 << 27)
 
 
 def resolve_genome_path(prefix: str) -> str:
@@ -340,11 +340,6 @@ def _index_design_point(big: bool):
     return kk, sr
 
 
-def _unported(what: str, item: str):
-    raise NotImplementedError(f"{what} is not ported to tophat_tpu_torch "
-                              f"yet (ROADMAP Queue 1: {item})")
-
-
 def _color_records(files, qual_csv, params):
     """(name, primer, colors, qual) records of colorspace reads files:
     .csfasta (with an optional _QV.qual file each) or colorspace FASTQ."""
@@ -466,11 +461,25 @@ def main(argv=None, resume=False):
     logger = StageLogger(out_dir, argv=argv or sys.argv[1:])
 
     genome = read_fasta(resolve_genome_path(args.index))
+
+    # whole-genome scale: beyond the int32-safe cap the genome partitions
+    # into contig groups, one FM index per group (index/grouped.py); the
+    # pipeline merges at int64 global coordinates (pipeline/grouped.py)
     max_index_bases = args.max_index_bases or MAX_GROUP_BASES
-    if genome.n > max_index_bases:
-        _unported("the grouped (multi-index) genome", "grouped index")
+    gfm = None
     fm = None
-    if args.tt_index:
+    if genome.n > max_index_bases:
+        cache_prefix = args.tt_index
+        if cache_prefix is None:
+            cand = resolve_genome_path(args.index)
+            cache_prefix = cand if os.access(os.path.dirname(cand) or ".",
+                                             os.W_OK) else None
+        kk, sr = _index_design_point(genome.n > (1 << 28))
+        gfm = build_grouped_fm(genome, max_bases=max_index_bases,
+                               kmer_k=kk, sa_rate=sr,
+                               cache_prefix=cache_prefix, log=logger.log)
+        logger.log(f"genome partitioned into {gfm.n_groups} contig groups")
+    elif args.tt_index:
         path = args.tt_index if args.tt_index.endswith(".npz") \
             else args.tt_index + ".tt.npz"
         if os.path.exists(path):
@@ -564,6 +573,14 @@ def main(argv=None, resume=False):
                            log=logger.log, device=device)
         logger.stage("alldone")
         return 0
+    if gfm is not None and not args.reads2:
+        batch = load_reads(files1, params.quals_scale,
+                           integer_quals=params.integer_quals)
+        run_pipeline_grouped(genome, batch, params, out_dir, gfm,
+                             known_events=known, gtf_accept=gtf_accept,
+                             trans=trans, log=logger.log, device=device)
+        logger.stage("alldone")
+        return 0
     batches = iter_read_batches(files1, params.quals_scale,
                                 params.batch_size,
                                 integer_quals=params.integer_quals)
@@ -572,7 +589,7 @@ def main(argv=None, resume=False):
                                      params.quals_scale, params.batch_size,
                                      integer_quals=params.integer_quals)
         run_pipeline_paired_streaming(
-            genome, zip(batches, batches2), params, out_dir, fm=fm,
+            genome, zip(batches, batches2), params, out_dir, fm=fm, gfm=gfm,
             known_events=known, gtf_accept=gtf_accept, trans=trans,
             log=logger.log, device=device)
     else:

@@ -24,6 +24,7 @@ from __future__ import annotations
 
 import dataclasses
 import types
+import zipfile
 from typing import Any
 
 import numpy as np
@@ -36,6 +37,10 @@ from tophat_tpu_torch.utils.device import resolve_device
 OCC_BLOCK = 128  # bases per Occ checkpoint block
 WORDS_PER_BLOCK = OCC_BLOCK // 16
 
+
+# what a stale or corrupt saved index raises on FMIndex.load; anything else
+# (a CUDA error while the tables upload, a bad device) propagates
+STALE_INDEX = (OSError, ValueError, KeyError, zipfile.BadZipFile)
 
 _PACK_CHUNK = 1 << 24  # bases per packing/counting chunk (blocked builds:
 #                        scratch stays O(chunk), not O(genome))

@@ -8,10 +8,12 @@ accumulating the crossed events. Only chains crossing >= 2 events are
 emitted — 0- and 1-event placements come from stitch_contiguous and
 realign_events_sparse.
 
-The per-segment event-hit tables come from the realign kernel
-(ops/events.realign_events over segment rows); the chain join itself is
-host-side Python over those tables. In the default mode it runs only for
-reads still unresolved after contiguous + single-event candidates
+The per-segment event hits come from the realign kernel's sparse entry
+(ops/events.realign_events_sparse over segment rows): the records of the
+ok (segment, event) pairs only, so no (rows*S, E) table is made at an
+annotation's event count. The chain join itself is host-side Python over
+those records. In the default mode it runs only for reads still
+unresolved after contiguous + single-event candidates
 (pipeline/run.default_chains); with fusion search it runs over every row,
 and cross_strand_chains pairs forward-row and reverse-row chains of a read
 into FR/RF fusion chains whose pieces cross junctions or indels. Both take
@@ -27,7 +29,7 @@ import numpy as np
 import torch
 
 from tophat_tpu_torch.index.fm import host_codes
-from tophat_tpu_torch.ops.events import realign_events
+from tophat_tpu_torch.ops.events import realign_events_sparse
 from tophat_tpu_torch.ops.splice import (KIND_DELETION, KIND_FUSION,
                                          KIND_INSERTION)
 from tophat_tpu_torch.pipeline.segment import GenomeSpaceReads, segment_rows
@@ -96,40 +98,48 @@ class ChainCandidate:
 
 def segment_event_hits(fm, gs, events, params):
     """Per-segment event-crossing hits: realign every segment row against
-    the event table (the realign kernel's dense entry, rows*S x E). Returns
-    ((best_t, mm, ok) shaped (rows*S, E), seg_len (rows, S)); chain_stitch
-    and cross_strand_chains take it as `seg_hits`."""
+    the event table through the realign kernel's sparse entry, which
+    returns the ok (segment row, event) records only. Returns ((offsets,
+    ev, best_t, mm), seg_len (rows, S)): the records sorted by (segment
+    row, event), segment row k = row * S + j owning records
+    offsets[k]:offsets[k + 1] in ascending event order (the order
+    np.nonzero gives over a dense ok table). chain_stitch and
+    cross_strand_chains take it as `seg_hits`."""
     seg_reads, seg_len = segment_rows(gs)
     ev = dict(events)
     ev["valid"] = np.ones(len(ev["left"]), bool)
-    return realign_events(
+    rows, evs, best_t, mm = realign_events_sparse(
         fm.genome, seg_reads, np.maximum(seg_len.reshape(-1), 1).astype(
-            np.int32), ev, max_mm=params.segment_mismatches), seg_len
+            np.int32), ev, max_mm=params.segment_mismatches)
+    order = np.lexsort((evs, rows))      # (row, event) pairs are unique
+    offsets = np.zeros(seg_reads.shape[0] + 1, np.int64)
+    np.cumsum(np.bincount(rows, minlength=seg_reads.shape[0]),
+              out=offsets[1:])
+    return (offsets, evs[order], best_t[order], mm[order]), seg_len
 
 
 def _hit_tables(fm, gs, seg_tables, events, params, seg_hits):
-    """(seg_pos, seg_mm, seg_valid, seg_len) host tables and the
-    (rows, S, E) event-hit tables (best_t, mm, ok)."""
+    """(seg_pos, seg_mm, seg_valid, seg_len) host tables and the segment
+    event-hit records (offsets, ev, best_t, mm) of segment_event_hits."""
     seg_pos, seg_mm, seg_valid = (_host(x) for x in seg_tables)
     if seg_hits is None:
         seg_hits = segment_event_hits(fm, gs, events, params)
-    (ev_t, ev_mm, ev_ok), seg_len = seg_hits
-    rows, S = seg_pos.shape[:2]
-    seg_ev = tuple(x.reshape(rows, S, -1) for x in (ev_t, ev_mm, ev_ok))
+    seg_ev, seg_len = seg_hits
     return (seg_pos, seg_mm, seg_valid, seg_len), seg_ev
 
 
 def _row_hit_lists(gs, seg_tables, seg_ev, events, row):
     """Per-segment hit lists for one genome-space row:
-    [(start, end, mm, ev, t_seg)], genomic + event-crossing."""
+    [(start, end, mm, ev, t_seg)], genomic + event-crossing (events in
+    ascending index order)."""
     seg_pos, seg_mm, seg_valid, seg_len = seg_tables
-    ev_t, ev_mm, ev_ok = seg_ev
+    offsets, ev_idx, ev_t, ev_mm = seg_ev
     kinds = events["kind"]
     lefts = events["left"]
     rights = events["right"]
     ilens = events["ins_len"]
     nseg = int(gs.nseg[row])
-    H = seg_pos.shape[2]
+    S, H = seg_pos.shape[1:]
     hits = []
     for j in range(nseg):
         slen = int(seg_len[row, j])
@@ -138,15 +148,17 @@ def _row_hit_lists(gs, seg_tables, seg_ev, events, row):
             if seg_valid[row, j, h]:
                 p = int(seg_pos[row, j, h])
                 lst.append((p, p + slen, int(seg_mm[row, j, h]), -1, 0))
-        for e in np.nonzero(ev_ok[row, j])[0]:
-            t = int(ev_t[row, j, e])
+        k = row * S + j
+        for i in range(int(offsets[k]), int(offsets[k + 1])):
+            e = int(ev_idx[i])
+            t = int(ev_t[i])
             kind = int(kinds[e])
             start = int(lefts[e]) - t + 1
             if kind == KIND_INSERTION:
                 end = int(lefts[e]) + 1 + (slen - t - int(ilens[e]))
             else:
                 end = int(rights[e]) + (slen - t)
-            lst.append((start, end, int(ev_mm[row, j, e]), int(e), t))
+            lst.append((start, end, int(ev_mm[i]), e, t))
         hits.append(lst)
     return hits, nseg
 
@@ -165,6 +177,7 @@ def chain_stitch(fm, gs, seg_tables, events, params,
     lefts = events["left"]
     rights = events["right"]
     ilens = events["ins_len"]
+    closures = _Closures(events)
 
     out: List[ChainCandidate] = []
     for row in range(gs.rows):
@@ -199,7 +212,7 @@ def chain_stitch(fm, gs, seg_tables, events, params,
                     dfs(j + 1, e, mm + hmm, nevs,
                         path + [("SEG", j, s, e, ev, t)])
                 else:
-                    for e2, d in _closure_candidates(events, end, s):
+                    for e2, d in closures(end, s):
                         cevs = nevs + [e2]
                         if len(cevs) > MAX_EVENTS_PER_CHAIN:
                             continue
@@ -308,32 +321,46 @@ def _chain_mm(genome, row_codes, pos0, ops, events):
     return mm
 
 
-def _closure_candidates(events, end, s):
-    """Events that close a gap between adjacent ungapped hits ending at
+class _Closures:
+    """The events that close a gap between adjacent ungapped hits ending at
     `end` and starting at `s` (merge_chain pair closure, split within 4
     bases of the boundary; insertion boundary inside the inserted span).
-    Yields (ev, delta)."""
-    kinds = events["kind"]
-    lefts = events["left"]
-    rights = events["right"]
-    ilens = events["ins_len"]
-    for e2 in range(len(kinds)):
-        k2 = int(kinds[e2])
-        d = int(lefts[e2]) + 1 - end
-        if k2 == KIND_INSERTION:
-            q = int(ilens[e2])
-            if -q <= d <= 0 and s == end - q:
-                yield e2, d
-        else:
-            if abs(d) <= 4 and s == int(rights[e2]) - d:
+    A closing event's left end lies in [end - 1 - max(4, q), end + 3], so a
+    query reads only the events there, through the table sorted by left
+    end, and not all E of an annotation-sized table."""
+
+    def __init__(self, events):
+        self.kinds = events["kind"]
+        self.lefts = events["left"]
+        self.rights = events["right"]
+        self.ilens = events["ins_len"]
+        lefts = np.asarray(self.lefts, np.int64)
+        self.order = np.argsort(lefts, kind="stable")
+        self.sorted_left = lefts[self.order]
+        ins = np.asarray(self.ilens)[np.asarray(self.kinds) == KIND_INSERTION]
+        self.reach = 1 + max(4, int(ins.max()) if len(ins) else 0)
+
+    def __call__(self, end, s):
+        """Yields (ev, delta) in ascending event order."""
+        lo = int(np.searchsorted(self.sorted_left, end - self.reach, "left"))
+        hi = int(np.searchsorted(self.sorted_left, end + 3, "right"))
+        for e2 in np.sort(self.order[lo:hi]):
+            e2 = int(e2)
+            d = int(self.lefts[e2]) + 1 - end
+            if int(self.kinds[e2]) == KIND_INSERTION:
+                q = int(self.ilens[e2])
+                if -q <= d <= 0 and s == end - q:
+                    yield e2, d
+            elif abs(d) <= 4 and s == int(self.rights[e2]) - d:
                 yield e2, d
 
 
-def _prefix_chains(hits, nseg, max_out=16, events=None):
+def _prefix_chains(hits, nseg, max_out=16, closures=None):
     """All contiguous chains covering segments 0..j (any j), as
     (j, genome_end, mm, events, path); path holds ("SEG", s, e, ev, t)
-    and ("CLOSE", ev, delta) entries. Bounded enumeration; with `events`,
-    adjacent-hit gaps closable by an event continue the chain."""
+    and ("CLOSE", ev, delta) entries. Bounded enumeration; with
+    `closures` (a _Closures), adjacent-hit gaps closable by an event
+    continue the chain."""
     out = []
     frontier = [(-1, None, 0, (), ())]
     for j in range(nseg):
@@ -343,8 +370,8 @@ def _prefix_chains(hits, nseg, max_out=16, events=None):
                 links = []
                 if j == 0 or s == end:
                     links.append(None)
-                elif events is not None:
-                    links.extend(_closure_candidates(events, end, s))
+                elif closures is not None:
+                    links.extend(closures(end, s))
                 for link in links[:4]:
                     nevs = evs + (ev,) if ev >= 0 else evs
                     npath = path
@@ -362,7 +389,7 @@ def _prefix_chains(hits, nseg, max_out=16, events=None):
     return out
 
 
-def _suffix_chains(hits, nseg, max_out=16, events=None):
+def _suffix_chains(hits, nseg, max_out=16, closures=None):
     """All contiguous chains covering segments j..nseg-1, as
     (j, genome_start, mm, events, path)."""
     out = []
@@ -374,8 +401,8 @@ def _suffix_chains(hits, nseg, max_out=16, events=None):
                 links = []
                 if j == nseg - 1 or e == start:
                     links.append(None)
-                elif events is not None:
-                    links.extend(_closure_candidates(events, e, start))
+                elif closures is not None:
+                    links.extend(closures(e, start))
                 for link in links[:4]:
                     nevs = (ev,) + evs if ev >= 0 else evs
                     npath = path
@@ -473,6 +500,7 @@ def cross_strand_chains(fm, gs, seg_tables, events, params,
     genome = host_codes(fm)
     n = genome.shape[0]
     R = gs.rows // 2
+    closures = _Closures(events)
     # flank-record anchor floor (juncs_db fusion record geometry: >= 3
     # aligned bases each side; fusion_anchor_length only gates FusionStat
     # counting, fusions.cpp:193)
@@ -506,8 +534,8 @@ def cross_strand_chains(fm, gs, seg_tables, events, params,
 
         best = []
         # ---- FR: fwd prefix + rc prefix ----
-        pf = _prefix_chains(hits_f, nseg_f, events=events)
-        pr = _prefix_chains(hits_r, nseg_r, events=events)
+        pf = _prefix_chains(hits_f, nseg_f, closures=closures)
+        pr = _prefix_chains(hits_r, nseg_r, closures=closures)
 
         # event-anchored virtual pieces: when one strand's piece is too
         # short to hold any mappable segment, anchor it on an already-
@@ -554,7 +582,7 @@ def cross_strand_chains(fm, gs, seg_tables, events, params,
             # piece A = fwd suffix starting at ra; piece B = rc suffix
             # starting at rb (covers the read's first t bases, revcomp)
             for (jb, startB, mmB, evsB, pathB) in _suffix_chains(
-                    hits_r, nseg_r, events=events):
+                    hits_r, nseg_r, closures=closures):
                 if not evsB:
                     continue
                 tB0 = int(cuts_r[jb])
@@ -573,7 +601,7 @@ def cross_strand_chains(fm, gs, seg_tables, events, params,
                     read=int(gs.read_idx[rf]), strand=0, pos=int(ra),
                     mm=mmB + e1 + e2, ops=ops, events=tuple(evsB)))
             for (ja, startA, mmA, evsA, pathA) in _suffix_chains(
-                    hits_f, nseg_f, events=events):
+                    hits_f, nseg_f, closures=closures):
                 if not evsA:
                     continue
                 tA0 = int(cuts_f[ja])
@@ -634,8 +662,8 @@ def cross_strand_chains(fm, gs, seg_tables, events, params,
                     events=tuple(evsA) + tuple(evsB)))
 
         # ---- RF: fwd suffix + rc suffix ----
-        sf = _suffix_chains(hits_f, nseg_f, events=events)
-        sr = _suffix_chains(hits_r, nseg_r, events=events)
+        sf = _suffix_chains(hits_f, nseg_f, closures=closures)
+        sr = _suffix_chains(hits_r, nseg_r, closures=closures)
         tried = 0
         for (ja, startA, mmA, evsA, pathA) in sf:
             tA0 = int(cuts_f[ja])

@@ -10,10 +10,9 @@ inner distance best matches inner_dist_mean wins.
 Output flag conventions copied from the gold regression outputs (v1.1.4
 era): PAIRED | READ1/READ2 | (MATE_UNMAPPED) | strand bits, RNEXT '=' and
 PNEXT = mate position when the mate mapped, RNEXT '*' otherwise, TLEN 0.
-With fusion search, fusions.out also counts mate-pair support.
-
-The grouped index is not ported yet: it raises NotImplementedError naming
-its ROADMAP item.
+With fusion search, fusions.out also counts mate-pair support. A
+contig-group index (whole genomes past the int32 range) maps through
+pipeline/grouped.GroupedMapper.
 """
 
 from __future__ import annotations
@@ -31,6 +30,7 @@ from tophat_tpu_torch.io import sam as samio
 from tophat_tpu_torch.io.bam import BamRecord, BamWriter
 from tophat_tpu_torch.ops.splice import KIND_INSERTION, KIND_JUNCTION
 from tophat_tpu_torch.pipeline.fusion_stats import build_fusion_table
+from tophat_tpu_torch.pipeline.grouped import GroupedMapper
 from tophat_tpu_torch.pipeline.juncs import discover_events, merge_events
 from tophat_tpu_torch.pipeline.prep import PrepStats
 from tophat_tpu_torch.pipeline.report import (Candidate, EventStats,
@@ -119,9 +119,9 @@ def _grade_key():
 
 
 class SingleIndexMapper:
-    """Chunk mapping engine for the single-index paired pipeline (the JAX
-    package shares its protocol with the grouped index's mapper, which is
-    not ported yet)."""
+    """Chunk mapping engine for the single-index paired pipeline; protocol
+    shared with pipeline/grouped.GroupedMapper, so the paired pipeline runs
+    unchanged over a whole-genome index or a contig-group index."""
 
     def __init__(self, fm, genome, params, trans=None, log=print):
         self.fm = fm
@@ -176,17 +176,19 @@ def run_pipeline_paired_streaming(genome: Genome, pair_iter, params,
     One chunk reproduces the single-batch output byte-for-byte.
 
     Device stages run on `device` (default cuda; raises without it).
-    gfm (a contig-group index) is not ported yet and raises."""
-    if gfm is not None:
-        raise NotImplementedError(
-            "the grouped (multi-index) genome is not ported to "
-            "tophat_tpu_torch yet (ROADMAP Queue 1: grouped index)")
+    gfm: a contig-group index (index/grouped.GroupedFM) routes mapping and
+    candidate assembly through pipeline/grouped.GroupedMapper."""
     dev = resolve_device(device)
     t0 = time.time()
     os.makedirs(out_dir, exist_ok=True)
-    fm = _index_for(genome, fm, dev, log)
-    mapper = SingleIndexMapper(fm, genome, params,
-                               trans=_trans_for(trans, dev), log=log)
+    if gfm is not None:
+        mapper = GroupedMapper(gfm, genome, params, trans=trans, log=log,
+                               device=dev)
+        fm = gfm
+    else:
+        fm = _index_for(genome, fm, dev, log)
+        mapper = SingleIndexMapper(fm, genome, params,
+                                   trans=_trans_for(trans, dev), log=log)
 
     chunks = []
     prep_all = [PrepStats(), PrepStats()]

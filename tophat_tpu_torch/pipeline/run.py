@@ -72,6 +72,16 @@ def revcomp_rows(codes: np.ndarray, lengths: np.ndarray) -> np.ndarray:
     return np.where(ok, comp, np.int8(-1)).astype(np.int8)
 
 
+def load_reads(files: List[str], quals_scale: str,
+               integer_quals: bool = False) -> ReadBatch:
+    """Every record of the reads files as one ReadBatch."""
+    records = []
+    for path in files:
+        records.extend(read_all(path, quals_scale,
+                                integer_quals=integer_quals))
+    return batch_reads(records)
+
+
 def iter_read_batches(files: List[str], quals_scale: str, batch_size: int,
                       integer_quals: bool = False):
     """Stream (name, seq, qual) records into fixed-size ReadBatches."""
@@ -328,7 +338,7 @@ def merge_stats(into: Dict[int, object], other: Dict[int, object]) -> None:
 
 
 def candidates_for_mate(fm, m: MateState, events, params, log,
-                        paired=False) -> None:
+                        paired=False, chain_default=True) -> None:
     """Realign one chunk/mate against the (global) event table and build
     its candidate lists, in the JAX package's order (candidate order feeds
     selection): collected candidates (with fusion search: chains over
@@ -336,7 +346,9 @@ def candidates_for_mate(fm, m: MateState, events, params, log,
     placements (which replace a read's list), then the bowtie2-mode direct
     gapped candidates, then the FR/RF fusion candidates (fusion search) or
     default-mode chains for the reads still unresolved (otherwise).
-    `paired` admits the pair-only short-anchor candidates."""
+    `paired` admits the pair-only short-anchor candidates;
+    chain_default=False leaves the default-mode chains to the caller (the
+    grouped pipeline, which knows the global resolved-read set)."""
     max_nseg = int(m.gs.nseg.max()) if m.gs.rows else 1
     realign_mm = params.segment_mismatches * max_nseg
     if m.gs.rows and len(events["left"]):
@@ -385,7 +397,7 @@ def candidates_for_mate(fm, m: MateState, events, params, log,
         _gapped_candidates(m, events, log)
     if fusion:
         _fr_candidates(m, fr_results, log)
-    if not params.fusion_search:
+    if chain_default and not params.fusion_search:
         default_chains(fm, m, events, params, log)
 
 
@@ -442,16 +454,19 @@ def _gapped_candidates(m: MateState, events, log) -> None:
         log(f"bowtie2 direct candidates: {nb2}")
 
 
-def default_chains(fm, m: MateState, events, params, log) -> None:
+def default_chains(fm, m: MateState, events, params, log,
+                   resolved=None) -> None:
     """Multi-event chains for the default (non-fusion) mode: a read crossing
     >= 2 events has no contiguous or single-event placement, so it is still
     unresolved after collect_candidates. Chains are stitched for exactly
     those reads' genome-space rows (resolved reads would only get chains
-    that lose selection)."""
+    that lose selection). `resolved` overrides the resolved-read set (the
+    grouped pipeline passes the global one)."""
     if not (m.gs is not None and m.gs.rows and len(events["left"])
             and m.seg_tables is not None):
         return
-    resolved = [r for r, cl in m.cands.items() if cl]
+    if resolved is None:
+        resolved = [r for r, cl in m.cands.items() if cl]
     unresolved = ~np.isin(m.gs.read_idx, list(resolved))
     rows_sel = np.nonzero(unresolved & (m.gs.read_idx >= 0)
                           & (m.gs.nseg >= 2))[0]

@@ -20,13 +20,12 @@ from __future__ import annotations
 
 import dataclasses
 import os
-import zipfile
 from typing import Dict, List, Tuple
 
 import numpy as np
 
 from tophat_tpu_torch.index.fasta import Genome
-from tophat_tpu_torch.index.fm import FMIndex, build_fm_index
+from tophat_tpu_torch.index.fm import STALE_INDEX, FMIndex, build_fm_index
 from tophat_tpu_torch.io.gtf import (Transcript, _ordered_transcripts,
                                      trans_to_genomic, transcript_sequence)
 from tophat_tpu_torch.ops.align import (align_reads_adaptive, kmer_fast_ok,
@@ -34,10 +33,6 @@ from tophat_tpu_torch.ops.align import (align_reads_adaptive, kmer_fast_ok,
 from tophat_tpu_torch.ops.splice import KIND_JUNCTION
 from tophat_tpu_torch.pipeline.report import Candidate
 from tophat_tpu_torch.utils.device import resolve_device
-
-# what a stale or corrupt saved index raises on load; anything else (a
-# CUDA error while the tables upload, a bad device) propagates
-_STALE_INDEX = (OSError, ValueError, KeyError, zipfile.BadZipFile)
 
 
 @dataclasses.dataclass
@@ -75,7 +70,7 @@ def build_transcriptome_index(genome: Genome, transcripts, prefix=None,
     if path and os.path.exists(path):
         try:
             fm = FMIndex.load(path, device=dev)
-        except _STALE_INDEX:
+        except STALE_INDEX:
             fm = None               # stale/corrupt file: rebuild below
         if fm is not None and fm.n == len(tgenome.codes):
             if log:
