@@ -80,9 +80,22 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      the projection to a 3.1 Gbp genome in 2 groups) and peak device
      memory; every realign call of these runs held against its plain
      version; fails under 100% junction-read recall
-Phases run in the order 1-10, 12, 11. Launches in the kernels line are
-summed over phases 4, 6, 8, 9, 10, 11 and 12 (each counted from 0 just
-before its timed run), max_abs_err over every check.
+ 13. the mesh path (parallel/) on the card: the CLI with its device list
+     replaced by cuda:0 repeated (one process drives every shard; the
+     CPU tests repeat the CPU device the same way). (a) phase 6's timed
+     run on a reads axis of 4 x cuda:0 (the realign kernel once per row
+     shard and q-group), with stage seconds, pairs/s, every realign
+     call's R and peak device memory; (b) 8,192 single-end reads without
+     the coverage search over the phase-4 index range-sharded in 2
+     (TOPHAT_TPU_GENOME_SHARDS=2, a 2 x 2 mesh), with the sub-index build
+     seconds and bytes. Both must write their one-device run's files
+     (phase 6's for (a)); every realign call of both is held against its
+     plain version on up to 2,048 of its rows; fails on a byte
+     difference, under 100% junction-read recall or with no sparse
+     realign launch
+Phases run in the order 1-10, 12, 11, 13. Launches in the kernels line
+are summed over phases 4, 6, 8, 9, 10, 11, 12 and 13 (each counted from 0
+just before its timed run), max_abs_err over every check.
 Standard output ends with four lines: the measured numbers (JSON), the
 kernels (JSON), the nvidia-smi name/power line, and the result JSON.
 """
@@ -2307,6 +2320,189 @@ def phase_fusion_gtf(codes, juncs, index):
                 stage_calls=clock.calls)
 
 
+# --------------------------------------------------------------- phase 13
+
+MESH_SHARDS = 4             # (a): a reads axis of 4 x cuda:0
+MESH_DEVICE = "cuda:0"      # the device every shard of the mesh runs on
+MESH_SE_READS = 8192        # (b): single-end reads over the sharded index
+MESH_GENOME_SHARDS = 2      # (b): a 2 (reads) x 2 (genome) mesh
+
+
+def same_files(a, b, what: str):
+    for f in ("accepted_hits.sam", "junctions.bed", "insertions.bed",
+              "deletions.bed", "align_summary.txt"):
+        with open(os.path.join(a, f), "rb") as x, \
+                open(os.path.join(b, f), "rb") as y:
+            if x.read() != y.read():
+                fail(f"{what}: {f} differs from the one-device run")
+
+
+def phase_mesh(codes, juncs, index):
+    """The mesh path (parallel/) on the card, through the CLI with its
+    device list replaced (parallel.mesh.visible_devices returns cuda:0
+    repeated, as the CPU tests repeat the CPU device): (a) phase 6's
+    timed run (paired default mode, 32,768 pairs, the phase-4 genome and
+    index) on a reads axis of 4 x cuda:0, with stage seconds, pairs/s,
+    every realign call's R and peak device memory; (b) 8,192 single-end
+    reads without the coverage search over the index range-sharded in 2
+    (TOPHAT_TPU_GENOME_SHARDS=2: a 2 x 2 mesh), with the sub-index build
+    seconds and bytes. Each must write the files of its one-device run
+    (for (a), phase 6's). Every realign call of both runs is kept and then
+    held against its plain version on up to 2,048 of its rows. Fails on a
+    byte difference, under 100% junction-read recall, or if a run
+    launched no sparse realign kernel."""
+    import torch
+
+    from tophat_tpu_torch.cli import main as cli_mod
+    from tophat_tpu_torch.index.fm import FMIndex
+    from tophat_tpu_torch.ops import events
+    from tophat_tpu_torch.parallel import auto, shard_fm
+    from tophat_tpu_torch.parallel import mesh as mesh_mod
+    from tophat_tpu_torch.pipeline import paired as paired_mod
+    from tophat_tpu_torch.pipeline import run as run_mod
+
+    t_phase = time.time()
+    fa = os.path.join(CACHE, "genome_2p27.fa")
+    card = torch.device(MESH_DEVICE)
+    visible = mesh_mod.visible_devices
+    mesh_mod.visible_devices = lambda device: [card] * MESH_SHARDS
+    kept, res = [], {}
+    try:
+        # (a) phase 6's timed run on 4 row shards
+        clock = StageClock()
+        clock.wrap(cli_mod, "read_fasta", "read_fasta")
+        clock.wrap(FMIndex, "load", "FMIndex.load")
+        clock.wrap(paired_mod, "_map_mate",
+                   "map (prep, full-read align, segments, stitch)")
+        clock.wrap(paired_mod, "discover_events", "discovery")
+        clock.wrap(run_mod, "coverage_search_events", "coverage search")
+        clock.wrap(paired_mod, "candidates_for_mate",
+                   "candidates (realign, collect, chains)")
+        clock.wrap(run_mod, "realign_events_sparse",
+                   "  of which realign, sparse")
+        out = os.path.join(CACHE, "mesh_pairs_out")
+        reads = [os.path.join(CACHE, f"pairs_steady_{k}.fq") for k in (1, 2)]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        realign_launches(reset=True)
+        t0 = time.time()
+        try:
+            with RealignHooks(events, keep_calls(kept)):
+                cli_main_checked(cli_mod.main, ["-o", out, "--tt-index",
+                                                index, fa] + reads)
+            torch.cuda.synchronize()
+            wall = time.time() - t0
+            launches_a = realign_launches()
+        finally:
+            clock.restore()
+        peak = torch.cuda.max_memory_allocated()
+        calls_a = [realign_call_shape(kind, args) for kind, args, _ in kept]
+        if auto.active() is not None:
+            fail("the CLI left a mesh active")
+        same_files(out, os.path.join(CACHE, "pairs_out_steady"),
+                   "mesh run (a)")
+        recall_a = junction_recall(os.path.join(out, "accepted_hits.sam"),
+                                   N_PAIRS, prefix="p", flag_bit=0x40)
+        stages = dict(clock.seconds)
+        top = sum(v for k, v in stages.items() if not k.startswith(" "))
+        stages["rest (FASTQ parse, selection, output)"] = wall - top
+        res["a"] = dict(wall_s=wall, pairs_per_s=N_PAIRS / wall,
+                        recall_pct=recall_a, launches=launches_a,
+                        realign_calls=calls_a, peak_device_bytes=peak,
+                        stages=stages, stage_calls=clock.calls)
+        log(f"mesh (a), {MESH_SHARDS} x cuda:0: {wall:.2f} s, "
+            f"{N_PAIRS / wall:.1f} pairs/s; realign launches {launches_a} "
+            f"(dense, sparse); peak device memory {peak / 2**30:.3f} GiB; "
+            f"files identical to phase 6's one-device run; recall (mate 1) "
+            f"{recall_a:.2f}%")
+        for k, v in stages.items():
+            log(f"  stage {k}: {v:.3f} s" + calls_note(clock.calls.get(k)))
+        log("  realign calls: " + ", ".join(calls_a))
+
+        # (b) single-end over the range-sharded index, 2 x 2
+        se_fq = os.path.join(CACHE, "mesh_se.fq")
+        write_fastq(se_fq, make_reads(codes, juncs, 81, MESH_SE_READS))
+        argv = lambda out: ["-o", out, "--no-coverage-search", "--tt-index",
+                            index, fa, se_fq]
+        one = os.path.join(CACHE, "mesh_se_one")
+        mesh_mod.visible_devices = visible
+        cli_main_checked(cli_mod.main, argv(one))
+        mesh_mod.visible_devices = lambda device: [card] * MESH_SHARDS
+        built = []
+        build = shard_fm.build_sharded_fm
+
+        def build_timed(*a, **k):
+            t1 = time.time()
+            out = build(*a, **k)
+            built.append((out[0], time.time() - t1))
+            return out
+
+        shard_fm.build_sharded_fm = build_timed
+        saved = os.environ.get("TOPHAT_TPU_GENOME_SHARDS")
+        os.environ["TOPHAT_TPU_GENOME_SHARDS"] = str(MESH_GENOME_SHARDS)
+        n_kept = len(kept)
+        realign_launches(reset=True)
+        t0 = time.time()
+        try:
+            with RealignHooks(events, keep_calls(kept)):
+                cli_main_checked(cli_mod.main,
+                                 argv(os.path.join(CACHE, "mesh_se_gs")))
+            torch.cuda.synchronize()
+            wall_b = time.time() - t0
+            launches_b = realign_launches()
+        finally:
+            shard_fm.build_sharded_fm = build
+            if saved is None:
+                os.environ.pop("TOPHAT_TPU_GENOME_SHARDS", None)
+            else:
+                os.environ["TOPHAT_TPU_GENOME_SHARDS"] = saved
+        if not built:
+            fail("mesh run (b) did not range-shard the index")
+        subs, build_s = built[-1]
+        same_files(os.path.join(CACHE, "mesh_se_gs"), one, "mesh run (b)")
+        recall_b = junction_recall(os.path.join(CACHE, "mesh_se_gs",
+                                                "accepted_hits.sam"),
+                                   MESH_SE_READS)
+        calls_b = [realign_call_shape(kind, args)
+                   for kind, args, _ in kept[n_kept:]]
+        res["b"] = dict(wall_s=wall_b, build_s=build_s,
+                        sub_index_bytes=[x.nbytes for x in subs],
+                        sub_index_bases=[x.n for x in subs],
+                        recall_pct=recall_b, launches=launches_b,
+                        realign_calls=calls_b)
+        log(f"mesh (b), {MESH_GENOME_SHARDS} x {MESH_GENOME_SHARDS}: "
+            f"{wall_b:.2f} s (sub-index build {build_s:.1f} s); sub-indexes "
+            + ", ".join(f"{x.n} bases / {x.nbytes / 2**30:.3f} GiB"
+                        for x in subs)
+            + f"; realign launches {launches_b} (dense, sparse); files "
+            f"identical to the one-index run; recall {recall_b:.2f}%")
+        log("  realign calls: " + ", ".join(calls_b))
+    finally:
+        mesh_mod.visible_devices = visible
+        auto.deactivate()
+
+    held = PathCheck(max_rows=HOLD_MAX_ROWS)
+    t0 = time.time()
+    for kind, args, got in kept:
+        held(kind, args, got)
+    log(f"mesh: {len(kept)} realign calls held exact against the plain "
+        f"version ({time.time() - t0:.1f} s)")
+    del kept
+    for tag, launches, recall in (("a", launches_a, recall_a),
+                                  ("b", launches_b, recall_b)):
+        if launches[1] == 0:
+            fail(f"mesh run ({tag}) never launched the sparse realign "
+                 "kernel")
+        if recall < 100.0:
+            fail(f"mesh run ({tag}): junction-read recall {recall:.2f}% "
+                 "< 100%")
+    phase_s = time.time() - t_phase
+    log(f"mesh: phase 13 took {phase_s:.1f} s")
+    return dict(res, launches=tuple(x + y for x, y in zip(launches_a,
+                                                          launches_b)),
+                path_err=held.err, phase_s=phase_s)
+
+
 def main():
     try:
         import torch
@@ -2347,8 +2543,9 @@ def main():
                                   spliced["index"])
     grouped = phase_grouped(spliced["codes"], spliced["juncs"],
                             spliced["index"])
+    mesh = phase_mesh(spliced["codes"], spliced["juncs"], spliced["index"])
     path_phases = (spliced, paired, annotated, bowtie2, fusion, fusion_gtf,
-                   grouped)
+                   grouped, mesh)
     log(f"smoke phases done in {time.time() - t_start:.1f} s")
 
     print(json.dumps({
@@ -2360,7 +2557,7 @@ def main():
         "paired": {k: v for k, v in paired.items() if k != "realign_calls"},
         "annotated": annotated, "bowtie2": bowtie2,
         "small_fusion": small_fusion, "fusion": fusion,
-        "fusion_gtf": fusion_gtf, "grouped": grouped,
+        "fusion_gtf": fusion_gtf, "grouped": grouped, "mesh": mesh,
         "seconds": time.time() - t_start}), flush=True)
     main_case = next(k for k in kernels if (k["R"], k["E"], k["L"], k["q"])
                      == (8192, 69, 100, 0))     # the main path's shape

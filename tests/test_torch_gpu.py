@@ -5,7 +5,8 @@ JAX: python -m pytest tests/test_torch_gpu.py -m gpu --noconftest -q
 (conftest.py imports JAX). The realign kernel is held against its plain
 torch version, and the whole single-end and paired-end pipelines (fusion
 search, tophat-fusion-post and the contig-group index included) on the
-card against the same pipelines on the CPU, byte for byte."""
+card against the same pipelines on the CPU, byte for byte; on a mesh of
+repeated cuda:0 devices, the sharded stages against the one-device run."""
 
 import numpy as np
 import pytest
@@ -382,3 +383,179 @@ def test_chain_segment_hits_on_card_match_dense_plain(cuda):
     assert chains.chain_stitch(card, gs, tables, events, params,
                                seg_hits=got) == \
         chains.chain_stitch(fm, gs, tables, events, params, seg_hits=want)
+
+
+def _event_table(genome, R, L, seed=4, E=48):
+    """Junction, deletion and insertion events on `genome` and R rows, every
+    other one planted across an event, the last two zero-length."""
+    rng = np.random.default_rng(seed)
+    n = genome.shape[0]
+    kinds = rng.choice([0, 1, 2], E).astype(np.int8)
+    lefts = rng.integers(L, n - 2 * L - 400, E).astype(np.int32)
+    rights = np.where(kinds == 2, lefts + 1,
+                      lefts + rng.integers(5, 300, E)).astype(np.int32)
+    ins_len = np.where(kinds == 2, rng.integers(1, 4, E), 0).astype(np.int8)
+    ins_seq = np.full((E, 8), -1, np.int8)
+    for i in np.nonzero(kinds == 2)[0]:
+        ins_seq[i, :ins_len[i]] = rng.integers(0, 4, ins_len[i])
+    ev = dict(left=lefts, right=rights, kind=kinds, ins_len=ins_len,
+              ins_seq=ins_seq, antisense=np.zeros(E, bool),
+              valid=rng.random(E) < 0.9)
+    reads = rng.integers(0, 4, (R, L)).astype(np.int8)
+    lengths = np.full(R, L, np.int32)
+    for i in range(0, R, 2):
+        e = int(rng.integers(0, E))
+        q = int(ins_len[e])
+        t = int(rng.integers(2, L - 2 - q))
+        st = lefts[e] + 1 if kinds[e] == 2 else rights[e]
+        reads[i] = np.concatenate([genome[lefts[e] - t + 1: lefts[e] + 1],
+                                   ins_seq[e, :q],
+                                   genome[st: st + L - t - q]])
+    lengths[-2:] = 0
+    return reads, lengths, ev
+
+
+@pytest.mark.gpu
+def test_mesh_on_card_matches_one_device(cuda, monkeypatch):
+    """On a mesh of 4 x cuda:0 (as chip_smoke.py builds it): both tiers of
+    the full-read aligner, the beam segment engine and the realign
+    kernel's dense and sparse entries (one launch per row shard and
+    q-group) equal the one-device run on the card; so do the aligner and
+    the beam engine over the range-sharded index on a 2 x 2 mesh."""
+    from tophat_tpu_torch.index.fasta import Genome
+    from tophat_tpu_torch.index.fm import build_fm_index, default_kmer_k
+    from tophat_tpu_torch.ops import events
+    from tophat_tpu_torch.ops.align import align_reads_adaptive, pad_reads
+    from tophat_tpu_torch.ops.beam import beam_align_rows
+    from tophat_tpu_torch.ops.realign_kernel import realign_group_sparse
+    from tophat_tpu_torch.parallel import auto
+    from tophat_tpu_torch.parallel.mesh import make_mesh
+
+    n = (1 << 21) + 4096
+    codes, recs = _workload(n)
+    genome = Genome(codes=codes, offsets=np.array([0, n]), names=["chrA"])
+    fm = build_fm_index(genome, kmer_k=default_kmer_k(n), device=cuda)
+    rf, rr, lens = pad_reads([np.array(["ACGTN".index(c) for c in s],
+                                       np.int8) for _, s, _ in recs])
+    rows = np.ascontiguousarray(rf[:, 30:55])
+    rlens = np.full(len(rows), 25, np.int32)
+    reads, lengths, ev = _event_table(codes, 103, 100)
+    g = fm.genome
+    offs = genome.offsets
+
+    def run():
+        al = align_reads_adaptive(fm, rf, rr, lens, offs)
+        return ([getattr(al, f).cpu() for f in ("pos", "strand", "mm",
+                                                 "valid", "n_hits",
+                                                 "truncated")]
+                + [x.cpu() for x in beam_align_rows(
+                    fm, rows, rlens, offs, max_mismatches=2, max_hits=16)])
+
+    want = run()
+    want_r = (events.realign_events(g, reads, lengths, ev, 2),
+              events.realign_events_sparse(g, reads, lengths, ev, 2))
+    groups = len(np.unique(np.where(ev["kind"] == 2, ev["ins_len"], 0)))
+    try:
+        auto.activate(make_mesh(4, 1, [cuda] * 4))
+        got = run()
+        before = realign_group_sparse.launches
+        got_r = (events.realign_events(g, reads, lengths, ev, 2),
+                 events.realign_events_sparse(g, reads, lengths, ev, 2))
+        assert realign_group_sparse.launches == before + 4 * groups
+        monkeypatch.setenv("TOPHAT_TPU_GENOME_SHARDS", "2")
+        auto.configure_genome_axis(fm, genome, 100)
+        assert auto.genome_sharded(fm)
+        got_g = run()
+    finally:
+        auto.deactivate()
+    for a, b in zip(want, got):
+        assert torch.equal(a, b)
+    # the range-sharded merge fills a table's invalid slots as JAX's
+    # make_sharded_align does, so those compare where valid
+    keep = lambda al: [torch.where(al[3], x, 0) for x in al[:3]] + al[3:]
+    for a, c in zip(keep(want), keep(got_g)):
+        assert torch.equal(a, c)
+    for a, b in zip(want_r, got_r):
+        for x, y in zip(a, b):
+            assert np.array_equal(x, y)
+    assert want[3].any(1).float().mean() > 0.4 and len(want_r[1][0]) > 20
+
+
+def _repeat_problem(n_rep, B=64, L=25, copies=40):
+    """A beam genome holding 40 copies of one 60-bp unit, and rows whose
+    first n_rep are cut from the unit (each placed at every copy), the
+    rest placed once: the repeat rows fill the batch's flat lane cap."""
+    from tophat_tpu_torch.pipeline.segment import BEAM_MIN_N
+
+    rng = np.random.default_rng(7)
+    N = BEAM_MIN_N + 1024
+    codes = rng.integers(0, 4, N).astype(np.int8)
+    unit = rng.integers(0, 4, 60).astype(np.int8)
+    for p in rng.choice(N // 80 - 1, copies, replace=False) * 80:
+        codes[p:p + 60] = unit
+    rows = np.zeros((B, L), np.int8)
+    for b in range(B):
+        if b < n_rep:
+            o = int(rng.integers(0, 60 - L))
+            rows[b] = unit[o:o + L]
+        else:
+            p = int(rng.integers(100, N - 100))
+            rows[b] = codes[p:p + L]
+    return codes, rows
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n_rep", [8, 48])
+def test_mesh_beam_keeps_the_batch_lane_cap_on_card(cuda, n_rep):
+    """Repeat rows that fill the beam's whole-batch lane cap (a cap sized
+    to one shard's rows would cut them differently): on 4 x cuda:0 the
+    tables equal the one-device run on the card."""
+    from tophat_tpu_torch.index.fm import build_fm_index, default_kmer_k
+    from tophat_tpu_torch.ops.beam import beam_align_rows
+    from tophat_tpu_torch.parallel import auto
+    from tophat_tpu_torch.parallel.mesh import make_mesh
+
+    codes, rows = _repeat_problem(n_rep)
+    N = codes.shape[0]
+    fm = build_fm_index(codes, kmer_k=default_kmer_k(N), device=cuda)
+    offsets = np.array([0, N], np.int32)
+    lens = np.full(len(rows), rows.shape[1], np.int32)
+    kw = dict(max_mismatches=2, max_hits=16)
+    want = beam_align_rows(fm, rows, lens, offsets, **kw)
+    try:
+        auto.activate(make_mesh(4, 1, [cuda] * 4))
+        got = beam_align_rows(fm, rows, lens, offsets, **kw)
+    finally:
+        auto.deactivate()
+    for a, b in zip(want, got):
+        assert torch.equal(a, b)
+    assert want[4][:n_rep].all() and (want[3][:8] == 16).all()
+
+
+@pytest.mark.gpu
+def test_paired_cli_on_card_mesh_matches_one_device(cuda, tmp_path,
+                                                    monkeypatch):
+    """The paired CLI in TopHat's default mode on the card, with no mesh
+    and on 4 x cuda:0: identical files, and the mesh leaves no state."""
+    from test_torch_paired import _pairs  # numpy only at import time
+    from tophat_tpu_torch.cli.main import main
+    from tophat_tpu_torch.parallel import auto, mesh
+
+    codes, r1, r2 = _pairs(30000, seed=8)
+    fa = tmp_path / "g.fa"
+    fa.write_text(">chrA\n" + "".join("ACGTN"[c] for c in codes) + "\n")
+    fqs = []
+    for i, recs in enumerate((r1, r2)):
+        fq = tmp_path / f"r{i + 1}.fq"
+        fq.write_text("".join(f"@{nm}/{i + 1}\n{s}\n+\n{q.decode()}\n"
+                              for nm, s, q in recs))
+        fqs.append(str(fq))
+    args = ["--batch-size", "40", str(fa)] + fqs
+    assert main(["-o", str(tmp_path / "one")] + args) == 0
+    monkeypatch.setattr(mesh, "visible_devices", lambda d: [cuda] * 4)
+    assert main(["-o", str(tmp_path / "mesh")] + args) == 0
+    assert auto.active() is None
+    for f in ("accepted_hits.sam", "junctions.bed", "insertions.bed",
+              "deletions.bed", "align_summary.txt"):
+        assert (tmp_path / "one" / f).read_bytes() == \
+            (tmp_path / "mesh" / f).read_bytes(), f

@@ -1,7 +1,8 @@
 """Guards of the port: it never imports JAX or the JAX package, it never
 falls back to the CPU on its own, the modes ported last (fusion search,
-the grouped index) run, and a saved index's load swallows only the errors
-of a stale file."""
+the grouped index) run, a saved index's load swallows only the errors
+of a stale file, and a mesh neither hides a shard's error nor outlives
+the CLI run that made it."""
 
 import os
 import subprocess
@@ -35,7 +36,8 @@ def test_port_imports_neither_jax_nor_tophat_tpu():
     n, names, bad = out.stdout.strip().split(" ", 2)
     assert int(n) >= 25 and bad == "[]", out.stdout
     for mod in ("ops.fusion_fr", "pipeline.fusion_stats", "cli.fusion_post",
-                "index.grouped", "pipeline.grouped"):
+                "index.grouped", "pipeline.grouped", "parallel.mesh",
+                "parallel.auto", "parallel.shard_fm", "parallel.dist"):
         assert f"tophat_tpu_torch.{mod}" in names.split(","), mod
 
 
@@ -111,7 +113,7 @@ def _two_contigs():
 
 @pytest.mark.parametrize("flags,item", [
     (["--max-index-bases", "1000"], "grouped index")])
-def test_unported_cli_modes_raise(tmp_path, flags, item):
+def test_grouped_cli_mode_runs(tmp_path, flags, item):
     """The CLI modes once left unported now run: a genome over
     --max-index-bases maps through the contig groups (paired here)."""
     from tophat_tpu_torch.cli.main import main
@@ -134,7 +136,7 @@ def test_unported_cli_modes_raise(tmp_path, flags, item):
 
 
 @pytest.mark.parametrize("what", ["gfm"])
-def test_paired_unported_modes_raise(tmp_path, what):
+def test_paired_grouped_mode_runs(tmp_path, what):
     """The paired pipeline, once refusing the grouped index, maps through
     it: a read on the second group's contig lands there."""
     from tophat_tpu_torch.index.grouped import build_grouped_fm
@@ -276,3 +278,80 @@ def test_index_entry_points_default_to_cuda(tmp_path, monkeypatch, entry):
         call()
     with pytest.raises(RuntimeError, match="is_available"):
         call(device="cuda")
+
+
+def test_auto_activate_cuda_without_cuda_raises(monkeypatch):
+    from tophat_tpu_torch.parallel import auto
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="is_available"):
+        auto.auto_activate("cuda")
+    assert auto.active() is None
+    auto.auto_activate("cpu")                 # one CPU device: no mesh
+    assert auto.active() is None
+
+
+def test_shard_error_propagates(monkeypatch):
+    """An error in one row shard reaches align_reads' caller: no shard is
+    rerun on one device, and the mesh's other shards do not mask it."""
+    from tophat_tpu_torch.ops import align
+    from tophat_tpu_torch.parallel import auto
+    from tophat_tpu_torch.parallel.mesh import make_mesh
+
+    genome, batch = _tiny()
+    from tophat_tpu_torch.index.fm import build_fm_index
+
+    fm = build_fm_index(genome, device="cpu")
+    rf, rr, lens = align.pad_reads([genome.codes[100 + i:150 + i]
+                                    for i in range(10)])
+    core = align._align_batch_core
+    calls = []
+
+    def failing(fm, reads_f, *a, **k):
+        calls.append(reads_f.shape[0])
+        if len(calls) == 3:
+            raise RuntimeError("shard 2 failed")
+        return core(fm, reads_f, *a, **k)
+
+    monkeypatch.setattr(align, "_align_batch_core", failing)
+    auto.activate(make_mesh(4, 1, [torch.device("cpu")] * 4))
+    try:
+        with pytest.raises(RuntimeError, match="shard 2 failed"):
+            align.align_reads(fm, rf, rr, lens, genome.offsets)
+    finally:
+        auto.deactivate()
+    assert calls == [3, 3, 3]
+
+
+@pytest.mark.parametrize("outcome", ["returns", "raises"])
+def test_cli_leaves_no_mesh_active(tmp_path, monkeypatch, outcome):
+    from tophat_tpu_torch.cli import main as cli
+    from tophat_tpu_torch.parallel import auto, mesh
+
+    genome, _ = _tiny()
+    fa = tmp_path / "g.fa"
+    fa.write_text(">c\n" + "".join("ACGT"[c] for c in genome.codes) + "\n")
+    fq = tmp_path / "r.fq"
+    fq.write_text("@r0\n" + "".join("ACGT"[c] for c in genome.codes[100:150])
+                  + "\n+\n" + "I" * 50 + "\n")
+    monkeypatch.setattr(mesh, "visible_devices",
+                        lambda d: [torch.device("cpu")] * 2)
+    seen = []
+    real = cli.run_pipeline_streaming
+
+    def run(*a, **k):
+        seen.append(auto.n_row_shards())
+        if outcome == "raises":
+            raise RuntimeError("mapping failed")
+        return real(*a, **k)
+
+    monkeypatch.setattr(cli, "run_pipeline_streaming", run)
+    argv = ["-o", str(tmp_path / "out"), "--device", "cpu",
+            "--no-coverage-search", str(fa), str(fq)]
+    if outcome == "raises":
+        with pytest.raises(RuntimeError, match="mapping failed"):
+            cli.main(argv)
+    else:
+        assert cli.main(argv) == 0
+        assert "r0" in (tmp_path / "out" / "accepted_hits.sam").read_text()
+    assert seen == [2] and auto.active() is None

@@ -38,6 +38,7 @@ from tophat_tpu_torch.io.gtf import (gtf_junctions, parse_gtf,
 from tophat_tpu_torch.ops.events import MAX_INS
 from tophat_tpu_torch.ops.splice import (KIND_DELETION, KIND_INSERTION,
                                          KIND_JUNCTION)
+from tophat_tpu_torch.parallel import auto
 from tophat_tpu_torch.pipeline.colorspace import run_pipeline_color
 from tophat_tpu_torch.pipeline.grouped import run_pipeline_grouped
 from tophat_tpu_torch.pipeline.juncs import empty_events, merge_events
@@ -459,7 +460,17 @@ def main(argv=None, resume=False):
     out_dir = args.output_dir
     os.makedirs(out_dir, exist_ok=True)
     logger = StageLogger(out_dir, argv=argv or sys.argv[1:])
+    # a mesh over every visible card (parallel/auto.py); it must not leak
+    # into the next in-process run
+    auto.auto_activate(device, log=logger.log)
+    try:
+        return _run(args, params, device, resume, logger)
+    finally:
+        auto.deactivate()
 
+
+def _run(args, params, device, resume, logger):
+    out_dir = args.output_dir
     genome = read_fasta(resolve_genome_path(args.index))
 
     # whole-genome scale: beyond the int32-safe cap the genome partitions

@@ -109,6 +109,14 @@ class FMIndex:
     def device(self) -> torch.device:
         return self.genome.device
 
+    @property
+    def nbytes(self) -> int:
+        """Bytes of all table tensors — the per-device cost of replicating
+        this index (drives the range-sharding decision in
+        parallel/auto.configure_genome_axis)."""
+        return sum(getattr(self, k).numel() * getattr(self, k).element_size()
+                   for k in TABLES)
+
     def to(self, device) -> "FMIndex":
         return dataclasses.replace(
             self, **{k: getattr(self, k).to(device) for k in TABLES})

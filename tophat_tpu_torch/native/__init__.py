@@ -15,6 +15,7 @@ from __future__ import annotations
 import ctypes
 import os
 import subprocess
+import threading
 
 import numpy as np
 
@@ -30,9 +31,10 @@ def _build_and_load(name: str, extra_flags=()):
     if (not os.path.exists(so)
             or os.path.getmtime(so) < os.path.getmtime(src)):
         os.makedirs(_BUILD_DIR, exist_ok=True)
-        # build to a private name, then rename: concurrent builds
-        # (test workers) never load a half-written library
-        tmp = f"{so}.{os.getpid()}.tmp"
+        # build to a private name, then rename: concurrent builds (test
+        # workers, parallel/shard_fm's build threads) never load a
+        # half-written library
+        tmp = f"{so}.{os.getpid()}.{threading.get_ident()}.tmp"
         cmd = (["g++", "-O2", "-shared", "-fPIC", "-pthread",
                 "-std=c++17", src, "-o", tmp] + list(extra_flags))
         subprocess.run(cmd, check=True, capture_output=True)

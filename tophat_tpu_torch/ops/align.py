@@ -24,6 +24,7 @@ from tophat_tpu_torch.ops.rank import rank
 from tophat_tpu_torch.ops.search import backward_search, resolve_sa
 from tophat_tpu_torch.ops.verify import (count_mismatches_packed, pack_reads,
                                          same_contig)
+from tophat_tpu_torch.parallel import auto
 
 NEG = 2 ** 30   # sentinel candidate offset for invalid seed lanes
 
@@ -286,26 +287,35 @@ def _as_device(fm, *arrays):
     return tuple(torch.as_tensor(a, device=fm.device) for a in arrays)
 
 
+def _align_local(fm, reads_f, reads_r, lengths, offsets, **kw):
+    reads_f, reads_r, lengths, offsets = _as_device(
+        fm, reads_f, reads_r, lengths, offsets)
+    return _align_batch_core(fm, reads_f, reads_r, lengths.long(), offsets,
+                             **kw)
+
+
 def align_reads(fm, reads_f, reads_r, lengths, offsets, *,
                 max_mismatches: int = 2, hits_per_seed: int = 32,
                 max_alignments: int = 64, kmer_fast: bool = False,
                 resolve_cap: int = 0) -> Alignments:
-    """Both-strand alignment of a batch (see _align_batch_core)."""
-    reads_f, reads_r, lengths, offsets = _as_device(
-        fm, reads_f, reads_r, lengths, offsets)
-    return _align_batch_core(
-        fm, reads_f, reads_r, lengths.long(), offsets,
-        max_mismatches=max_mismatches, hits_per_seed=hits_per_seed,
-        max_alignments=max_alignments, kmer_fast=kmer_fast,
-        resolve_cap=resolve_cap)
+    """Both-strand alignment of a batch (see _align_batch_core). With an
+    active mesh (parallel/auto.py) the rows shard over its reads axis,
+    each shard aligned on its device against the index placed there, or
+    against the range-sharded index (parallel/shard_fm.py) when the mesh
+    has a genome axis for `fm`."""
+    kw = dict(max_mismatches=max_mismatches, hits_per_seed=hits_per_seed,
+              max_alignments=max_alignments, kmer_fast=kmer_fast,
+              resolve_cap=resolve_cap)
+    return auto.by_rows(
+        lambda dev, *r: _align_local(auto.replicated(fm, dev), *r, offsets,
+                                     **kw),
+        reads_f, reads_r, lengths, fm=fm,
+        sharded=lambda: auto.sharded_align(reads_f, reads_r, lengths,
+                                           offsets, **kw))
 
 
-def align_forward_rows(fm, reads, lengths, offsets, *, max_mismatches: int,
-                       hits_per_seed: int, max_hits: int):
-    """Forward-text-only variant for rows already in genome space (segment
-    mapping: the caller supplies revcomp rows itself). Returns
-    (pos, mm, valid) compacted to (N, max_hits) plus n_hits and
-    truncation."""
+def _align_forward_local(fm, reads, lengths, offsets, *, max_mismatches: int,
+                         hits_per_seed: int, max_hits: int):
     reads, lengths, offsets = _as_device(fm, reads, lengths, offsets)
     lengths = lengths.long()
     cand, mm, valid, trunc = _align_one_strand(
@@ -317,6 +327,40 @@ def align_forward_rows(fm, reads, lengths, offsets, *, max_mismatches: int,
     return pos_s.int(), mm_s.to(torch.int8), valid_s, n_hits, trunc
 
 
+def align_forward_rows(fm, reads, lengths, offsets, *, max_mismatches: int,
+                       hits_per_seed: int, max_hits: int):
+    """Forward-text-only variant for rows already in genome space (segment
+    mapping: the caller supplies revcomp rows itself). Returns
+    (pos, mm, valid) compacted to (N, max_hits) plus n_hits and
+    truncation. Row-sharded over the active mesh, if any."""
+    kw = dict(max_mismatches=max_mismatches, hits_per_seed=hits_per_seed,
+              max_hits=max_hits)
+    return auto.by_rows(
+        lambda dev, *r: _align_forward_local(auto.replicated(fm, dev), *r,
+                                             offsets, **kw),
+        reads, lengths, fm=fm,
+        sharded=lambda: auto.sharded_align_rows(reads, lengths, offsets,
+                                                **kw))
+
+
+def _adaptive(align, fm, reads_f, reads_r, lengths, offsets, *,
+              narrow_hits: int, wide_hits: int, resolve_cap: int, **kw):
+    """The two tiers through `align` (one device's, or the range-sharded
+    index's align_reads)."""
+    reads_f, reads_r, lengths, offsets = _as_device(
+        fm, reads_f, reads_r, lengths, offsets)
+    al = align(fm, reads_f, reads_r, lengths, offsets,
+               hits_per_seed=narrow_hits, resolve_cap=resolve_cap, **kw)
+    idx = torch.nonzero(al.truncated).reshape(-1)
+    if idx.numel() == 0:
+        return al
+    wide = align(fm, reads_f[idx], reads_r[idx], lengths[idx], offsets,
+                 hits_per_seed=wide_hits, resolve_cap=0, **kw)
+    for f in ("pos", "strand", "mm", "valid", "n_hits", "truncated"):
+        getattr(al, f)[idx] = getattr(wide, f).to(al.pos.device)
+    return al
+
+
 def align_reads_adaptive(fm, reads_f, reads_r, lengths, offsets, *,
                          max_mismatches: int = 2, max_alignments: int = 64,
                          kmer_fast: bool = False, narrow_hits: int = 8,
@@ -326,23 +370,18 @@ def align_reads_adaptive(fm, reads_f, reads_r, lengths, offsets, *,
     the batch, then an uncompacted wide re-run of only the rows whose seeds
     truncated or whose lanes overflowed the cap. Equals align_reads with
     hits_per_seed=wide_hits on every truncated read, at close to
-    narrow-budget cost. The result stays on the device."""
-    reads_f, reads_r, lengths, offsets = _as_device(
-        fm, reads_f, reads_r, lengths, offsets)
-    lengths = lengths.long()
+    narrow-budget cost. The result stays on the device. With an active
+    mesh each reads shard runs both tiers on its device; against a
+    range-sharded index both tiers search the sub-indexes."""
     kw = dict(max_mismatches=max_mismatches, max_alignments=max_alignments,
-              kmer_fast=kmer_fast)
-    al = _align_batch_core(fm, reads_f, reads_r, lengths, offsets,
-                           hits_per_seed=narrow_hits,
-                           resolve_cap=resolve_cap, **kw)
-    idx = torch.nonzero(al.truncated).reshape(-1)
-    if idx.numel() == 0:
-        return al
-    wide = align_reads(fm, reads_f[idx], reads_r[idx], lengths[idx],
-                       offsets, hits_per_seed=wide_hits, **kw)
-    for f in ("pos", "strand", "mm", "valid", "n_hits", "truncated"):
-        getattr(al, f)[idx] = getattr(wide, f)
-    return al
+              kmer_fast=kmer_fast, narrow_hits=narrow_hits,
+              wide_hits=wide_hits, resolve_cap=resolve_cap)
+    return auto.by_rows(
+        lambda dev, *r: _adaptive(_align_local, auto.replicated(fm, dev), *r,
+                                  offsets, **kw),
+        reads_f, reads_r, lengths, fm=fm,
+        sharded=lambda: _adaptive(align_reads, fm, reads_f, reads_r,
+                                  lengths, offsets, **kw))
 
 
 def pack_alignments(al: Alignments, cap: int):

@@ -20,6 +20,7 @@ import torch
 from tophat_tpu_torch.ops.search import backward_search, resolve_sa
 from tophat_tpu_torch.ops.verify import (count_mismatches_packed, pack_reads,
                                          same_contig)
+from tophat_tpu_torch.parallel import auto
 
 MIN_BEAM_LEN = 10   # shortest row the half-split handles sensibly
 
@@ -170,9 +171,17 @@ def _variant_intervals(fm, rows, lengths, h, seg_ok, *, K: int, nsw: int,
 def _beam_core(fm, rows, lengths, offsets, *, n_steps: int, max_mm: int,
                max_hits: int, cap_s: int, cap_p: int, cap_v: int,
                spc: int, split_pair: bool, nsw: int, h_max: int,
-               pa_cap: int, pb_cap: int):
+               pa_cap: int, pb_cap: int, owned_width: int = 0,
+               flat_out: bool = False, flat_cap: int = 0):
     """The whole search; see module docstring. Returns (pos, mm, valid,
-    n_hits, truncated) with (B, max_hits) tables."""
+    n_hits, truncated) with (B, max_hits) tables.
+
+    owned_width > 0 (range-sharded index, parallel/shard_fm.py):
+    candidates starting at or past it are dropped before packing.
+    flat_out: return the flat (seg, pos, mm) lanes before packing and the
+    truncation flags, so the sharded caller merges shards first.
+    flat_cap > 0: keep that many verified lanes instead of
+    B * max(8, max_hits) (a reads shard keeps the whole batch's cap)."""
     B, L = rows.shape
     dev = rows.device
     h = lengths // 2
@@ -247,13 +256,17 @@ def _beam_core(fm, rows, lengths, offsets, *, n_steps: int, max_mm: int,
           & (pos + lengths[:, None] <= fm.n))
     if offsets.shape[0] > 2:    # multi-contig: reject boundary-crossers
         ok &= same_contig(offsets, pos, lengths[:, None])
+    if owned_width:
+        ok &= pos < owned_width
 
-    K2 = B * max(8, max_hits)
+    K2 = flat_cap or B * max(8, max_hits)
     segf = torch.arange(B, device=dev)[:, None].expand(B, spc).reshape(-1)
     (f_seg, f_pos, f_mm), dropped2 = _compact(
         ok.reshape(-1), K2,
         [(segf, B), (pos.reshape(-1), 2 ** 30), (mm.reshape(-1), 0)])
     trunc |= dropped2.reshape(B, spc).any(dim=1)
+    if flat_out:
+        return f_seg, f_pos, f_mm, trunc
 
     pos_t, mm_t, val_t, n_hits = _pack_rows(f_seg, f_pos, f_mm, B,
                                             max_hits)
@@ -305,12 +318,55 @@ def beam_plan(fm, L: int, lengths_np, max_mismatches: int):
 def beam_align_rows(fm, rows, lengths, offsets, *, max_mismatches: int,
                     max_hits: int):
     """Drop-in for ops.align.align_forward_rows on short rows, with full
-    bowtie1 -v mismatch sensitivity at any genome size."""
+    bowtie1 -v mismatch sensitivity at any genome size. The plan comes from
+    the whole batch; with an active mesh the rows shard over its reads
+    axis, or search the range-sharded index (parallel/shard_fm.py).
+
+    The verified lanes the batch keeps are the first B * max(8, max_hits)
+    in row order. A reads shard keeps at most that many of its own and
+    returns only those, flat; merge applies the cap once over the shards
+    in row order, so a mesh keeps the lanes of the one-device run however
+    a repeat-heavy batch falls across the shards."""
     lengths_np = np.asarray(lengths, np.int32)
     B, L = rows.shape
     plan = beam_plan(fm, L, lengths_np, max_mismatches)
-    dev = fm.device
-    return _beam_core(fm, torch.as_tensor(rows, device=dev),
-                      torch.as_tensor(lengths_np, device=dev).long(),
-                      torch.as_tensor(offsets, device=dev).long(),
-                      max_hits=max_hits, **plan)
+    K2 = B * max(8, max_hits)
+
+    def local(dev, rows, lengths):
+        fm_d = auto.replicated(fm, dev)
+        d = fm_d.device
+        shard = {} if dev is None else dict(
+            flat_out=True, flat_cap=min(K2, rows.shape[0] * plan["spc"]))
+        out = _beam_core(fm_d, torch.as_tensor(rows, device=d),
+                         torch.as_tensor(lengths, device=d).long(),
+                         torch.as_tensor(offsets, device=d).long(),
+                         max_hits=max_hits, **plan, **shard)
+        if dev is None:
+            return out
+        f_seg, f_pos, f_mm, trunc = out
+        live = f_seg < rows.shape[0]      # the kept lanes lead, in order
+        return f_seg[live], f_pos[live], f_mm[live], trunc
+
+    def merge(flats, per, B):
+        home = flats[0][0].device
+        segs, poss, mms, truncs = [], [], [], []
+        for i, (f_seg, f_pos, f_mm, trunc) in enumerate(flats):
+            seg = f_seg.to(home) + i * per
+            segs.append(torch.where(seg < B, seg, B))     # pad rows
+            poss.append(f_pos.to(home))
+            mms.append(f_mm.to(home))
+            truncs.append(trunc.to(home))
+        seg = torch.cat(segs)
+        trunc = torch.cat(truncs)[:B]
+        (f_seg, f_pos, f_mm), dropped = _compact(
+            seg < B, K2, [(seg, B), (torch.cat(poss), 2 ** 30),
+                          (torch.cat(mms), 0)])
+        trunc[seg[dropped]] = True
+        pos_t, mm_t, val_t, n_hits = _pack_rows(f_seg, f_pos, f_mm, B,
+                                                max_hits)
+        return pos_t, mm_t, val_t, n_hits, trunc | (n_hits > max_hits)
+
+    return auto.by_rows(
+        local, rows, lengths_np, fm=fm, merge=merge,
+        sharded=lambda: auto.sharded_beam_rows(
+            rows, lengths_np, offsets, max_hits=max_hits, plan=plan))

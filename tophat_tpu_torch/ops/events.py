@@ -3,7 +3,11 @@
 Port of tophat_tpu/ops/events.py (the reference's juncs_db flank-FASTA ->
 bowtie -> rebase loop, src/juncs_db.cpp:109, src/bwt_map.cpp:885, as one
 batched device computation). Events are grouped by insertion length q and
-every group runs the realign kernel (ops/realign_kernel.py).
+every group runs the realign kernel (ops/realign_kernel.py); with an
+active mesh (parallel/auto.py) the kernel runs once per reads shard and
+q-group, so the mesh run computes what the one-device run computes (the
+JAX mesh path's conv formulation, realign_chunk, is not ported: it
+counts a read N over a genome N as a mismatch, the kernel as a match).
 
 Split semantics per kind:
   junction/deletion: read[0:t] ends at left; read[t:] starts at right
@@ -20,6 +24,7 @@ from tophat_tpu_torch.ops.realign_kernel import (BIG, prepare_targets,
                                                  realign_group,
                                                  realign_group_sparse)
 from tophat_tpu_torch.ops.splice import KIND_INSERTION
+from tophat_tpu_torch.parallel import auto
 
 MAX_INS = 8  # inserted-sequence slot width
 
@@ -44,6 +49,36 @@ def _groups(genome, readsg, lengths, events):
         yield idx, int(q), (reads, lens, flank_l, comb)
 
 
+def _dense(args, q: int, max_mm: int):
+    """realign_group on one q-group; with an active mesh, once per reads
+    shard on its device (events replicated), gathered in row order."""
+    reads, lens, flank_l, comb = args
+    return auto.by_rows(lambda dev, r, n: realign_group(
+        r, n, flank_l.to(dev), comb.to(dev), q, max_mm), reads, lens)
+
+
+def _sparse(args, q: int, max_mm: int, valid):
+    """realign_group_sparse on one q-group as (4, n) host records; with an
+    active mesh, once per reads shard: each shard's rows offset by its
+    first row, pad rows (past the true row count) dropped, shards in
+    order — the one-call row-major order, with no sort."""
+    reads, lens, flank_l, comb = args
+
+    def merge(recs, per, R):
+        parts = []
+        for i, rec in enumerate(recs):
+            rec = rec.to(recs[0].device)
+            rows = rec[0] + i * per
+            keep = rows < R
+            parts.append(torch.cat([rows[None, keep], rec[1:, keep]]))
+        return torch.cat(parts, dim=1)
+
+    return auto.by_rows(
+        lambda dev, r, n: realign_group_sparse(
+            r, n, flank_l.to(dev), comb.to(dev), q, max_mm, valid.to(dev)),
+        reads, lens, merge=merge).cpu().numpy()
+
+
 def realign_events(genome, readsg, lengths, events, max_mm: int):
     """Dense realignment: (best_t, mm, ok) as (R, E) numpy arrays.
 
@@ -57,7 +92,7 @@ def realign_events(genome, readsg, lengths, events, max_mm: int):
     if E == 0:
         return best_t, mm, ok
     for idx, q, args in _groups(genome, readsg, lengths, events):
-        bt, m, o = realign_group(*args, q, max_mm)
+        bt, m, o = _dense(args, q, max_mm)
         best_t[:, idx] = bt.cpu().numpy()
         mm[:, idx] = m.cpu().numpy()
         ok[:, idx] = o.cpu().numpy()
@@ -80,8 +115,7 @@ def realign_events_sparse(genome, readsg, lengths, events, max_mm: int):
     acc = ([], [], [], [])
     for idx, q, args in _groups(genome, readsg, lengths, events):
         vsel = torch.as_tensor(valid[idx], device=genome.device)
-        rj, ej, tj, mj = realign_group_sparse(*args, q, max_mm,
-                                              vsel).cpu().numpy()
+        rj, ej, tj, mj = _sparse(args, q, max_mm, vsel)
         acc[0].append(rj)
         acc[1].append(idx[ej].astype(np.int32))
         acc[2].append(tj)

@@ -22,6 +22,8 @@ from typing import Any
 
 import torch
 
+from tophat_tpu_torch.parallel import auto
+
 LOOK_BP = 8       # anchor bases examined each side of a segment boundary
 WINDOW_MM = 2     # split-point mismatch budget (segment_juncs.cpp:2265)
 
@@ -156,7 +158,7 @@ def _suffix_cumsum(x):
     return torch.flip(torch.cumsum(torch.flip(x.long(), [1]), 1), [1])
 
 
-def scan_windows(genome, readsg, win: PairWindows, sup_max: int):
+def _scan_windows(genome, readsg, win: PairWindows, sup_max: int):
     """Scan every split point of every window for donor/acceptor pairs.
 
     Returns (left, right, antisense, valid), each (W, sup_max): junction
@@ -212,6 +214,19 @@ def scan_windows(genome, readsg, win: PairWindows, sup_max: int):
     valid = (win.valid[:, None] & scan_ok & budget_ok & dinuc_ok
              & (fwd | rev) & (apos > dpos))
     return dpos - 1, apos + 2, rev, valid
+
+
+def _window_sharded(scan, genome, readsg, win: PairWindows, sup_max: int):
+    """`scan` with the window rows sharded over the active mesh's reads
+    axis (parallel/auto.py): genome and genome-space reads replicated,
+    the flat window table split across devices like the reference's
+    read-range thread partition (segment_juncs.cpp:4763)."""
+    return auto.by_rows(lambda dev, w: scan(
+        auto.replicated(genome, dev), readsg.to(dev), w, sup_max), win)
+
+
+def scan_windows(genome, readsg, win: PairWindows, sup_max: int):
+    return _window_sharded(_scan_windows, genome, readsg, win, sup_max)
 
 
 def _fusion_pairs_for_offset(seg_pos, seg_valid, cuts, nseg, offsets,
@@ -270,7 +285,7 @@ def build_fusion_windows(seg_pos, seg_valid, cuts, nseg, lengths, offsets,
     return win
 
 
-def scan_fusion_windows(genome, readsg, win: PairWindows, sup_max: int):
+def _scan_fusion_windows(genome, readsg, win: PairWindows, sup_max: int):
     """Best breakpoint per fusion window: the leftmost split minimizing the
     support span's mismatches against the left-anchored and right-anchored
     genome windows (no splice motif: detect_fusion scans every split,
@@ -300,6 +315,11 @@ def scan_fusion_windows(genome, readsg, win: PairWindows, sup_max: int):
     left = wl[:, 0] + best_t - 1
     right = wr[:, 0] - (win.sup_len - best_t)
     return left, right, best, win.valid & (best <= WINDOW_MM)
+
+
+def scan_fusion_windows(genome, readsg, win: PairWindows, sup_max: int):
+    return _window_sharded(_scan_fusion_windows, genome, readsg, win,
+                           sup_max)
 
 
 def compact_by_valid(valid, arrays, cap: int):
@@ -388,7 +408,7 @@ def build_indel_pairs(seg_pos, seg_mm, seg_valid, cuts, nseg,
                 segs_mm=arrays[6], valid=valid), overflow
 
 
-def scan_indel_pairs(genome, readsg, lengths, pairs, two_seg_max: int):
+def _scan_indel_pairs(genome, readsg, lengths, pairs, two_seg_max: int):
     """detect_small_deletion / detect_small_insertion semantics
     (reference: segment_juncs.cpp:2470-2628).
 
@@ -466,3 +486,11 @@ def scan_indel_pairs(genome, readsg, lengths, pairs, two_seg_max: int):
     # inserted read bases start at read offset c0 + best_t in genome space
     ins_read_off = c0f + best_t
     return kind, left, right, ins_len, valid, best_t, rowf, ins_read_off
+
+
+def scan_indel_pairs(genome, readsg, lengths, pairs, two_seg_max: int):
+    """_scan_indel_pairs with the pair rows sharded over the active mesh
+    (parallel/auto.py); genome, reads and lengths replicated."""
+    return auto.by_rows(lambda dev, p: _scan_indel_pairs(
+        auto.replicated(genome, dev), readsg.to(dev), lengths.to(dev), p,
+        two_seg_max), pairs)

@@ -28,6 +28,7 @@ from tophat_tpu_torch.io.color import (decode_alignment, decode_chain,
                                        genome_to_color)
 from tophat_tpu_torch.io.fastq import batch_reads
 from tophat_tpu_torch.ops.align import align_reads
+from tophat_tpu_torch.parallel import auto
 from tophat_tpu_torch.pipeline.paired import run_pipeline_paired
 from tophat_tpu_torch.pipeline.run import run_pipeline
 from tophat_tpu_torch.utils.device import resolve_device
@@ -115,7 +116,8 @@ def decode_color_reads(genome: Genome, record_sets, params, log=print,
                        device="cuda"):
     """Build the color FM index on `device`, align and decode every record
     set in `record_sets`; returns the decoded record lists. The color
-    index lives only inside this call."""
+    index lives only inside this call (and leaves the mesh's replication
+    cache with it)."""
     dev = resolve_device(device)
     cgen = color_genome(genome)
     log(f"building colorspace FM index ({len(cgen.codes)} transitions)")
@@ -124,8 +126,10 @@ def decode_color_reads(genome: Genome, record_sets, params, log=print,
                          sa_rate=4 if big else 0, device=dev)
     coff = cgen.offsets.astype(np.int32)
     gbase = np.asarray(genome.codes)
-    return [align_colors(cfm, coff, gbase, recs, params, log=log)[0]
-            for recs in record_sets]
+    decoded = [align_colors(cfm, coff, gbase, recs, params, log=log)[0]
+               for recs in record_sets]
+    auto.release(cfm)
+    return decoded
 
 
 def run_pipeline_color(genome: Genome, records, params, out_dir,

@@ -33,6 +33,7 @@ from tophat_tpu_torch.index.fasta import Genome
 from tophat_tpu_torch.index.grouped import GroupedFM
 from tophat_tpu_torch.ops.align import (align_reads_adaptive, kmer_fast_ok,
                                         transfer_alignments)
+from tophat_tpu_torch.parallel import auto
 from tophat_tpu_torch.pipeline.coverage import coverage_search_events
 from tophat_tpu_torch.pipeline.juncs import (discover_events, empty_events,
                                              merge_events)
@@ -133,8 +134,13 @@ class GroupedMapper:
     def _dev_fm(self, g: int):
         """Group g's full index on the device, one group resident at a
         time: a group stays resident across all its stages, and the old
-        group's tables are freed before the next group's arrive."""
+        group's tables are freed before the next group's arrive. Under a
+        mesh the stages replicate the resident group to the other devices
+        (parallel/auto.replicated); the swap drops those copies too."""
         if self._dev_g != g:
+            if self._dev_fm_cache is not None:
+                auto.release(self._dev_fm_cache)
+                auto.release(self._dev_fm_cache.genome)
             self._dev_fm_cache = None
             self._dev_g = -1
             if self.dev.type == "cuda":

@@ -37,6 +37,7 @@ from tophat_tpu_torch.ops.fusion_fr import find_fr_fusions
 from tophat_tpu_torch.ops.gapped import gapped_from_segments
 from tophat_tpu_torch.ops.splice import KIND_FUSION
 from tophat_tpu_torch.ops.stitch import stitch_contiguous
+from tophat_tpu_torch.parallel import auto
 from tophat_tpu_torch.pipeline.butterfly import (butterfly_search_events,
                                                  microexon_events)
 from tophat_tpu_torch.pipeline.chains import (chain_stitch,
@@ -123,6 +124,11 @@ def _align_mate(fm, offsets, batch: ReadBatch, params: Params, log,
     reads_f = batch.codes
     reads_r = revcomp_rows(batch.codes, batch.lengths)
     lengths = batch.lengths.astype(np.int32)
+
+    # over-budget index + active mesh: range-shard the FM index over the
+    # genome axis before the first device stage (parallel/auto.py)
+    if auto.active() is not None and genome is not None and batch.size:
+        auto.configure_genome_axis(fm, genome, int(lengths.max()), log=log)
 
     # transcriptome mapping first (_reads_vs_T): reads placed on annotated
     # transcripts skip the genome/segment path entirely, like the reference

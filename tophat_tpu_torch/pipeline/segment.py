@@ -137,7 +137,9 @@ def map_segments(fm, offsets, gs: GenomeSpaceReads, *,
     BEAM_MIN_N bases and every segment is long enough for the half split).
 
     Returns (seg_pos, seg_mm, seg_valid): (2R, S, H) device tensors in
-    genome order."""
+    genome order. Under a mesh (parallel/auto.py) the engines shard the
+    segment rows and gather them onto the mesh's first device, where the
+    one-device run keeps them, so nothing here changes."""
     rows = gs.readsg.shape[0]
     S = gs.cuts.shape[1] - 1
     seg_reads, seg_len_tbl = segment_rows(gs)
