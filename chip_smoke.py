@@ -7,9 +7,11 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
   1. the card's name and power limit (nvidia-smi); no CUDA -> exit 1
   2. build every kernel of the spliced main path from csrc/ (nvcc, sm_90a)
   3. each kernel against its plain torch version on the card, at the main
-     path's shapes and wider, through the realign kernel's dense and sparse
-     entries, demanding exact equality; kernel, sparse-entry and plain
-     times, the bound and share of bound, and at L = 100 the conv1d
+     path's shapes and wider (L = 25 to 1,000; at the annotated event
+     count, L = 100 and 300, the latter held and its plain version timed
+     on 256 rows), through the realign kernel's dense and sparse entries,
+     demanding exact equality; kernel, sparse-entry and plain times, the
+     bound and share of bound, and at L = 100 and 300 the conv1d
      yardstick (phases 4 and 6 repeat the check on the exact inputs the
      main path gave the kernel)
   4. the spliced main path through the CLI entry point
@@ -93,9 +95,18 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      plain version on up to 2,048 of its rows; fails on a byte
      difference, under 100% junction-read recall or with no sparse
      realign launch
-Phases run in the order 1-10, 12, 11, 13. Launches in the kernels line
-are summed over phases 4, 6, 8, 9, 10, 11, 12 and 13 (each counted from 0
-just before its timed run), max_abs_err over every check.
+ 14. the annotated run at 2 x 300 bp (MiSeq v3's read profile): phase 8's
+     flags with --no-coverage-search, on phase 8's genome, annotation and
+     transcriptome index (reused): 2,048 pairs holding every realign call
+     (each 300 positions wide, the kernel's shift-code operands) against
+     its plain version on up to 1,024 of its rows, then a timed run of
+     8,192 pairs with pairs/s, stage seconds, every realign call's R, E,
+     L and q, the realign stage's seconds and peak device memory; fails
+     if a call is not 300 wide or under 100% recall (annotated-junction
+     mates, unannotated-intron mates 1)
+Phases run in the order 1-10, 12, 11, 13, 14. Launches in the kernels
+line are summed over phases 4, 6, 8, 9, 10, 11, 12, 13 and 14 (each
+counted from 0 just before its timed run), max_abs_err over every check.
 Standard output ends with four lines: the measured numbers (JSON), the
 kernels (JSON), the nvidia-smi name/power line, and the result JSON.
 """
@@ -214,6 +225,7 @@ def realign_case(R: int, E: int, L: int, q: int, seed: int):
 
 ANNOTATED_E = 49998         # phase 8's event count (49,929 annotated introns
 #                             and the discovered events)
+PLAIN_ROWS = 256            # rows held and timed at the annotated L = 300
 INT8_OPS_PER_S = 1.979e15   # H100 SXM dense int8 tensor-core peak
 BYTES_PER_S = 3.35e12       # H100 SXM HBM3
 
@@ -277,15 +289,18 @@ def phase_kernels():
                                                      realign_group_sparse,
                                                      realign_plain)
 
-    # the main path's widths, then wider rows (150-bp reads on the fast
-    # path; 300 and 1,000 positions on the wide path, which has no cap),
-    # the main path's own shape, an event table of a real transcriptome's
-    # size, the annotated run's (phase 8) own shape, and the fusion run's
-    # (phase 10) dense call over every row's segments
+    # the main path's widths, then wider rows (150-bp reads on one-hot
+    # operands; 300 and 1,000 positions on shift codes), the main path's
+    # own shape, an event table of a real transcriptome's size, the
+    # annotated run's (phase 8) own shape, the fusion run's (phase 10)
+    # dense call over every row's segments; then 257 positions (the first
+    # width past one-hots), 512, and phase 14's annotated long-read shape
     cases = [(16384, 128, 100, 0), (16384, 128, 100, 3), (16384, 128, 25, 0),
              (8192, 128, 150, 0), (8192, 128, 300, 3), (8192, 128, 1000, 0),
              (8192, 69, 100, 0), (8192, 4096, 100, 0),
-             (4096, ANNOTATED_E, 100, 0), (65536, 76, 25, 0)]
+             (4096, ANNOTATED_E, 100, 0), (65536, 76, 25, 0),
+             (8192, 128, 257, 0), (8192, 128, 512, 3),
+             (4096, ANNOTATED_E, LONG_READ_LEN, 0)]
     report = []
     for ci, (R, E, L, q) in enumerate(cases):
         shape = f"R={R} E={E} L={L} q={q}"
@@ -293,34 +308,48 @@ def phase_kernels():
         valid = torch.as_tensor(
             np.random.default_rng(ci).random(E) < 0.9, device="cuda")
         got = realign_group(*args, q, 8)
-        ref = realign_plain(*args, q, 8)
         got_s = realign_group_sparse(*args, q, 8, valid)
-        ref_s = pack_sparse(ref[0], ref[1], ref[2] & valid[None, :])
-        torch.cuda.synchronize()
-        err = max_err(got, ref)
-        n_ok = int(ref[2].sum())
-        if err or not all(torch.equal(a, b) for a, b in zip(got, ref)):
-            fail(f"realign kernel disagrees with its plain version at "
-                 f"{shape} (max abs err {err})")
-        if not torch.equal(got_s, ref_s):
-            fail(f"sparse realign entry disagrees with the packed plain "
-                 f"result at {shape} ({got_s.shape[1]} vs {ref_s.shape[1]} "
-                 "records)")
-        if n_ok < R // 4:
+        held, rows = args, None
+        if R * E * L < 3e10:
+            ref = realign_plain(*args, q, 8)
+            ref_s = pack_sparse(ref[0], ref[1], ref[2] & valid[None, :])
+            torch.cuda.synchronize()
+            err = max_err(got, ref)
+            n_ok = int(ref[2].sum())
+            if err or not all(torch.equal(a, b) for a, b in zip(got, ref)):
+                fail(f"realign kernel disagrees with its plain version at "
+                     f"{shape} (max abs err {err})")
+            if not torch.equal(got_s, ref_s):
+                fail(f"sparse realign entry disagrees with the packed plain "
+                     f"result at {shape} ({got_s.shape[1]} vs "
+                     f"{ref_s.shape[1]} records)")
+        else:
+            # the annotated long-read shape: the plain version's R E (L - 1)
+            # products and (R, E) int64 tables, held and timed on rows
+            rows = np.sort(np.random.default_rng(ci).choice(
+                R, PLAIN_ROWS, replace=False))
+            err, _ = hold_realign("dense", args + (q, 8), got, rows)
+            hold_realign("sparse", args + (q, 8, valid), got_s, rows)
+            sel = torch.as_tensor(rows, device="cuda")
+            held = (args[0][sel].contiguous(), args[1][sel].contiguous(),
+                    args[2], args[3])
+            n_ok = int(realign_plain(*held, q, 8)[2].sum())
+        if n_ok < held[0].shape[0] // 4:
             fail(f"realign case {shape}: only {n_ok} ok pairs; the check "
                  "input is degenerate")
-        iters = 20 if L <= 300 else 3
+        iters = 20 if L <= 300 and R * E * L < 3e10 else 3
         ms = cuda_ms(lambda: realign_group(*args, q, 8), iters)
         sparse_ms = cuda_ms(lambda: realign_group_sparse(*args, q, 8, valid),
                             iters)
-        plain_ms = cuda_ms(lambda: realign_plain(*args, q, 8),
+        plain_ms = cuda_ms(lambda: realign_plain(*held, q, 8),
                            2 if E > 1000 else 3)
         bound_ms, bound_by = realign_bound(args[1], R, E, L, q)
         row = dict(R=R, E=E, L=L, q=q, max_abs_err=err, ms=ms,
-                   sparse_ms=sparse_ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                   sparse_ms=sparse_ms, plain_ms=plain_ms,
+                   plain_rows=held[0].shape[0], bound_ms=bound_ms,
                    bound_by=bound_by, share_of_bound=bound_ms / ms,
                    library_ms=None, library_exact=None)
-        if L == 100 and R * E * (L + 1) * 2 < 16e9:
+        if L in (100, LONG_READ_LEN) and R * E * (L + 1) * 2 < 16e9:
             # (the yardstick's fp16 (E, R, L + 1) match volume: 41 GB at
             # the annotated run's shape, so no yardstick there)
             lib = conv_yardstick(*args, q, 8)
@@ -330,9 +359,12 @@ def phase_kernels():
             row["library_ms"] = cuda_ms(lambda: conv_yardstick(*args, q, 8),
                                         2 if E > 1000 else 5)
             torch.cuda.empty_cache()
-        log(f"realign {shape}: exact, dense and sparse ({n_ok} ok pairs); "
+        log(f"realign {shape}: exact, dense and sparse ({n_ok} ok pairs"
+            + ("" if rows is None else f" in {len(rows)} rows held") + "); "
             f"kernel {ms:.4f} ms (sparse entry {sparse_ms:.4f} ms), plain "
-            f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}), "
+            f"{plain_ms:.4f} ms" + ("" if rows is None else
+                                   f" on {len(rows)} rows")
+            + f", bound {bound_ms:.4f} ms ({bound_by}), "
             f"share of bound {100 * bound_ms / ms:.1f}%"
             + ("" if row["library_ms"] is None else
                f"; conv1d yardstick {row['library_ms']:.4f} ms ("
@@ -1013,19 +1045,20 @@ def make_annotation(codes, avoid, n_genes: int, seed: int = 29,
     return "".join(lines), transcripts, introns
 
 
-def make_annotated_pairs(codes, transcripts, juncs, seed: int, n_pairs: int):
-    """Mate pairs of 2 x READ_LEN bp for the annotated run, inner distance
-    from N(50, 20) clipped at 0, mate 2 the reverse complement downstream
-    of mate 1: in 50% of pairs (i % 10 < 5) both mates are a fragment of an
-    annotated transcript (in transcript space, mates swapped in every other
-    such pair); in 10% (i % 10 == 5) mate 1 crosses one of `juncs` (none
-    annotated) with >= 20 bp on each side; the rest are contiguous with one
-    mismatch per mate. Returns (m1, m2, spans (n, 2) bool: the mate crosses
-    an annotated junction, unannotated (n,) bool)."""
+def make_annotated_pairs(codes, transcripts, juncs, seed: int, n_pairs: int,
+                         L: int = READ_LEN):
+    """Mate pairs of 2 x L bp for the annotated run, inner distance from
+    N(50, 20) clipped at 0, mate 2 the reverse complement downstream of
+    mate 1: in 50% of pairs (i % 10 < 5) both mates are a fragment of an
+    annotated transcript long enough to hold it (in transcript space,
+    mates swapped in every other such pair); in 10% (i % 10 == 5) mate 1
+    crosses one of `juncs` (none annotated) with >= 20 bp on each side;
+    the rest are contiguous with one mismatch per mate. Returns (m1, m2,
+    spans (n, 2) bool: the mate crosses an annotated junction,
+    unannotated (n,) bool)."""
     from tophat_tpu_torch.index.fasta import revcomp
 
     r = np.random.default_rng(seed)
-    L = READ_LEN
     seqs = [np.concatenate([codes[a:b] for a, b in ex]) for ex in transcripts]
     cuts = [np.cumsum([b - a for a, b in ex])[:-1] for ex in transcripts]
     juncs = [j for j in juncs if j[1] + 3 * L + 400 < len(codes)]
@@ -1318,16 +1351,10 @@ def phase_annotated(codes, juncs, index):
     version; a timed run reuses them and records stage seconds, E, every
     realign call's R and E, launches and peak device memory. Fails if
     recall is under 100% (annotated-junction mates, unannotated-intron
-    mates 1), no sparse realign was launched, or E < 30,000."""
-    import types
-
-    import torch
-
+    mates 1), no sparse realign was launched, or E < 30,000. Returns (the
+    numbers, the annotation's transcripts)."""
     from tophat_tpu_torch.cli import main as cli_mod
-    from tophat_tpu_torch.index.fm import FMIndex
     from tophat_tpu_torch.ops import events
-    from tophat_tpu_torch.pipeline import paired as paired_mod
-    from tophat_tpu_torch.pipeline import run as run_mod
 
     fa = os.path.join(CACHE, "genome_2p27.fa")
     t0 = time.time()
@@ -1371,6 +1398,41 @@ def phase_annotated(codes, juncs, index):
     if not any(c.startswith("sparse") for c in check.shapes):
         fail("the annotated check run made no sparse realign call")
 
+    res = annotated_timed_run("annotated", argv,
+                              os.path.join(CACHE, "annot_out_steady"),
+                              reads["steady"], N_PAIRS)
+    if res["launches"][1] == 0:
+        fail("the annotated run never launched the sparse realign kernel")
+    if res["events"] < MIN_EVENTS:
+        fail(f"annotated run: E = {res['events']} < {MIN_EVENTS} events")
+    recall = res["recall_annotated_pct"], res["recall_unannotated_pct"]
+    if min(recall) < 100:
+        fail(f"annotated run: recall {recall[0]:.2f}% (annotated), "
+             f"{recall[1]:.2f}% (unannotated) < 100%")
+    res["stage_calls"].update(build.calls)
+    return dict(res, transcripts=len(transcripts), introns=len(introns),
+                path_err=check.err, build_stages=build.seconds), transcripts
+
+
+def annotated_timed_run(tag, argv, out, reads, n_pairs: int, kept=None):
+    """One timed annotated run through the CLI, argv(out, FASTQs) on
+    reads = (FASTQs, spans, unannotated) from make_annotated_pairs: stage
+    seconds (a synchronize around
+    each stage), E, every realign call's R, E, L and q, launches, peak
+    device memory, reads placed on transcripts and recall
+    (annotated-junction mates, unannotated-intron mates 1), logged and
+    returned. With a list `kept`, each realign call is also kept there
+    (keep_calls), to be held after the run."""
+    import types
+
+    import torch
+
+    from tophat_tpu_torch.cli import main as cli_mod
+    from tophat_tpu_torch.index.fm import FMIndex
+    from tophat_tpu_torch.ops import events
+    from tophat_tpu_torch.pipeline import paired as paired_mod
+    from tophat_tpu_torch.pipeline import run as run_mod
+
     clock = StageClock()
     genome_index = types.SimpleNamespace(load=FMIndex.load)
     saved_fm = cli_mod.FMIndex
@@ -1401,16 +1463,22 @@ def phase_annotated(codes, juncs, index):
         return ev
 
     paired_mod.SingleIndexMapper.finalize_events = finalize_counted
-    calls = []
-    out = os.path.join(CACHE, "annot_out_steady")
-    fqs, spans, unannotated = reads["steady"]
+    calls, widths = [], set()
+    keep = keep_calls(kept) if kept is not None else None
+
+    def on_call(kind, args, got):
+        widths.add(int(args[0].shape[1]))
+        calls.append(realign_call_shape(kind, args))
+        if keep:
+            keep(kind, args, got)
+
+    fqs, spans, unannotated = reads
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     realign_launches(reset=True)
     t0 = time.time()
     try:
-        with RealignHooks(events, lambda kind, args, _: calls.append(
-                realign_call_shape(kind, args))):
+        with RealignHooks(events, on_call):
             cli_main_checked(cli_mod.main, argv(out, fqs))
         torch.cuda.synchronize()
         wall = time.time() - t0
@@ -1439,39 +1507,33 @@ def phase_annotated(codes, juncs, index):
         stages.pop("map", 0.0) - tmap
     top = sum(v for k, v in stages.items() if not k.startswith(" "))
     stages["rest (FASTQ parse, selection, output)"] = wall - top
-    E = n_events[0] if n_events else 0
-    log(f"annotated steady run: {wall:.2f} s, {N_PAIRS / wall:.1f} pairs/s; "
-        f"E={E}; {placed} reads placed on transcripts; realign launches "
-        f"{launches} (dense, sparse); peak device memory "
-        f"{peak / 2**30:.3f} GiB")
-    calls_of = dict(build.calls, **clock.calls)
-    calls_of["transcriptome map (align + rebase)"] = clock.calls.get(
+    calls_of = dict(clock.calls)
+    calls_of["transcriptome map (align + rebase)"] = calls_of.pop(
         " transcriptome map", 0)
     calls_of["map: genome (prep, full-read align, segments, stitch)"] = \
-        clock.calls.get("map", 0)
-    for k, v in list(build.seconds.items()) + list(stages.items()):
+        calls_of.pop("map", 0)
+    E = n_events[0] if n_events else 0
+    realign_s = stages.get("  of which realign, sparse", 0.0)
+    log(f"{tag} steady run: {wall:.2f} s, {n_pairs / wall:.1f} pairs/s; "
+        f"E={E}; {placed} reads placed on transcripts; realign "
+        f"{realign_s:.3f} s ({100 * realign_s / wall:.1f}% of the run), "
+        f"launches {launches} (dense, sparse); peak device memory "
+        f"{peak / 2**30:.3f} GiB")
+    for k, v in stages.items():
         log(f"  stage {k}: {v:.3f} s" + calls_note(calls_of.get(k)))
     log("  realign calls: " + ", ".join(calls))
-    log(f"annotated: recall {recall_a:.2f}% of {n_span} annotated-junction "
+    log(f"{tag}: recall {recall_a:.2f}% of {n_span} annotated-junction "
         f"mates, {recall_u:.2f}% of {int(unannotated.sum())} unannotated-"
         f"intron mates 1; concordant "
-        f"{100.0 * (aligned - disc) / N_PAIRS:.2f}% of pairs")
-    if launches[1] == 0:
-        fail("the annotated run never launched the sparse realign kernel")
-    if E < MIN_EVENTS:
-        fail(f"annotated run: E = {E} < {MIN_EVENTS} events")
-    if missed_a or missed_u:
-        fail(f"annotated run: recall {recall_a:.2f}% (annotated), "
-             f"{recall_u:.2f}% (unannotated) < 100%")
-    return dict(wall_s=wall, pairs_per_s=N_PAIRS / wall, events=E,
-                transcripts=len(transcripts), introns=len(introns),
+        f"{100.0 * (aligned - disc) / n_pairs:.2f}% of pairs")
+    return dict(wall_s=wall, pairs_per_s=n_pairs / wall, events=E,
                 reads_on_transcripts=placed, launches=launches,
-                path_err=check.err, realign_calls=calls,
-                peak_device_bytes=peak, recall_annotated_pct=recall_a,
+                realign_calls=calls, realign_widths=sorted(widths),
+                realign_s=realign_s, peak_device_bytes=peak,
+                recall_annotated_pct=recall_a,
                 recall_unannotated_pct=recall_u,
-                concordant_pct=100.0 * (aligned - disc) / N_PAIRS,
-                build_stages=build.seconds, stages=stages,
-                stage_calls=calls_of)
+                concordant_pct=100.0 * (aligned - disc) / n_pairs,
+                stages=stages, stage_calls=calls_of)
 
 
 def phase_bowtie2(codes, juncs, index):
@@ -2503,6 +2565,91 @@ def phase_mesh(codes, juncs, index):
                 path_err=held.err, phase_s=phase_s)
 
 
+# --------------------------------------------------------------- phase 14
+
+LONG_READ_LEN = 300         # MiSeq v3's 2 x 300 bp
+LONG_CHECK_PAIRS = 2048
+LONG_PAIRS = 8192
+LONG_HOLD_ROWS = 1024       # rows of each realign call held in the check
+
+
+def phase_long_reads(codes, juncs, index, transcripts):
+    """The annotated run at 2 x 300 bp, `tophat -G genes.gtf
+    --transcriptome-index ... --no-coverage-search`, paired, through the
+    CLI on phase 8's genome, annotation and transcriptome index (reused,
+    not rebuilt): 50% transcript fragments, 10% with mate 1 across a
+    phase-4 intron, the rest contiguous. A run of 2,048 pairs holds every
+    realign call against its plain version on up to 1,024 of its rows;
+    a timed run of 8,192 pairs records pairs/s, stage seconds, every
+    realign call's R, E, L and q, the realign stage's seconds and peak
+    device memory, and its calls are held the same way after it. Fails if a realign call is not 300 positions wide, no
+    sparse realign was launched, or under 100% recall (annotated-junction
+    mates, unannotated-intron mates 1)."""
+    from tophat_tpu_torch.cli import main as cli_mod
+    from tophat_tpu_torch.ops import events
+
+    t_phase = time.time()
+    fa = os.path.join(CACHE, "genome_2p27.fa")
+    gtf = os.path.join(CACHE, "genes.gtf")
+    tix = os.path.join(CACHE, "tx", "genes")
+    reads = {}
+    for tag, seed, n in (("check", 61, LONG_CHECK_PAIRS),
+                         ("steady", 62, LONG_PAIRS)):
+        m1, m2, spans, unannotated = make_annotated_pairs(
+            codes, transcripts, juncs, seed, n, LONG_READ_LEN)
+        fqs = [os.path.join(CACHE, f"long_{tag}_{k}.fq") for k in (1, 2)]
+        write_fastq(fqs[0], m1, "p")
+        write_fastq(fqs[1], m2, "p")
+        reads[tag] = (fqs, spans, unannotated)
+    log(f"long-read inputs: {LONG_CHECK_PAIRS} + {LONG_PAIRS} pairs of 2 x "
+        f"{LONG_READ_LEN} bp ({time.time() - t_phase:.1f} s)")
+    argv = lambda out, fqs: ["-o", out, "-G", gtf, "--transcriptome-index",
+                             tix, "--tt-index", index, "--no-coverage-search",
+                             fa] + fqs
+    widths = set()
+
+    def on_call(kind, args, out):
+        widths.add(int(args[0].shape[1]))
+        check(kind, args, out)
+
+    check = PathCheck(max_rows=LONG_HOLD_ROWS)
+    t0 = time.time()
+    with RealignHooks(events, on_call):
+        cli_main_checked(cli_mod.main,
+                         argv(os.path.join(CACHE, "long_out_check"),
+                              reads["check"][0]))
+    log(f"long-read check run: {time.time() - t0:.1f} s; realign exact in "
+        f"{len(check.shapes)} calls: " + ", ".join(check.shapes))
+    if not any(c.startswith("sparse") for c in check.shapes):
+        fail("the long-read check run made no sparse realign call")
+
+    kept = []
+    res = annotated_timed_run("long-read", argv,
+                              os.path.join(CACHE, "long_out_steady"),
+                              reads["steady"], LONG_PAIRS, kept)
+    held = PathCheck(max_rows=LONG_HOLD_ROWS)
+    t0 = time.time()
+    for kind, args, got in kept:
+        held(kind, args, got)
+    log(f"long-read timed run: realign exact in {len(held.shapes)} calls "
+        f"({time.time() - t0:.1f} s): " + ", ".join(held.shapes))
+    del kept
+    res["phase_s"] = time.time() - t_phase
+    log(f"long reads: phase 14 took {res['phase_s']:.1f} s")
+    widths |= set(res["realign_widths"])
+    if widths != {LONG_READ_LEN}:
+        fail(f"long-read runs: realign widths {sorted(widths)}, not "
+             f"{LONG_READ_LEN} alone")
+    if res["launches"][1] == 0:
+        fail("the long-read run never launched the sparse realign kernel")
+    recall = res["recall_annotated_pct"], res["recall_unannotated_pct"]
+    if min(recall) < 100:
+        fail(f"long-read run: recall {recall[0]:.2f}% (annotated), "
+             f"{recall[1]:.2f}% (unannotated) < 100%")
+    return dict(res, read_len=LONG_READ_LEN,
+                path_err=max(check.err, held.err))
+
+
 def main():
     try:
         import torch
@@ -2532,8 +2679,9 @@ def main():
                           spliced["index"])
     phase_small_search_modes(spliced["codes"])
     phase_small_slice_modes(spliced["codes"])
-    annotated = phase_annotated(spliced["codes"], spliced["juncs"],
-                                spliced["index"])
+    annotated, transcripts = phase_annotated(spliced["codes"],
+                                             spliced["juncs"],
+                                             spliced["index"])
     bowtie2 = phase_bowtie2(spliced["codes"], spliced["juncs"],
                             spliced["index"])
     small_fusion = phase_small_fusion(spliced["codes"])
@@ -2544,8 +2692,10 @@ def main():
     grouped = phase_grouped(spliced["codes"], spliced["juncs"],
                             spliced["index"])
     mesh = phase_mesh(spliced["codes"], spliced["juncs"], spliced["index"])
+    long_reads = phase_long_reads(spliced["codes"], spliced["juncs"],
+                                  spliced["index"], transcripts)
     path_phases = (spliced, paired, annotated, bowtie2, fusion, fusion_gtf,
-                   grouped, mesh)
+                   grouped, mesh, long_reads)
     log(f"smoke phases done in {time.time() - t_start:.1f} s")
 
     print(json.dumps({
@@ -2558,6 +2708,7 @@ def main():
         "annotated": annotated, "bowtie2": bowtie2,
         "small_fusion": small_fusion, "fusion": fusion,
         "fusion_gtf": fusion_gtf, "grouped": grouped, "mesh": mesh,
+        "long_reads": long_reads,
         "seconds": time.time() - t_start}), flush=True)
     main_case = next(k for k in kernels if (k["R"], k["E"], k["L"], k["q"])
                      == (8192, 69, 100, 0))     # the main path's shape

@@ -9,10 +9,11 @@ DIR is the root of another checkout (for example the parent commit,
 unpacked with `git archive`). Each side's tophat_tpu_torch/ops/
 realign_kernel.py is loaded from its own file and builds its own
 csrc/realign.cu into its own build/cuda. The inputs are chip_smoke.py's
-phase-3 cases, the tensor-core path's (L <= 256) and then the wide
-path's. Both sides must give equal (best_t, mm, ok). Prints one JSON
-line: per case, the two runs of each side (ms, CUDA events, mean over
-`--iters` launches, 3 at L = 1,000) and the card.
+phase-3 cases: one-hot operands (L <= 256, the annotated event count
+included), then shift codes (257 to 1,000 positions). Both sides must
+give equal (best_t, mm, ok). Prints one JSON line: per case, the two
+runs of each side (ms, CUDA events, mean over `--iters` launches, 3
+above L = 300 or at the annotated event count) and the card.
 """
 
 import argparse
@@ -24,7 +25,8 @@ import sys
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CASES = [(16384, 128, 100, 0), (16384, 128, 100, 3), (16384, 128, 25, 0),
          (8192, 128, 150, 0), (8192, 69, 100, 0), (8192, 4096, 100, 0),
-         (8192, 128, 300, 3), (8192, 128, 1000, 0)]
+         (4096, 49998, 100, 0), (8192, 128, 257, 0), (8192, 128, 300, 3),
+         (8192, 128, 512, 3), (8192, 128, 1000, 0), (4096, 49998, 300, 0)]
 
 
 def load_kernel(root: str, name: str):
@@ -63,7 +65,8 @@ def main():
         for k in ("other", "this", "this", "other"):
             fn = sides[k].realign_group
             row[f"{k}_ms"].append(chip_smoke.cuda_ms(
-                lambda: fn(*args, q, 8), a.iters if L <= 300 else 3))
+                lambda: fn(*args, q, 8),
+                a.iters if L <= 300 and R * E * L < 1e10 else 3))
         print(f"R={R} E={E} L={L} q={q}: other {row['other_ms']} ms, "
               f"this {row['this_ms']} ms", file=sys.stderr, flush=True)
         out.append(row)

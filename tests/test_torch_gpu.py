@@ -69,12 +69,12 @@ def _realign_inputs(dev, L, q, R=2000, E=70, seed=11):
 @pytest.mark.parametrize("L,q", [(25, 0), (25, 3), (100, 0), (100, 3),
                                  (150, 0), (150, 3), (200, 2), (255, 0),
                                  (255, 3), (256, 0), (256, 3), (257, 0),
-                                 (300, 0), (300, 3), (1000, 0), (1000, 3)])
+                                 (300, 0), (300, 3), (512, 3), (1000, 0),
+                                 (1000, 3), (1024, 0)])
 def test_realign_kernel_matches_plain(cuda, L, q, E):
-    """Every width: the tensor-core path (L <= 256) and the bit-plane
-    path above it (257 is the first width that takes it); R = 2,000 is
-    no multiple of a row tile, and E = 1, 69, 200 leave ragged event
-    tiles."""
+    """Every width: one-hot operands (L <= 256) and shift codes above
+    (257 is the first width that takes them); R = 2,000 is no multiple of
+    a row tile, and E = 1, 69, 200 leave ragged event tiles."""
     from tophat_tpu_torch.ops.realign_kernel import (realign_group,
                                                      realign_plain)
 
@@ -92,16 +92,21 @@ def test_realign_kernel_matches_plain(cuda, L, q, E):
 @pytest.mark.gpu
 @pytest.mark.parametrize("L,q,E,max_mm", [(100, 0, 69, 8), (25, 3, 200, 2),
                                           (256, 0, 1, 8), (300, 3, 69, 8),
-                                          (40, 0, 200, 10 ** 4)])
-def test_realign_sparse_matches_packed_dense(cuda, L, q, E, max_mm):
+                                          (40, 0, 200, 10 ** 4),
+                                          (300, 3, 200, 10 ** 4),
+                                          (1000, 0, 200, 10 ** 4)])
+def test_realign_sparse_matches_packed_dense(cuda, monkeypatch, L, q, E,
+                                             max_mm):
     """The sparse entry gives pack_sparse of the dense tables masked by
     `valid`, in the same order; both launch counters move. max_mm 10^4
     makes every pair with a split pass, more records than the first
-    buffer holds, so the entry relaunches."""
+    buffer holds, so the entry relaunches (from no earlier call's hint),
+    on one-hot and on shift-code operands."""
     from tophat_tpu_torch.ops.realign_kernel import (pack_sparse,
                                                      realign_group,
                                                      realign_group_sparse)
 
+    monkeypatch.setattr(realign_group_sparse, "cap_hint", 0)
     args = _realign_inputs(cuda, L, q, E=E, R=2000 if max_mm < 100 else 64)
     valid = torch.as_tensor(np.random.default_rng(3).random(E) < 0.8,
                             device=cuda)
@@ -115,6 +120,60 @@ def test_realign_sparse_matches_packed_dense(cuda, L, q, E, max_mm):
     assert realign_group_sparse.launches == s0 + (2 if max_mm > 100 else 1)
     assert got.dtype == torch.int32 and torch.equal(got, want)
     assert want.shape[1] > 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("L,q", [(300, 0), (1000, 3)])
+def test_realign_wide_mixed_lengths_match_plain(cuda, L, q):
+    """A wide batch whose rows end anywhere, a third of them under 257
+    positions (-1 past their end): dense and sparse entries exact, and
+    ok pairs whose best split is t >= 256 (past the one-hot path's
+    8-bit argmin packing)."""
+    from tophat_tpu_torch.ops.realign_kernel import (pack_sparse,
+                                                     realign_group,
+                                                     realign_group_sparse,
+                                                     realign_plain)
+
+    reads, lengths, flank_l, comb = _realign_inputs(cuda, L, q, E=77)
+    rng = np.random.default_rng(L + q)
+    short = torch.as_tensor(rng.random(reads.shape[0]) < 0.35, device=cuda)
+    lengths = torch.where(short, torch.as_tensor(
+        rng.integers(q + 1, 257, reads.shape[0]), device=cuda).int(),
+        lengths)
+    pos = torch.arange(L, device=cuda)[None, :]
+    reads = torch.where(pos < lengths[:, None].long(), reads,
+                        torch.full_like(reads, -1)).contiguous()
+    valid = torch.as_tensor(rng.random(77) < 0.8, device=cuda)
+    got = realign_group(reads, lengths, flank_l, comb, q, 8)
+    ref = realign_plain(reads, lengths, flank_l, comb, q, 8)
+    got_s = realign_group_sparse(reads, lengths, flank_l, comb, q, 8, valid)
+    torch.cuda.synchronize()
+    for a, b in zip(got, ref):
+        assert torch.equal(a, b)
+    assert torch.equal(got_s, pack_sparse(ref[0], ref[1],
+                                          ref[2] & valid[None, :]))
+    assert int((ref[0][ref[2]] >= 256).sum()) > 0
+    assert int(ref[2][short].sum()) > 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("L,q", [(2048, 0), (4096, 3)])
+def test_realign_kernel_widest_rows_match_plain(cuda, L, q):
+    """Rows too wide for a 64-row tile (16 x 16 and 16 x 8 tiles), up to
+    the kernel's cap; one row wider than the cap raises."""
+    from tophat_tpu_torch.ops.realign_kernel import (MAX_L, realign_group,
+                                                     realign_plain)
+
+    args = _realign_inputs(cuda, L, q, R=48, E=21)
+    got = realign_group(*args, q, 8)
+    ref = realign_plain(*args, q, 8)
+    torch.cuda.synchronize()
+    for a, b in zip(got, ref):
+        assert torch.equal(a, b)
+    assert int(ref[2].sum()) > 0 and L <= MAX_L
+    wide = _realign_inputs(cuda, MAX_L + 1, 0, R=2, E=2)
+    with pytest.raises(ValueError, match=str(MAX_L)):
+        realign_group(*wide, 0, 8)
 
 
 @pytest.mark.gpu
@@ -202,6 +261,40 @@ def test_pipeline_on_card_matches_cpu(cuda, tmp_path, n):
     assert realign_group_sparse.launches > before
     for f in ("accepted_hits.sam", "junctions.bed", "insertions.bed",
               "deletions.bed"):
+        assert (tmp_path / "cpu" / f).read_bytes() == \
+            (tmp_path / "cuda" / f).read_bytes(), f
+
+
+@pytest.mark.gpu
+def test_long_read_pipeline_on_card_matches_cpu(cuda, tmp_path):
+    """Reads of 260 and 300 bp in TopHat's default mode: the read rows'
+    realign calls are 300 positions wide (the kernel's shift-code
+    operands; the chain path's segment rows are 25 wide), and the
+    card's files equal the CPU's."""
+    from test_torch_pipeline import OUTPUTS  # numpy only at import time
+    from test_torch_pipeline import _workload as long_workload
+    from tophat_tpu_torch.index.fasta import Genome
+    from tophat_tpu_torch.io.fastq import batch_reads
+    from tophat_tpu_torch.ops import events
+    from tophat_tpu_torch.pipeline.params import Params
+    from tophat_tpu_torch.pipeline.run import run_pipeline
+
+    n = 30000
+    codes, recs = long_workload(n, seed=13, read_lens=(260, 300))
+    genome = Genome(codes=codes, offsets=np.array([0, n]), names=["chrL"])
+    widths = []
+    entry = events.realign_group_sparse
+    events.realign_group_sparse = lambda *a: (widths.append(
+        (a[0].device.type, a[0].shape[1])), entry(*a))[1]
+    try:
+        for dev in ("cpu", "cuda"):
+            run_pipeline(genome, batch_reads(recs), Params(),
+                         str(tmp_path / dev), log=lambda *a: None,
+                         device=dev)
+    finally:
+        events.realign_group_sparse = entry
+    assert ("cuda", 300) in widths and ("cpu", 300) in widths
+    for f in OUTPUTS:
         assert (tmp_path / "cpu" / f).read_bytes() == \
             (tmp_path / "cuda" / f).read_bytes(), f
 

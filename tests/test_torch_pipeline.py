@@ -90,11 +90,16 @@ def test_run_pipeline_outputs_identical(tmp_path, n):
     assert (n >= segment.BEAM_MIN_N) == (n > 1 << 21)
 
 
-@pytest.mark.parametrize("read_len", [150, 300])
-def test_run_pipeline_long_reads_identical(tmp_path, read_len):
-    """Rows wider than 256 positions take the realign kernel's wide path
-    on the card; on the CPU both packages must still agree byte for
-    byte."""
+@pytest.mark.parametrize("read_lens,coverage_search", [
+    ((150,), True), ((300,), True), ((260, 300), False)],
+    ids=["150", "300", "260-300"])
+def test_run_pipeline_long_reads_identical(tmp_path, read_lens,
+                                           coverage_search):
+    """Reads of 150 or 300 bp in TopHat's default mode, and of 260 and 300
+    bp in one batch without the coverage search (realign rows 300
+    positions wide, some ending at 260): rows wider than 256 positions
+    take the realign kernel's shift-code operands on the card; on the CPU
+    both packages must still agree byte for byte."""
     from tophat_tpu.index.fasta import Genome as JGenome
     from tophat_tpu.io.fastq import batch_reads as jbatch
     from tophat_tpu.pipeline.params import Params as JParams
@@ -105,17 +110,19 @@ def test_run_pipeline_long_reads_identical(tmp_path, read_len):
     from tophat_tpu_torch.pipeline.run import run_pipeline
 
     n = 30000
-    codes, recs = _workload(n, seed=13, read_lens=(read_len,))
+    codes, recs = _workload(n, seed=13, read_lens=read_lens)
     offsets = np.array([0, n])
     jrun(JGenome(codes=codes, offsets=offsets, names=["chrL"]),
-         jbatch(recs), JParams(), str(tmp_path / "jax"), log=lambda *a: None)
+         jbatch(recs), JParams(coverage_search=coverage_search),
+         str(tmp_path / "jax"), log=lambda *a: None)
     run_pipeline(Genome(codes=codes, offsets=offsets, names=["chrL"]),
-                 batch_reads(recs), Params(), str(tmp_path / "torch"),
-                 log=lambda *a: None, device="cpu")
+                 batch_reads(recs), Params(coverage_search=coverage_search),
+                 str(tmp_path / "torch"), log=lambda *a: None, device="cpu")
     sam = _compare(tmp_path / "jax", tmp_path / "torch")
-    rows = [ln.split("\t") for ln in sam.splitlines()]
+    rows = [ln.split("\t") for ln in sam.splitlines()
+            if not ln.startswith("@")]
     assert sum(1 for t in rows if "N" in t[5]) >= 24
-    assert max(len(t[9]) for t in rows) == read_len
+    assert {len(t[9]) for t in rows} == set(read_lens)
 
 
 def test_cli_outputs_identical(tmp_path, monkeypatch):

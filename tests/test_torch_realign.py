@@ -98,6 +98,82 @@ def test_realign_plain_matches_pallas_and_scan(q):
     assert (got[1][lengths == 0] == 32767).all()
 
 
+def _long_case(seed, q, L, R=40, E=24):
+    """Rows wider than 256 positions: reads planted across events with
+    splits at 256 or past it where L - 1 - q allows (every third row),
+    anywhere else, or ending
+    early (-1 past their length); random and zero-length rows; events at
+    both genome ends and a right flank past the end."""
+    rng = np.random.default_rng(seed)
+    n = 6000
+    genome = rng.integers(0, 4, n).astype(np.int8)
+    genome[2000:2010] = 4
+    lefts = rng.integers(L, n - 2 * L, E).astype(np.int32)
+    lefts[:2] = [0, n - 1]
+    if q == 0:
+        kinds = np.zeros(E, np.int8)
+        rights = (lefts + rng.integers(40, 400, E)).astype(np.int32)
+        rights[2] = n + 5
+    else:
+        kinds = np.full(E, 2, np.int8)
+        rights = lefts + 1
+    seqs = np.full((E, 8), -1, np.int8)
+    seqs[:, :q] = rng.integers(0, 4, (E, q))
+    reads = np.full((R, L), -1, np.int8)
+    lengths = np.full(R, L, np.int32)
+    for i in range(R):
+        if i % 8 == 7:
+            lengths[i] = 0
+            continue
+        if i % 8 == 6:
+            reads[i] = rng.integers(0, 5, L)
+            continue
+        e = int(rng.integers(3, E))
+        t = (int(rng.integers(min(256, L - 1 - q), L - q)) if i % 3 == 0
+             else int(rng.integers(1, L - 1 - q)))
+        start = lefts[e] + 1 if q else rights[e]
+        read = np.concatenate([genome[lefts[e] - t + 1: lefts[e] + 1],
+                               seqs[e, :q],
+                               genome[start: start + (L - t - q)]])
+        if i % 4 == 1:
+            read[int(rng.integers(0, L))] ^= 1
+        if i % 5 == 2 and t + q + 1 < L:
+            lengths[i] = int(rng.integers(t + q + 1, L))
+            read[lengths[i]:] = -1
+        reads[i] = read
+    return genome, reads, lengths, lefts, rights, kinds, seqs
+
+
+@pytest.mark.parametrize("L", [257, 300])
+@pytest.mark.parametrize("q", [0, 3])
+def test_realign_plain_matches_jax_on_wide_rows(q, L):
+    """Rows of 257 and 300 positions (the kernel's shift-code path on the
+    card) against realign_pallas (interpret mode) and realign_scan: exact,
+    with best splits at t >= 256 (which an 8-bit argmin packing loses)
+    wherever a split can reach 256 (all but L = 257, q = 3)."""
+    from tophat_tpu.ops.events import realign_scan
+    from tophat_tpu.ops.pallas.realign_kernel import (prepare_inputs,
+                                                      realign_pallas)
+
+    genome, reads, lengths, lefts, rights, kinds, seqs = _long_case(
+        L + q, q, L)
+    X, YL, YC = prepare_inputs(jnp.asarray(genome), reads, jnp.asarray(lefts),
+                               jnp.asarray(rights), jnp.asarray(kinds), seqs,
+                               q, L)
+    ref_p = realign_pallas(X, YL, YC, jnp.asarray(lengths), L=L, q=q,
+                           max_mm=MAX_MM, interpret=True)
+    ref_s = realign_scan(X, YL, YC, jnp.asarray(lengths), L=L, q=q,
+                         max_mm=MAX_MM)
+    got = _port(genome, reads, lengths, lefts, rights, kinds, seqs, q, L)
+    for name, a, b, c in zip(("best_t", "mm", "ok"), got, ref_p, ref_s):
+        np.testing.assert_array_equal(a, np.asarray(b), err_msg=name)
+        np.testing.assert_array_equal(a, np.asarray(c), err_msg=name)
+    bt, _, ok = got
+    assert (bt[ok] >= 256).sum() >= (8 if L - 1 - q >= 256 else 0)
+    assert ok.sum() >= 20 and not ok[lengths == 0].any()
+    assert ok[(lengths > 0) & (lengths < L)].any()
+
+
 def test_realign_n_vs_n_follows_the_fused_path():
     """A read carrying 3 Ns over 3 genome Ns: the fused path (8-channel
     one-hot, N matches N) gives mm 0; the conv reference realign_chunk

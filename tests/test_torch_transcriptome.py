@@ -22,8 +22,9 @@ def _revcomp(s):
     return np.where(s < 4, 3 - s, s)[::-1].astype(np.int8)
 
 
-def annotated(seed=17):
-    """Two 20,000-base contigs with annotated genes and reads.
+def annotated(seed=17, read_len=L):
+    """Two 20,000-base contigs with annotated genes and reads of read_len
+    bp (exon lengths below scaled by ceil(read_len / 76)).
 
     Genes (exons as 0-based [start, end) on their contig):
       gA  chrA +  exons 40/12/12/80: 12-bp middle exons no segment maps,
@@ -39,6 +40,7 @@ def annotated(seed=17):
     rng = np.random.default_rng(seed)
     codes = rng.integers(0, 4, 2 * CONTIG).astype(np.int8)
     gtf, trs = [], []
+    scale = -(-read_len // L)
 
     def gene(chrom, strand, tid, exons, gid):
         off = 0 if chrom == "chrA" else CONTIG
@@ -49,7 +51,7 @@ def annotated(seed=17):
 
     def layout(start, lens, introns):
         ex, p = [], start
-        for i, el in enumerate(lens):
+        for i, el in enumerate(x * scale for x in lens):
             ex.append((p, p + el))
             p += el + (introns[i] if i < len(introns) else 0)
         return ex
@@ -76,10 +78,10 @@ def annotated(seed=17):
     for k, tseq in enumerate(trs):
         for rep in range(4):
             inner = max(0, int(round(rng.normal(50, 20))))
-            frag = min(len(tseq), 2 * L + inner)
+            frag = min(len(tseq), 2 * read_len + inner)
             s = int(rng.integers(0, len(tseq) - frag + 1))
             f = tseq[s:s + frag]
-            a1, a2 = f[:L], _revcomp(f[-L:])
+            a1, a2 = f[:read_len], _revcomp(f[-read_len:])
             add(*((a1, a2) if rep % 2 == 0 else (a2, a1)))
     for k in range(3):                        # unannotated introns, chrB
         left = 14000 + 1500 * k
@@ -88,22 +90,25 @@ def annotated(seed=17):
         codes[CONTIG + left + il - 2:CONTIG + left + il] = [0, 2]
         g = CONTIG + left
         for t in (25, 38, 51):
-            s1 = np.concatenate([codes[g - t:g], codes[g + il:g + il + L - t]])
-            st = g + il + L - t + 40
-            add(s1, _revcomp(codes[st:st + L]))
-    for k in range(20):
-        s = int(rng.integers(0, 2 * CONTIG - 3 * L))
-        x, y = codes[s:s + L].copy(), codes[s + L + 50:s + 2 * L + 50].copy()
+            s1 = np.concatenate([codes[g - t:g],
+                                 codes[g + il:g + il + read_len - t]])
+            st = g + il + read_len - t + 40
+            add(s1, _revcomp(codes[st:st + read_len]))
+    for _ in range(20):
+        s = int(rng.integers(0, 2 * CONTIG - 3 * read_len))
+        x = codes[s:s + read_len].copy()
+        y = codes[s + read_len + 50:s + 2 * read_len + 50].copy()
         for z in (x, y):
-            z[int(rng.integers(0, L))] ^= 1
+            z[int(rng.integers(0, read_len))] ^= 1
         add(x, _revcomp(y))
-    rec = lambda i, s: (f"p{i}", "".join("ACGTN"[c] for c in s), b"I" * L)
+    rec = lambda i, s: (f"p{i}", "".join("ACGTN"[c] for c in s),
+                        b"I" * read_len)
     return (codes, "".join(gtf), [rec(i, s) for i, s in enumerate(m1)],
             [rec(i, s) for i, s in enumerate(m2)])
 
 
-def _write_inputs(tmp_path, seed=17):
-    codes, gtf, r1, r2 = annotated(seed)
+def _write_inputs(tmp_path, seed=17, read_len=L):
+    codes, gtf, r1, r2 = annotated(seed, read_len)
     seq = "".join("ACGTN"[c] for c in codes)
     fa = tmp_path / "g.fa"
     fa.write_text(f">chrA\n{seq[:CONTIG]}\n>chrB\n{seq[CONTIG:]}\n")
@@ -157,6 +162,19 @@ def test_cli_gtf_identical(tmp_path, monkeypatch, mode):
         assert not any(16 <= pair(t) < 24 and "N" in t[5] for t in recs)
     if mode != "no_gtf_juncs":
         assert multi_n >= 2                     # gA's 3-junction reads
+    assert sum(1 for t in recs if "N" in t[5]) >= 10
+
+
+def test_cli_gtf_long_pairs_identical(tmp_path, monkeypatch):
+    """-G paired at 2 x 300 bp (exons four times as long): every read row
+    is 300 positions wide, past the realign kernel's one-hot path on the
+    card; both CLIs write the same files, and transcript mates cross
+    annotated junctions."""
+    monkeypatch.setenv("TOPHAT_TPU_DEVICES", "1")
+    fa, gtf, fqs = _write_inputs(tmp_path, read_len=300)
+    recs = _both(tmp_path, ["-G", gtf, "--no-coverage-search", fa] + fqs,
+                 OUTPUTS + ("align_summary.txt",))
+    assert {len(t[9]) for t in recs if not t[0].startswith("@")} == {300}
     assert sum(1 for t in recs if "N" in t[5]) >= 10
 
 

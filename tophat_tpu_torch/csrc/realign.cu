@@ -25,24 +25,44 @@
 // operations, at the int8 tensor-core peak (1,979 TOP/s on an H100 SXM);
 // the bytes (reads, targets, results) are small beside it.
 //
-// Design (fast path, L <= 256): mma.sync.m16n8k32 s8 -> s32 on the
-// tensor cores, 0/1 products summed in int32 (exact). mma.sync and not
-// wgmma because the B operand moves every split: the window starts at
-// byte 8 (L - t), which is 4-byte but not 16-byte aligned, and an
+// Design: one kernel, realign_mma_kernel<S, Op>, for every width L up to
+// WIDE_MAX_L = 4,096; Op says how its operands sit in shared memory
+// (OneHots for L <= 256, ShiftCodes above). mma.sync.m16n8k32 s8 -> s32
+// on the tensor cores, 0/1 products summed in int32 (exact). mma.sync and
+// not wgmma because the B operand moves every split: the window starts at
+// position L - t, which is 4-byte but not 16-byte aligned, and an
 // m16n8k32 B fragment is two 32-bit words of 4 consecutive K bytes each,
-// so it loads as plain shared-memory words at any t, where wgmma's
-// descriptors and ldmatrix need 16-byte aligned rows. The cost: mma.sync
-// peaks near 1,280 TOP/s on an H100 SXM (scripts/mma_sync_peak.cu), two
-// thirds of the bound's rate.
-//  - Operands: reads carry 64 and targets 4 in the byte of their code, so
-//    a match adds 256. A small prep kernel writes every event's target
-//    [flankL | comb] as one-hots, zero-padded on both sides, into the
-//    device scratch buffer. A block builds its rows' one-hots once per row
-//    tile in shared memory, in fragment order (one 16-byte load a lane
-//    per K step, a warp reading 512 contiguous bytes), and copies the
-//    event tiles' targets in by cp.async, double-buffered: the next tile
-//    loads while this one computes. The event stride is 8 words mod 32,
-//    so the 16 lanes of each half of a 64-bit B load hit 32 banks.
+// which a lane loads (or builds in registers) itself at any t, where
+// wgmma's descriptors and ldmatrix need 16-byte aligned rows. The cost:
+// mma.sync peaks near 1,280 TOP/s on an H100 SXM
+// (scripts/mma_sync_peak.cu), two thirds of the bound's rate.
+//  - Operands, L <= 256 (OneHots): reads carry 64 and targets 4 in the
+//    byte of their code, so a match adds 256. A small prep kernel writes
+//    every event's target [flankL | comb] as one-hots, zero-padded on both
+//    sides, into the device scratch buffer. A block builds its rows'
+//    one-hots once per row tile in shared memory, in fragment order (one
+//    16-byte load a lane per K step, a warp reading 512 contiguous
+//    bytes), and copies the event tiles' targets in by cp.async,
+//    double-buffered: the next tile loads while this one computes. The
+//    event stride is 8 words mod 32, so the 16 lanes of each half of a
+//    64-bit B load hit 32 banks.
+//  - Operands, L > 256 (ShiftCodes): one-hots take 8 bytes a position;
+//    at L = 1,000 a 16-row tile of them is 128 KB and two event tiles of
+//    targets 512 KB, over the 227 KB a block may hold. So both operands
+//    stay one byte a position, a shift code (8 c for a code c in 0..7,
+//    else 0xff), and become one-hot words in registers as they are
+//    loaded: ONE << s and ONE << (s ^ 32) (shl clamps amounts of 32 and
+//    more to a zero result, so codes 0..3 land in the first word, 4..7 in
+//    the second, 0xff in neither): about a dozen integer instructions a K
+//    step beside the S products they feed. The whole row tile (one 16-bit
+//    word a lane per K step: rows g and g + 8) and two whole event tiles
+//    (P = 16 mod 128 bytes an event, so the 8 events of a warp's byte
+//    loads hit distinct banks) sit in shared memory, the next event tile
+//    loading by cp.async as on the fast path; no window needs streaming:
+//    at L = 4,096 a 16 x 8 tile takes 199 KB. Shift codes would serve
+//    every width, but at L <= 256 they took 18-29% longer than one-hots
+//    (3% at L = 150; scripts/realign_ab.py on an NVIDIA H100 80GB HBM3 at
+//    700 W, PERF.md section 6), so one-hots keep those widths.
 //  - Warps: a block holds BR = 16 WR rows and BE = 8 WE events; each of
 //    its WR x WE warps owns 16 rows x 8 events, i.e. one m16n8 tile.
 //  - Splits of one phase (t mod 4) are taken S at a time: t0, t0 + 4,
@@ -50,32 +70,32 @@
 //    window of t0 at K step kk - s, so one B fragment loaded from shared
 //    memory feeds S products, and one A fragment (reloaded per K step)
 //    feeds S products too: shared-memory traffic is 24 bytes a lane per
-//    S products. S = 8 above L = 64; S = 4 at or below, where a group
-//    has few K steps to share and the kernel fits twice on an SM.
-//  - The argmin stays fused: each accumulator starts at 255 - t, so it
-//    ends at 256 match + 255 - t, and its running maximum over the splits
-//    is the most matches at the leftmost split. Splits above a row's
-//    min(L - 1, len - 1 - q) start at -2^30 and never win; products of
-//    splits above every row of the warp are not issued. The start values
-//    are set in registers, not passed as the first product's C: that
-//    would make a second, predicated copy of every mma, and an mma whose
-//    predicate is off still holds the tensor pipe (it halved the rate).
-//    Nothing per split reaches device memory; the epilogue writes dense
-//    tables or records.
-//  - Tiles per L: 8 warps (64 rows x 16 events) while the shared memory
-//    fits (L up to about 200), else 4 warps (32 x 16); above 48 KB it is
-//    dynamic shared memory. The grid is persistent: as many blocks as fit
-//    on the SMs, each walking a contiguous run of (row tile, event tile)
-//    units, row tile major. R = 8,192, E = 69 on 132 SMs is 128 row tiles
-//    x 5 event tiles = 640 units, 4 or 5 on every SM.
-//
-// Wide path (L > 256): the earlier bit-plane kernel, one thread per (row,
-// event) pair. Codes become bit planes (3 code bits + a validity bit, one
-// bit per position, NW = ceil(L/32) words) in a device scratch buffer
-// (rows as [plane][word][row]; events zero-padded on both sides), and one
-// split costs a few funnel shifts, XORs and popcounts per word. Event
-// tiles are folded into grid.x, so neither path caps the event count
-// other than by int32 sizes.
+//    S products (3 with shift codes). S = 8 above L = 64; S = 4 at or
+//    below, where a group has few K steps to share and the kernel fits
+//    twice on an SM.
+//  - The argmin stays fused: each accumulator starts at T - t, so it ends
+//    at 2^SHIFT match + T - t, and its running maximum over the splits is
+//    the most matches at the leftmost split (T = 255, SHIFT = 8 for
+//    one-hots; T = 4,095, SHIFT = 12 for shift codes, where a match adds
+//    ONE^2 = 4,096: that caps L at 4,096, and wider rows are refused, by
+//    the wrapper with ValueError and here with cudaErrorInvalidValue).
+//    Splits above a row's min(L - 1, len - 1 - q) start at -2^30 and
+//    never win; products of splits above every row of the warp are not
+//    issued. The start values are set in registers, not passed as the
+//    first product's C: that would make a second, predicated copy of
+//    every mma, and an mma whose predicate is off still holds the tensor
+//    pipe (it halved the rate). Nothing per split reaches device memory;
+//    the epilogue writes dense tables or records.
+//  - Tiles per L: one-hots take 8 warps (64 rows x 16 events) while the
+//    shared memory fits (L up to 216), else 4 warps (32 x 16); shift
+//    codes 64 x 16 up to L = 1,783, then 16 x 16 (to 2,871) and 16 x 8
+//    (one warp a block: rows that wide are left untuned); above 48 KB it
+//    is dynamic shared memory. The grid is
+//    persistent: as many blocks as fit on the SMs, each walking a
+//    contiguous run of (row tile, event tile) units, row tile major, so
+//    the event count is capped only by int32 sizes. R = 8,192, E = 69 on
+//    132 SMs is 128 row tiles x 5 event tiles = 640 units, 4 or 5 on
+//    every SM.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -83,13 +103,13 @@
 namespace {
 
 constexpr int FAST_MAX_L = 256;
+constexpr int WIDE_MAX_L = 4096;   // widest row any path takes
 constexpr int S_MAX = 8;           // splits of one phase per group, at most
 constexpr int SMALL_L = 64;        // widths up to this take groups of 4
-constexpr int PAD_L = 4 * S_MAX;   // zero positions left of each target
+constexpr int PAD_L = 4 * S_MAX;   // empty positions left of each target
 constexpr int BIG = 32767;
+constexpr int NEG = -(1 << 30);    // start of a split the row does not have
 constexpr int MAX_SMEM = 232448;   // shared memory one block may use
-constexpr int BLOCK_R = 128;       // wide path: rows per block
-constexpr int TILE_E = 32;         // wide path: events per block
 
 // Where results go: dense tables, or sparse records of the ok pairs.
 struct Out {
@@ -124,18 +144,76 @@ __device__ __forceinline__ void emit(const Out& out, int r, int E, int e,
   }
 }
 
-// ---- fast path: int8 tensor cores (L <= FAST_MAX_L) ----------------------
+// x << s with PTX's clamp: s >= 32 gives 0.
+__device__ __forceinline__ uint32_t shl(uint32_t x, uint32_t s) {
+  uint32_t r;
+  asm("shl.b32 %0, %1, %2;" : "=r"(r) : "r"(x), "r"(s));
+  return r;
+}
 
-// Targets as one-hots in device memory, [event][P positions][8 bytes]:
-// PAD_L zero positions, flankL, comb, zeros; byte c of a position is
-// B_ONE iff its code is c in 0..7. Read one-hots carry A_ONE, so one match
-// adds A_ONE * B_ONE = 256 to a product.
-constexpr int A_ONE = 64, B_ONE = 4;
+// ---- operands ------------------------------------------------------------
+// Each Op gives: A, the row tile's element (one a lane per K step, in
+// fragment order: rows g and g + 8 at position 4 kk + tig); B, the
+// targets' element, PER_POS of them a position; a(af, kk), the A
+// fragment {row g codes 0..3, row g + 8 codes 0..3, row g codes 4..7,
+// row g + 8 codes 4..7} of K step kk; b(bj, J), the B fragment {codes
+// 0..3, codes 4..7} of this lane's event at position 4 J + tig past the
+// window; row(ca, cb), the A element of codes ca (row g) and cb (row
+// g + 8); target(c), one target position; and the argmin packing, a
+// match adding 2^SHIFT and a split t starting at T - t.
 
-__global__ void target_onehots_kernel(const int8_t* __restrict__ flank_l,
-                                      const int8_t* __restrict__ comb, int E,
-                                      int L, int P,
-                                      uint2* __restrict__ tgt) {
+struct OneHots {                  // L <= 256: 8 bytes a position
+  using A = uint4;
+  using B = uint32_t;
+  static constexpr int PER_POS = 2, SHIFT = 8, T = 255;
+  static constexpr uint32_t A_ONE = 64, B_ONE = 4;  // a match adds 256
+  __device__ static uint4 a(const uint4* af, int kk) { return af[32 * kk]; }
+  __device__ static uint2 b(const uint32_t* bj, int j) {
+    return *reinterpret_cast<const uint2*>(bj + 8 * j);
+  }
+  __device__ static uint4 row(int ca, int cb) {
+    const uint32_t va = ca >= 0 && ca < 8 ? A_ONE << (8 * (ca & 3)) : 0u;
+    const uint32_t vb = cb >= 0 && cb < 8 ? A_ONE << (8 * (cb & 3)) : 0u;
+    return make_uint4(ca < 4 ? va : 0u, cb < 4 ? vb : 0u, ca >= 4 ? va : 0u,
+                      cb >= 4 ? vb : 0u);
+  }
+  __device__ static uint2 target(int c) {
+    const uint32_t v = c >= 0 && c < 8 ? B_ONE << (8 * (c & 3)) : 0u;
+    return make_uint2(c < 4 ? v : 0u, c >= 4 ? v : 0u);
+  }
+};
+
+struct ShiftCodes {               // L > 256: 1 byte a position
+  using A = uint16_t;
+  using B = uint8_t;
+  static constexpr int PER_POS = 1, SHIFT = 12, T = WIDE_MAX_L - 1;
+  static constexpr uint32_t ONE = 64;  // both operands: a match adds 4096
+  __device__ static uint32_t code(int c) {
+    return c >= 0 && c < 8 ? uint32_t(8 * c) : 0xffu;
+  }
+  __device__ static uint2 onehot(uint32_t s) {
+    return make_uint2(shl(ONE, s), shl(ONE, s ^ 32u));
+  }
+  __device__ static uint4 a(const uint16_t* af, int kk) {
+    const uint32_t v = af[32 * kk];
+    const uint2 x = onehot(v & 0xffu), y = onehot(v >> 8);
+    return make_uint4(x.x, y.x, x.y, y.y);
+  }
+  __device__ static uint2 b(const uint8_t* bj, int j) {
+    return onehot(bj[4 * j]);
+  }
+  __device__ static uint16_t row(int ca, int cb) {
+    return uint16_t(code(ca) | code(cb) << 8);
+  }
+  __device__ static uint8_t target(int c) { return uint8_t(code(c)); }
+};
+
+// Every event's target [flankL | comb] as Op's elements, [event][P
+// positions]: PAD_L empty positions, flankL, comb, empty positions.
+template <class Op>
+__global__ void target_kernel(const int8_t* __restrict__ flank_l,
+                              const int8_t* __restrict__ comb, int E, int L,
+                              int P, typename Op::B* __restrict__ tgt) {
   const size_t total = size_t(E) * P;
   for (size_t i = blockIdx.x * size_t(blockDim.x) + threadIdx.x; i < total;
        i += size_t(gridDim.x) * blockDim.x) {
@@ -143,9 +221,9 @@ __global__ void target_onehots_kernel(const int8_t* __restrict__ flank_l,
     const int c = u < 0 || u >= 2 * L ? -1
                   : u < L             ? flank_l[size_t(e) * L + u]
                                       : comb[size_t(e) * L + u - L];
-    const uint32_t v = (c >= 0 && c < 8) ? uint32_t(B_ONE) << (8 * (c & 3))
-                                         : 0u;
-    tgt[i] = make_uint2(c < 4 ? v : 0u, c >= 4 ? v : 0u);
+    auto v = Op::target(c);
+    static_assert(sizeof(v) == Op::PER_POS * sizeof(typename Op::B), "");
+    *reinterpret_cast<decltype(v)*>(tgt + i * Op::PER_POS) = v;
   }
 }
 
@@ -166,55 +244,53 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src,
                "l"(src), "r"(src_bytes));
 }
 
-// One event tile's one-hot targets (BE events x P positions x 8 bytes,
-// contiguous in device memory and in shared memory) by 16-byte cp.async;
-// events past E are zero-filled.
-__device__ __forceinline__ void load_targets(uint32_t* dst,
-                                             const uint2* tgt, int e0,
-                                             int BE, int E, int P) {
-  const uint2* src = tgt + size_t(e0) * P;
-  const int n_in = max(0, min(BE, E - e0)) * (P / 2);  // 16-byte chunks
-  for (int i = threadIdx.x; i < BE * (P / 2); i += blockDim.x)
-    cp_async16(dst + 4 * i, i < n_in ? src + 2 * i : tgt, i < n_in ? 16 : 0);
+// One event tile's targets (BE events x P positions, contiguous in
+// device memory and in shared memory) by 16-byte cp.async; events past E
+// are zero-filled.
+template <class Op>
+__device__ __forceinline__ void load_targets(typename Op::B* dst,
+                                             const typename Op::B* tgt,
+                                             int e0, int BE, int E, int P) {
+  constexpr int per16 = 16 / (Op::PER_POS * sizeof(typename Op::B));
+  const uint4* src =
+      reinterpret_cast<const uint4*>(tgt + size_t(e0) * P * Op::PER_POS);
+  const int n_in = max(0, min(BE, E - e0)) * (P / per16);  // chunks
+  for (int i = threadIdx.x; i < BE * (P / per16); i += blockDim.x)
+    cp_async16(reinterpret_cast<uint4*>(dst) + i,
+               i < n_in ? src + i : reinterpret_cast<const uint4*>(tgt),
+               i < n_in ? 16 : 0);
   asm volatile("cp.async.commit_group;\n" ::: "memory");
 }
 
 // NA splits of one phase, t0, t0 + 4, ..., t0 + 4 (NA - 1), for this
 // warp's 16 rows x 8 events. The window of split t0 + 4 s at K step kk is
-// the window of t0 at step kk - s, so B_J (the 8 words at 8 J past the
-// window of t0) is loaded once and used by NA products; it sits in
-// bw[J mod NA]. Each lane loads words 2 tig and 2 tig + 1 of a K step as
-// one 64-bit word (K chunks tig and tig + 4 in the mma's order); its A
-// fragment holds the same two words of rows g and g + 8, laid out in
-// shared memory in fragment order (see the kernel), so the sums are
-// unchanged. Accumulators start at 255 - t (or NEG where the row has no
-// split t), so acc = 256 match + 255 - t and max(acc) is the most matches
-// at the leftmost split.
-constexpr int NEG = -(1 << 30);
-
-template <int NA>
-__device__ __forceinline__ void split_group_n(const uint4* af,
-                                            const uint32_t* bj, int KS,
-                                            int t0, int tm_lo, int tm_hi,
-                                            int (&best)[4]) {
+// the window of t0 at step kk - s, so B_J (the fragment at K step J past
+// the window of t0) is loaded once and used by NA products; it sits in
+// bw[J mod NA]. Accumulators start at T - t (or NEG where the row has no
+// split t), so acc = 2^SHIFT match + T - t and max(acc) is the most
+// matches at the leftmost split.
+template <int NA, class Op>
+__device__ __forceinline__ void split_group_n(const typename Op::A* af,
+                                              const typename Op::B* bj,
+                                              int KS, int t0, int tm_lo,
+                                              int tm_hi, int (&best)[4]) {
   int acc[NA][4];
 #pragma unroll
   for (int s = 0; s < NA; ++s) {
     const int t = t0 + 4 * s;
-    acc[s][0] = acc[s][1] = t <= tm_lo ? 255 - t : NEG;
-    acc[s][2] = acc[s][3] = t <= tm_hi ? 255 - t : NEG;
+    acc[s][0] = acc[s][1] = t <= tm_lo ? Op::T - t : NEG;
+    acc[s][2] = acc[s][3] = t <= tm_hi ? Op::T - t : NEG;
   }
   uint2 bw[NA];
 #pragma unroll
-  for (int j = 1; j < NA; ++j)
-    bw[NA - j] = *reinterpret_cast<const uint2*>(bj - 8 * j);
+  for (int j = 1; j < NA; ++j) bw[NA - j] = Op::b(bj, -j);
   for (int kk0 = 0; kk0 < KS; kk0 += NA) {
 #pragma unroll
     for (int i = 0; i < NA; ++i) {
       const int kk = kk0 + i;
       if (kk < KS) {
-        const uint4 a = af[32 * kk];
-        bw[i] = *reinterpret_cast<const uint2*>(bj + 8 * kk);
+        const uint4 a = Op::a(af, kk);
+        bw[i] = Op::b(bj, kk);
 #pragma unroll
         for (int s = 0; s < NA; ++s)
           mma_s8(acc[s], a, bw[(i - s + NA) % NA]);
@@ -228,38 +304,42 @@ __device__ __forceinline__ void split_group_n(const uint4* af,
 }
 
 // split_group_n<na> for a run-time na <= NA.
-template <int NA>
-__device__ __forceinline__ void split_group(int na, const uint4* af,
-                                            const uint32_t* bj, int KS,
+template <int NA, class Op>
+__device__ __forceinline__ void split_group(int na, const typename Op::A* af,
+                                            const typename Op::B* bj, int KS,
                                             int t0, int tm_lo, int tm_hi,
                                             int (&best)[4]) {
   if constexpr (NA > 1) {
     if (na < NA) {
-      split_group<NA - 1>(na, af, bj, KS, t0, tm_lo, tm_hi, best);
+      split_group<NA - 1, Op>(na, af, bj, KS, t0, tm_lo, tm_hi, best);
       return;
     }
   }
-  split_group_n<NA>(af, bj, KS, t0, tm_lo, tm_hi, best);
+  split_group_n<NA, Op>(af, bj, KS, t0, tm_lo, tm_hi, best);
 }
 
 // S splits a group: 8 for wide rows; 4 for narrow ones, whose few K
 // steps give a group little to share, so that two blocks fit on an SM.
-template <int S>
-__global__ void __launch_bounds__(256, S <= 4 ? 2 : 1)
+// Warps: WR along rows, WE along events.
+template <int S, class Op>
+__global__ void __launch_bounds__(256, S <= 4 || Op::PER_POS == 1 ? 2 : 1)
 realign_mma_kernel(const int8_t* __restrict__ reads,
                    const int32_t* __restrict__ lengths,
-                   const uint2* __restrict__ tgt, int R, int E, int L,
-                   int q, int max_mm, int P, int KS, int WR, int WE,
+                   const typename Op::B* __restrict__ tgt, int R, int E,
+                   int L, int q, int max_mm, int P, int KS, int WR, int WE,
                    Out out) {
+  using A = typename Op::A;
+  using B = typename Op::B;
   extern __shared__ __align__(16) uint32_t smem[];
   const int BR = 16 * WR, BE = 8 * WE;
-  uint4* sA = reinterpret_cast<uint4*>(smem);   // WR x KS x 32 fragments
-  uint32_t* sB = smem + BR * 8 * KS;            // 2 x BE x 2P words
-  int* sLen = reinterpret_cast<int*>(sB + 2 * BE * 2 * P);  // BR
+  const int tile = BE * P * Op::PER_POS;          // B elements a tile
+  B* sB = reinterpret_cast<B*>(smem);             // 2 tiles
+  A* sA = reinterpret_cast<A*>(sB + 2 * tile);    // WR x KS x 32
+  int* sLen = reinterpret_cast<int*>(sA + WR * KS * 32);  // BR
 
   // a persistent block: its share of the (row tile, event tile) units,
-  // row tile major, so the rows' one-hots are rebuilt only when the row
-  // tile changes
+  // row tile major, so the rows are rebuilt only when the row tile
+  // changes
   const int n_ev_tiles = (E + BE - 1) / BE;
   const long long units = (long long)((R + BR - 1) / BR) * n_ev_tiles;
   const int u0 = int(units * blockIdx.x / gridDim.x);
@@ -270,25 +350,23 @@ realign_mma_kernel(const int8_t* __restrict__ reads,
   const int g = lane >> 2, tig = lane & 3;
   const int wrow = warp % WR, wev = warp / WR;
   const int lr0 = 16 * wrow + g;  // this thread's rows: lr0, lr0 + 8
-  const uint4* af = sA + wrow * KS * 32 + lane;  // its A fragments
+  const A* af = sA + wrow * KS * 32 + lane;  // its A fragments
 
-  load_targets(sB, tgt, (u0 % n_ev_tiles) * BE, BE, E, P);
+  load_targets<Op>(sB, tgt, (u0 % n_ev_tiles) * BE, BE, E, P);
   int r0 = -1;
   for (int u = u0; u < u1; ++u) {
     const int buf = (u - u0) & 1;
     const int et = u % n_ev_tiles;
     if (u + 1 < u1)
-      load_targets(sB + (buf ^ 1) * BE * 2 * P, tgt,
-                   ((u + 1) % n_ev_tiles) * BE, BE, E, P);
+      load_targets<Op>(sB + (buf ^ 1) * tile, tgt,
+                       ((u + 1) % n_ev_tiles) * BE, BE, E, P);
     else
       asm volatile("cp.async.commit_group;\n" ::: "memory");
     if ((u / n_ev_tiles) * BR != r0) {
-      // the rows' one-hots in fragment order: lane (g, tig) of the warp
-      // owning rows 16 w .. 16 w + 15 finds, at K step kk, position
-      // p = 4 kk + tig of rows g and g + 8 as {row g lo, row g + 8 lo,
-      // row g hi, row g + 8 hi} in sA[(w KS + kk) 32 + lane], where lo
-      // and hi are the words for codes 0..3 and 4..7 (byte c & 3 set to
-      // A_ONE for code c; positions >= L are zero)
+      // the rows in fragment order: lane (g, tig) of the warps owning
+      // rows 16 w .. 16 w + 15 finds, at K step kk, position p = 4 kk +
+      // tig of rows g and g + 8 in sA[(w KS + kk) 32 + lane] (positions
+      // >= L are empty)
       r0 = (u / n_ev_tiles) * BR;
 #pragma unroll 4
       for (int f = warp; f < WR * KS; f += blockDim.x >> 5) {
@@ -296,12 +374,7 @@ realign_mma_kernel(const int8_t* __restrict__ reads,
         const int ca = ra < R && x < L ? reads[size_t(ra) * L + x] : -1;
         const int cb = ra + 8 < R && x < L ? reads[size_t(ra + 8) * L + x]
                                            : -1;
-        const uint32_t va =
-            ca >= 0 && ca < 8 ? uint32_t(A_ONE) << (8 * (ca & 3)) : 0u;
-        const uint32_t vb =
-            cb >= 0 && cb < 8 ? uint32_t(A_ONE) << (8 * (cb & 3)) : 0u;
-        sA[f * 32 + lane] = make_uint4(ca < 4 ? va : 0u, cb < 4 ? vb : 0u,
-                                       ca >= 4 ? va : 0u, cb >= 4 ? vb : 0u);
+        sA[f * 32 + lane] = Op::row(ca, cb);
       }
       for (int i = threadIdx.x; i < BR; i += blockDim.x)
         sLen[i] = r0 + i < R ? lengths[r0 + i] : 0;
@@ -313,16 +386,16 @@ realign_mma_kernel(const int8_t* __restrict__ reads,
     const int tm_lo = min(L - 1, len_lo - 1 - q);
     const int tm_hi = min(L - 1, len_hi - 1 - q);
     const int tmax = __reduce_max_sync(0xffffffffu, max(tm_lo, tm_hi));
-    // this thread's B words: event 8 wev + g of the tile, K word 2 tig
-    const uint32_t* b_ev = sB + (buf * BE + 8 * wev + g) * 2 * P + 2 * tig;
+    // this thread's B: event 8 wev + g of the tile, position tig
+    const B* b_ev = sB + buf * tile + ((8 * wev + g) * P + tig) * Op::PER_POS;
     int best[4] = {-1, -1, -1, -1};
 
     for (int p = 1; p <= 4; ++p) {
       for (int t0 = p; t0 <= tmax; t0 += 4 * S) {
         // the splits of this phase up to tmax, at most S of them
-        split_group<S>(min(S, (tmax - t0) / 4 + 1), af,
-                       b_ev + 2 * (PAD_L + L - t0), KS, t0, tm_lo, tm_hi,
-                       best);
+        split_group<S, Op>(min(S, (tmax - t0) / 4 + 1), af,
+                           b_ev + (PAD_L + L - t0) * Op::PER_POS, KS, t0,
+                           tm_lo, tm_hi, best);
       }
     }
 #pragma unroll
@@ -332,226 +405,95 @@ realign_mma_kernel(const int8_t* __restrict__ reads,
       if (r < R && e < E) {
         const bool none = best[j] < 0;
         const int len = j < 2 ? len_lo : len_hi;
-        const int mm = none ? BIG : len - (best[j] >> 8);
-        const int bt = none ? 0 : 255 - (best[j] & 255);
+        const int mm = none ? BIG : len - (best[j] >> Op::SHIFT);
+        const int bt = none ? 0 : Op::T - (best[j] & Op::T);
         if (out.best_t)
           emit<true>(out, r, E, e, mm, bt, max_mm);
         else
           emit<false>(out, r, E, e, mm, bt, max_mm);
       }
     }
-    __syncthreads();  // every warp is done with `buf` (and the rows)
-  }                   // before they are refilled
+    __syncthreads();  // every warp is done with `buf` and the rows before
+  }                   // they are refilled
 }
 
-// ---- wide rows (L > FAST_MAX_L) -----------------------------------------
-
-// Planes of one code word group: bit u of word w is position 32*w + u.
-__device__ __forceinline__ void code_planes(const int8_t* codes, int n,
-                                            int w, uint32_t& p0,
-                                            uint32_t& p1, uint32_t& p2,
-                                            uint32_t& v) {
-  p0 = p1 = p2 = v = 0u;
-  for (int b = 0; b < 32; ++b) {
-    int u = 32 * w + b;
-    if (u >= n) break;
-    int c = codes[u];
-    if (c >= 0 && c < 8) {
-      v |= 1u << b;
-      p0 |= uint32_t(c & 1) << b;
-      p1 |= uint32_t((c >> 1) & 1) << b;
-      p2 |= uint32_t((c >> 2) & 1) << b;
-    }
-  }
-}
-
-// Row planes, [plane][word][row]: word w of plane p of row r at
-// (p * NW + w) * R + r.
-__global__ void row_planes_kernel(const int8_t* __restrict__ reads, int R,
-                                  int L, int NW, uint32_t* __restrict__ out) {
-  const size_t total = size_t(R) * NW;
-  for (size_t i = blockIdx.x * size_t(blockDim.x) + threadIdx.x; i < total;
-       i += size_t(gridDim.x) * blockDim.x) {
-    const int r = int(i % R), w = int(i / R);
-    uint32_t p0, p1, p2, v;
-    code_planes(reads + size_t(r) * L, L, w, p0, p1, p2, v);
-    out[(0 * size_t(NW) + w) * R + r] = p0;
-    out[(1 * size_t(NW) + w) * R + r] = p1;
-    out[(2 * size_t(NW) + w) * R + r] = p2;
-    out[(3 * size_t(NW) + w) * R + r] = v;
-  }
-}
-
-// Event planes, [event][side][plane][3 NW], data words at [NW, 2NW) and
-// zeros around them.
-__global__ void event_planes_kernel(const int8_t* __restrict__ flank_l,
-                                    const int8_t* __restrict__ comb, int E,
-                                    int L, int NW,
-                                    uint32_t* __restrict__ out) {
-  const int SW = 3 * NW;
-  const size_t total = size_t(E) * 2 * SW;
-  for (size_t i = blockIdx.x * size_t(blockDim.x) + threadIdx.x; i < total;
-       i += size_t(gridDim.x) * blockDim.x) {
-    const int e = int(i / (2 * SW));
-    const int s = int((i / SW) % 2);
-    const int w = int(i % SW) - NW;
-    uint32_t p0 = 0u, p1 = 0u, p2 = 0u, v = 0u;
-    if (w >= 0 && w < NW)
-      code_planes((s == 0 ? flank_l : comb) + size_t(e) * L, L, w, p0, p1,
-                  p2, v);
-    uint32_t* dst = out + (size_t(e) * 2 + s) * 4 * SW + (w + NW);
-    dst[0 * SW] = p0;
-    dst[1 * SW] = p1;
-    dst[2 * SW] = p2;
-    dst[3 * SW] = v;
-  }
-}
-
-template <bool DENSE>
-__global__ void __launch_bounds__(BLOCK_R)
-realign_wide_kernel(const uint32_t* __restrict__ rpl,
-                    const int32_t* __restrict__ lengths,
-                    const uint32_t* __restrict__ epl, int R, int E, int L,
-                    int NW, int q, int max_mm, int n_row_blocks, Out out) {
-  const int SW = 3 * NW;
-  const int r = (blockIdx.x % n_row_blocks) * BLOCK_R + threadIdx.x;
-  const int e0 = (blockIdx.x / n_row_blocks) * TILE_E;
-  const int ne = min(TILE_E, E - e0);
-  if (r >= R) return;
-  const int len = lengths[r];
-  const uint32_t* rp0 = rpl + r;
-  const uint32_t* rp1 = rp0 + size_t(NW) * R;
-  const uint32_t* rp2 = rp1 + size_t(NW) * R;
-  const uint32_t* rv = rp2 + size_t(NW) * R;
-
-  for (int e = 0; e < ne; ++e) {
-    const uint32_t* pl = epl + size_t(e0 + e) * 2 * 4 * SW;
-    const uint32_t* pc = pl + 4 * SW;
-    int best = BIG;
-    int bt = 0;
-    for (int t = 1; t < L && t + q <= len - 1; ++t) {
-      // prefix: flankL shifted right by L - t lines flankL[L - t + u] up
-      // with read position u; suffix: comb shifted left by t lines
-      // comb[u - t] up with u
-      const int s = L - t;
-      const int ws = NW + (s >> 5), bs = s & 31;
-      const int wt = NW - (t >> 5), bl = t & 31;
-      int match = 0;
-      for (int w = 0; w < NW; ++w) {
-        const size_t rw = size_t(w) * R;
-        const uint32_t x0 = rp0[rw], x1 = rp1[rw], x2 = rp2[rw], xv = rv[rw];
-        const int i = ws + w, j = wt + w;
-        uint32_t a0 = __funnelshift_r(pl[i], pl[i + 1], bs);
-        uint32_t a1 = __funnelshift_r(pl[SW + i], pl[SW + i + 1], bs);
-        uint32_t a2 = __funnelshift_r(pl[2 * SW + i], pl[2 * SW + i + 1], bs);
-        uint32_t av = __funnelshift_r(pl[3 * SW + i], pl[3 * SW + i + 1], bs);
-        match += __popc(xv & av & ~((x0 ^ a0) | (x1 ^ a1) | (x2 ^ a2)));
-        uint32_t c0 = __funnelshift_l(pc[j - 1], pc[j], bl);
-        uint32_t c1 = __funnelshift_l(pc[SW + j - 1], pc[SW + j], bl);
-        uint32_t c2 = __funnelshift_l(pc[2 * SW + j - 1], pc[2 * SW + j], bl);
-        uint32_t cv = __funnelshift_l(pc[3 * SW + j - 1], pc[3 * SW + j], bl);
-        match += __popc(xv & cv & ~((x0 ^ c0) | (x1 ^ c1) | (x2 ^ c2)));
-      }
-      const int mm = len - match;  // (t - matchL) + ((len - t) - matchC)
-      if (mm < best) {
-        best = mm;
-        bt = t;
-      }
-    }
-    emit<DENSE>(out, r, E, e0 + e, best, bt, max_mm);
-  }
-}
-
-// Fast-path layout for width L: P target positions (>= PAD_L + 2L + 4,
-// = 4 mod 16, so an event's stride is 8 words mod 32), K steps, warps
-// along rows (WR) and events (WE), and the dynamic shared memory bytes.
-struct FastTiles {
+// Layout for width L: P target positions an event, K steps, warps along
+// rows (WR) and events (WE), dynamic shared memory bytes. One-hots: P >=
+// PAD_L + 2L + 4, = 4 mod 16 (an event's stride is 8 words mod 32); 64 x
+// 16, 32 x 16 or 16 x 16 rows x events. Shift codes: P >= PAD_L + 2L + 2,
+// = 16 mod 128 (4 words mod 32); 64 x 16, 16 x 16 or 16 x 8. WR = 0 if
+// none fits.
+struct Tiles {
   int P, KS, WR, WE;
   size_t smem;
 };
 
-FastTiles fast_tiles(int L) {
-  FastTiles f;
-  f.P = PAD_L + 2 * L + 4;
-  f.P += ((4 - f.P) % 16 + 16) % 16;
-  f.KS = (L + 3) / 4;
-  f.WE = 2;
-  for (f.WR = 4; f.WR >= 1; f.WR /= 2) {
-    f.smem = size_t(16 * f.WR) * (8 * f.KS + 1) * 4 +
-             size_t(2) * 8 * f.WE * 2 * f.P * 4;
-    if (f.smem <= MAX_SMEM) break;
+Tiles tiles(int L) {
+  const bool fast = L <= FAST_MAX_L;
+  const int pos = fast ? 8 : 1;   // target bytes a position
+  const int a16 = fast ? 16 : 2;  // row-tile bytes a lane per K step
+  Tiles w;
+  w.P = PAD_L + 2 * L + (fast ? 4 : 2);
+  w.P += fast ? ((4 - w.P) % 16 + 16) % 16 : ((16 - w.P) % 128 + 128) % 128;
+  w.KS = (L + 3) / 4;
+  const int shapes[2][3][2] = {{{4, 2}, {2, 2}, {1, 2}},
+                               {{4, 2}, {1, 2}, {1, 1}}};
+  for (const auto& s : shapes[fast ? 0 : 1]) {
+    w.WR = s[0], w.WE = s[1];
+    w.smem = size_t(2) * 8 * w.WE * w.P * pos +
+             size_t(w.WR) * w.KS * 32 * a16 + size_t(16 * w.WR) * 4;
+    if (w.smem <= MAX_SMEM) return w;
   }
-  return f;
+  w.WR = 0;
+  return w;
 }
 
-int launch_fast(const int8_t* reads, const int32_t* lengths,
-                const int8_t* flank_l, const int8_t* comb, int R, int E,
-                int L, int q, int max_mm, const Out& out, uint32_t* scratch,
-                cudaStream_t stream) {
-  const FastTiles f = fast_tiles(L);
-  if (f.WR < 1 || (uintptr_t(scratch) & 15))
+template <int S, class Op>
+int launch(const int8_t* reads, const int32_t* lengths,
+           const int8_t* flank_l, const int8_t* comb, int R, int E, int L,
+           int q, int max_mm, const Out& out, uint32_t* scratch,
+           cudaStream_t stream) {
+  const Tiles w = tiles(L);
+  if (w.WR < 1 || (uintptr_t(scratch) & 15))
     return int(cudaErrorInvalidValue);
-  uint2* tgt = reinterpret_cast<uint2*>(scratch);
-  const long long prep_blocks = (2LL * E * f.P + 255) / 256;
-  target_onehots_kernel<<<unsigned(prep_blocks < 1024 ? prep_blocks : 1024),
-                          256, 0, stream>>>(flank_l, comb, E, L, f.P, tgt);
+  auto* tgt = reinterpret_cast<typename Op::B*>(scratch);
+  const long long prep_blocks = (1LL * E * w.P + 255) / 256;
+  target_kernel<Op><<<unsigned(prep_blocks < 1024 ? prep_blocks : 1024), 256,
+                      0, stream>>>(flank_l, comb, E, L, w.P, tgt);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return int(err);
-  auto kernel = L <= SMALL_L ? realign_mma_kernel<4> : realign_mma_kernel<8>;
+  auto kernel = realign_mma_kernel<S, Op>;
   err = cudaFuncSetAttribute(kernel,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             int(f.smem));
+                             int(w.smem));
   if (err != cudaSuccess) return int(err);
   // one persistent block per resident slot: as many as fit on the SMs
   int dev = 0, n_sm = 132, per_sm = 1;
   cudaGetDevice(&dev);
   cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, dev);
-  const int threads = 32 * f.WR * f.WE;
+  const int threads = 32 * w.WR * w.WE;
   cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads,
-                                                f.smem);
-  const long long units = (long long)((R + 16 * f.WR - 1) / (16 * f.WR)) *
-                          ((E + 8 * f.WE - 1) / (8 * f.WE));
+                                                w.smem);
+  const long long units = (long long)((R + 16 * w.WR - 1) / (16 * w.WR)) *
+                          ((E + 8 * w.WE - 1) / (8 * w.WE));
   if (units > 0x7fffffffLL) return int(cudaErrorInvalidValue);
   const long long slots = (long long)n_sm * (per_sm > 0 ? per_sm : 1);
-  kernel<<<unsigned(units < slots ? units : slots), threads, f.smem,
-           stream>>>(reads, lengths, tgt, R, E, L, q, max_mm, f.P, f.KS, f.WR,
-                     f.WE, out);
-  return int(cudaGetLastError());
-}
-
-int launch_wide(const int8_t* reads, const int32_t* lengths,
-                const int8_t* flank_l, const int8_t* comb, int R, int E,
-                int L, int q, int max_mm, const Out& out, uint32_t* scratch,
-                cudaStream_t stream) {
-  const int n_row_blocks = (R + BLOCK_R - 1) / BLOCK_R;
-  const long long blocks =
-      (long long)n_row_blocks * ((E + TILE_E - 1) / TILE_E);
-  if (blocks > 0x7fffffffLL) return int(cudaErrorInvalidValue);
-  const int NW = (L + 31) / 32;
-  uint32_t* rpl = scratch;
-  uint32_t* epl = scratch + size_t(4) * NW * R;
-  row_planes_kernel<<<1024, 256, 0, stream>>>(reads, R, L, NW, rpl);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return int(err);
-  event_planes_kernel<<<1024, 256, 0, stream>>>(flank_l, comb, E, L, NW, epl);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return int(err);
-  auto kernel = out.best_t ? realign_wide_kernel<true>
-                           : realign_wide_kernel<false>;
-  kernel<<<unsigned(blocks), BLOCK_R, 0, stream>>>(
-      rpl, lengths, epl, R, E, L, NW, q, max_mm, n_row_blocks, out);
+  kernel<<<unsigned(units < slots ? units : slots), threads, w.smem,
+           stream>>>(reads, lengths, tgt, R, E, L, q, max_mm, w.P, w.KS, w.WR,
+                     w.WE, out);
   return int(cudaGetLastError());
 }
 
 }  // namespace
 
-// uint32 words of device scratch realign_launch needs: the one-hot
-// targets on the fast path, the bit planes on the wide path.
+// uint32 words of device scratch realign_launch needs: the targets, as
+// one-hots (8 bytes a position) up to L = 256, else shift codes (1 byte).
 extern "C" long long realign_scratch_words(int R, int E, int L) {
-  if (L <= FAST_MAX_L) return 2LL * E * fast_tiles(L).P;
-  const long long NW = (L + 31) / 32;
-  return 4 * NW * R + 2LL * 4 * 3 * NW * E;
+  return 1LL * E * tiles(L).P * (L <= FAST_MAX_L ? 8 : 1) / 4;
 }
+
+// The widest row realign_launch takes.
+extern "C" int realign_max_width() { return WIDE_MAX_L; }
 
 // Launches on `stream`; returns the cudaError_t of the launch (0 = ok).
 // `scratch` holds realign_scratch_words(R, E, L) words, 16-byte aligned.
@@ -564,16 +506,16 @@ extern "C" int realign_launch(const int8_t* reads, const int32_t* lengths,
                               int32_t* mm, uint8_t* ok, const uint8_t* valid,
                               int32_t* rec, int cap, int32_t* count,
                               uint32_t* scratch, cudaStream_t stream) {
-  if (R <= 0 || E <= 0 || L < 1 || q < 0 || q >= L)
+  if (R <= 0 || E <= 0 || L < 1 || L > WIDE_MAX_L || q < 0 || q >= L)
     return int(cudaErrorInvalidValue);
   if (best_t ? !(mm && ok) : !(valid && rec && count && cap >= 0))
     return int(cudaErrorInvalidValue);
   const Out out{best_t, mm, ok, valid, rec, cap, count};
-  if (L <= FAST_MAX_L)
-    return launch_fast(reads, lengths, flank_l, comb, R, E, L, q, max_mm, out,
-                       scratch, stream);
-  return launch_wide(reads, lengths, flank_l, comb, R, E, L, q, max_mm, out,
-                     scratch, stream);
+  auto go = L <= SMALL_L     ? launch<4, OneHots>
+            : L <= FAST_MAX_L ? launch<S_MAX, OneHots>
+                              : launch<S_MAX, ShiftCodes>;
+  return go(reads, lengths, flank_l, comb, R, E, L, q, max_mm, out, scratch,
+            stream);
 }
 
 extern "C" const char* realign_error_string(int code) {

@@ -3,8 +3,11 @@
 Replaces the Pallas TPU kernel tophat_tpu/ops/pallas/realign_kernel.py
 (_realign_kernel, launched by realign_pallas and fed by prepare_inputs).
 The CUDA C++ kernel is tophat_tpu_torch/csrc/realign.cu (its header gives
-the design and what bounds it on an H100); it is compiled for sm_90a with
-nvcc into <repo>/build/cuda at first use and called through ctypes.
+the design and what bounds it on an H100): int8 tensor-core products for
+every row width up to MAX_L = 4,096, with one-hot operands up to 256
+positions and one-byte codes expanded in registers above. It is compiled
+for sm_90a with nvcc into <repo>/build/cuda at first use and called
+through ctypes.
 
 For one insertion-length group q, every (row, event) pair gets
   mm(t) = (t - matchL(t)) + ((len - t) - matchC(t)),  1 <= t <= len-1-q
@@ -17,7 +20,8 @@ which a read N matches a genome N (the conv reference realign_chunk, with
 realign_group (dense (R, E) tables) and realign_group_sparse (the records
 of the ok pairs only, row-major) take the kernel for CUDA tensors and the
 plain torch version (an fp32 one-hot matmul per split point, exact below
-2^24) for CPU tensors; there is no other fallback.
+2^24) for CPU tensors; there is no other fallback. CUDA rows wider than
+MAX_L raise ValueError; the plain version takes any width.
 """
 
 from __future__ import annotations
@@ -30,6 +34,7 @@ import torch
 
 BIG = 32767
 C = 8                # one-hot channels of the plain version (codes 0..7)
+MAX_L = 4096         # widest row the kernel takes (its argmin packing)
 
 _ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
@@ -71,6 +76,9 @@ def build() -> ctypes.CDLL:
     lib.realign_scratch_words.restype = ctypes.c_longlong
     lib.realign_error_string.argtypes = [i]
     lib.realign_error_string.restype = ctypes.c_char_p
+    if lib.realign_max_width() != MAX_L:
+        raise RuntimeError(f"{so} takes rows up to "
+                           f"{lib.realign_max_width()}, not {MAX_L}")
     _LIB.append(lib)
     return lib
 
@@ -159,8 +167,9 @@ def _check(reads, lengths, flank_l, comb, q: int, valid=None):
                              f"{x.dtype} {tuple(x.shape)}")
         if not x.is_contiguous():
             raise ValueError(f"{name}: not contiguous")
-    if L < 1:
-        raise ValueError(f"row width {L} < 1")
+    if not 1 <= L <= MAX_L:
+        raise ValueError(f"row width {L} outside the realign kernel's "
+                         f"1..{MAX_L}")
     if not 0 <= q < L:
         raise ValueError(f"insertion length {q} outside 0..{L - 1}")
 
@@ -195,11 +204,10 @@ def realign_group(reads, lengths, flank_l, comb, q: int, max_mm: int):
     """(best_t, mm, ok), each (R, E), for one insertion-length group.
 
     reads: (R, L) int8 codes (-1 padded); lengths: (R,) int32 in 0..L;
-    flank_l, comb: (E, L) int8 from prepare_targets. Any width L >= 1
-    (rows up to 256 wide take the kernel's tensor-core path, wider rows
-    its bit-plane path; each needs a device scratch buffer). CUDA tensors
-    launch the kernel on the current stream; CPU tensors take
-    realign_plain."""
+    flank_l, comb: (E, L) int8 from prepare_targets. CUDA tensors launch
+    the kernel on the current stream (any width 1 <= L <= MAX_L, all on
+    the int8 tensor cores; a device scratch buffer holds the targets);
+    CPU tensors take realign_plain, at any width."""
     if reads.device.type == "cpu":
         return realign_plain(reads, lengths, flank_l, comb, q, max_mm)
     _check(reads, lengths, flank_l, comb, q)
