@@ -9,7 +9,9 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
   3. each kernel against its plain torch version on the card, at the main
      path's shapes and wider (L = 25 to 1,000; at the annotated event
      count, L = 100 and 300, the latter held and its plain version timed
-     on 256 rows), through the realign kernel's dense and sparse entries,
+     on 256 rows; R = 1,024, E = 128 at L = 2,048 to 16,384, streamed,
+     8,192 and 16,384 held and timed on 64 rows), through the realign
+     kernel's dense and sparse entries,
      demanding exact equality; kernel, sparse-entry and plain times, the
      bound and share of bound, and at L = 100 and 300 the conv1d
      yardstick (phases 4 and 6 repeat the check on the exact inputs the
@@ -33,8 +35,9 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      run with the butterfly and microexon searches, and through the CLI a
      -G paired run (120 synthetic genes), a --b2 single-end run, a -C
      run from colorspace FASTQ and a paired run of the slice as three
-     contigs in two contig groups (--max-index-bases), on the card and on
-     the CPU, which must write identical files
+     contigs in two contig groups (--max-index-bases) and a single-end
+     run of 128 reads of 5,000 and 8,192 bp, on the card and on the CPU,
+     which must write identical files
   8. TopHat's annotated default run through the CLI (-G genes.gtf
      --transcriptome-index, paired, coverage search on) on the phase-4
      genome: a synthetic annotation of 21,000 transcripts (~50,000
@@ -104,9 +107,19 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      L and q, the realign stage's seconds and peak device memory; fails
      if a call is not 300 wide or under 100% recall (annotated-junction
      mates, unannotated-intron mates 1)
-Phases run in the order 1-10, 12, 11, 13, 14. Launches in the kernels
-line are summed over phases 4, 6, 8, 9, 10, 11, 12, 13 and 14 (each
-counted from 0 just before its timed run), max_abs_err over every check.
+ 15. reads of any length: the single-end CLI (--no-coverage-search) on
+     the phase-4 genome and index, reads of 5,000 and 8,192 bp (full-
+     length cDNA, assembled transcripts), 25% across a phase-4 intron: a
+     run of 512 reads holding every realign call against its plain
+     version on up to 256 of its rows, then a timed run of 2,048 reads
+     with reads/s, stage seconds, every realign call's R, E, L and q and
+     peak device memory, its calls held the same way; fails if no
+     realign call is wider than 4,096, no sparse realign was launched, or
+     under 100% junction-read recall
+Phases run in the order 1-10, 12, 11, 13, 14, 15. Launches in the
+kernels line are summed over phases 4, 6, 8, 9, 10, 11, 12, 13, 14 and
+15 (each counted from 0 just before its timed run), max_abs_err over
+every check.
 Standard output ends with four lines: the measured numbers (JSON), the
 kernels (JSON), the nvidia-smi name/power line, and the result JSON.
 """
@@ -225,7 +238,27 @@ def realign_case(R: int, E: int, L: int, q: int, seed: int):
 
 ANNOTATED_E = 49998         # phase 8's event count (49,929 annotated introns
 #                             and the discovered events)
-PLAIN_ROWS = 256            # rows held and timed at the annotated L = 300
+LONG_READ_LEN = 300         # MiSeq v3's 2 x 300 bp (phase 14)
+# Phase 3's (R, E, L, q): the main path's widths, then wider rows (150-bp
+# reads on one-hot operands; 300 and 1,000 positions on shift codes), the
+# main path's own shape, an event table of a real transcriptome's size,
+# the annotated run's (phase 8) own shape, the fusion run's (phase 10)
+# dense call over every row's segments; then 257 positions (the first
+# width past one-hots), 512, phase 14's annotated long-read shape, and
+# rows past the 64-row tile, whose operands stream: 2,048 and 4,096
+# (where the kernel once kept one- and two-warp tiles whole), 4,097 (past
+# the 4,096 its argmin once packed), 8,192 (phase 15's width) and 16,384.
+REALIGN_CASES = [
+    (16384, 128, 100, 0), (16384, 128, 100, 3), (16384, 128, 25, 0),
+    (8192, 128, 150, 0), (8192, 128, 300, 3), (8192, 128, 1000, 0),
+    (8192, 69, 100, 0), (8192, 4096, 100, 0), (4096, ANNOTATED_E, 100, 0),
+    (65536, 76, 25, 0), (8192, 128, 257, 0), (8192, 128, 512, 3),
+    (4096, ANNOTATED_E, LONG_READ_LEN, 0), (1024, 128, 2048, 0),
+    (1024, 128, 4096, 3), (1024, 128, 4097, 0), (1024, 128, 8192, 3),
+    (1024, 128, 16384, 0)]
+PLAIN_WORK = 3e12           # R E L^2 above which the plain version holds a
+#                             row subset (its 2 R E 8 L per split)
+PLAIN_ROWS = 256            # rows held and timed there (64 past L = 4,096)
 INT8_OPS_PER_S = 1.979e15   # H100 SXM dense int8 tensor-core peak
 BYTES_PER_S = 3.35e12       # H100 SXM HBM3
 
@@ -289,18 +322,7 @@ def phase_kernels():
                                                      realign_group_sparse,
                                                      realign_plain)
 
-    # the main path's widths, then wider rows (150-bp reads on one-hot
-    # operands; 300 and 1,000 positions on shift codes), the main path's
-    # own shape, an event table of a real transcriptome's size, the
-    # annotated run's (phase 8) own shape, the fusion run's (phase 10)
-    # dense call over every row's segments; then 257 positions (the first
-    # width past one-hots), 512, and phase 14's annotated long-read shape
-    cases = [(16384, 128, 100, 0), (16384, 128, 100, 3), (16384, 128, 25, 0),
-             (8192, 128, 150, 0), (8192, 128, 300, 3), (8192, 128, 1000, 0),
-             (8192, 69, 100, 0), (8192, 4096, 100, 0),
-             (4096, ANNOTATED_E, 100, 0), (65536, 76, 25, 0),
-             (8192, 128, 257, 0), (8192, 128, 512, 3),
-             (4096, ANNOTATED_E, LONG_READ_LEN, 0)]
+    cases = REALIGN_CASES
     report = []
     for ci, (R, E, L, q) in enumerate(cases):
         shape = f"R={R} E={E} L={L} q={q}"
@@ -310,7 +332,7 @@ def phase_kernels():
         got = realign_group(*args, q, 8)
         got_s = realign_group_sparse(*args, q, 8, valid)
         held, rows = args, None
-        if R * E * L < 3e10:
+        if R * E * L * L <= PLAIN_WORK:
             ref = realign_plain(*args, q, 8)
             ref_s = pack_sparse(ref[0], ref[1], ref[2] & valid[None, :])
             torch.cuda.synchronize()
@@ -324,10 +346,11 @@ def phase_kernels():
                      f"result at {shape} ({got_s.shape[1]} vs "
                      f"{ref_s.shape[1]} records)")
         else:
-            # the annotated long-read shape: the plain version's R E (L - 1)
-            # products and (R, E) int64 tables, held and timed on rows
+            # the annotated long-read shape and the widest rows: the plain
+            # version's R E (L - 1) products and (R, E) int64 tables, held
+            # and timed on rows
             rows = np.sort(np.random.default_rng(ci).choice(
-                R, PLAIN_ROWS, replace=False))
+                R, PLAIN_ROWS if L <= 4096 else 64, replace=False))
             err, _ = hold_realign("dense", args + (q, 8), got, rows)
             hold_realign("sparse", args + (q, 8, valid), got_s, rows)
             sel = torch.as_tensor(rows, device="cuda")
@@ -337,7 +360,7 @@ def phase_kernels():
         if n_ok < held[0].shape[0] // 4:
             fail(f"realign case {shape}: only {n_ok} ok pairs; the check "
                  "input is degenerate")
-        iters = 20 if L <= 300 and R * E * L < 3e10 else 3
+        iters = 20 if L <= 300 and rows is None else 3
         ms = cuda_ms(lambda: realign_group(*args, q, 8), iters)
         sparse_ms = cuda_ms(lambda: realign_group_sparse(*args, q, 8, valid),
                             iters)
@@ -578,12 +601,12 @@ def write_fasta(path, codes, width: int = 4096, cuts=(0,)):
 
 
 def write_fastq(path, seqs, prefix: str = "r"):
+    """FASTQ of `seqs` (rows of codes, or a list of them of any lengths)."""
     lut = np.frombuffer(b"ACGTN", np.uint8)
-    qual = b"I" * seqs.shape[1]
     with open(path, "wb") as f:
         for i, s in enumerate(seqs):
             f.write(b"@%s%d\n%s\n+\n%s\n" % (prefix.encode(), i,
-                                            lut[s].tobytes(), qual))
+                                            lut[s].tobytes(), b"I" * len(s)))
 
 
 def junction_recall(sam_path, n_reads: int = N_READS,
@@ -1233,6 +1256,7 @@ def write_color_fastq(path, seqs, seed: int):
 
 SLICE_CUTS = (0, 700_000, 1_400_000)   # phase 7's grouped case: 3 contigs
 SLICE_GROUP_BASES = 1_500_000           # -> 2 groups (2 contigs, 1)
+SMALL_LONG_READS = 128                  # phase 7's reads of 5,000 / 8,192 bp
 
 
 def phase_small_slice_modes(codes, devices=("cuda", "cpu")):
@@ -1240,9 +1264,11 @@ def phase_small_slice_modes(codes, devices=("cuda", "cpu")):
     the CPU: a -G paired run (120 synthetic genes, 2,048 pairs, the
     coverage search on), a --b2 single-end run (2,048 reads, 10% with a
     1-2 bp indel), a -C single-end run from colorspace FASTQ (2,048
-    reads, a third with a color error) and a grouped paired run (the
+    reads, a third with a color error), a grouped paired run (the
     slice as three contigs under --max-index-bases, two contig groups,
-    default mode, the -G run's pairs). Colorspace is held only here: a
+    default mode, the -G run's pairs) and a single-end run of 128 reads
+    of 5,000 and 8,192 bp without the coverage search (phase 15's
+    design: realign rows 8,192 wide). Colorspace is held only here: a
     full-width run would build a second 2^27-base index for a legacy
     input. Every output file must be byte-identical."""
     from tophat_tpu_torch.cli.main import main as cli_main
@@ -1270,17 +1296,21 @@ def phase_small_slice_modes(codes, devices=("cuda", "cpu")):
     write_fastq(b2_fq, b2_seqs)
     color_fq = os.path.join(d, "color.fq")
     write_color_fastq(color_fq, make_reads(small, juncs, 37, SMALL_PAIRS), 39)
+    long_fq = os.path.join(d, "long.fq")
+    write_fastq(long_fq, make_long_single_reads(small, juncs, 41,
+                                                SMALL_LONG_READS))
     runs = {"gtf": ["-G", gtf, fa, fq1, fq2],
             "b2": ["--b2", "--no-coverage-search", fa, b2_fq],
             "color": ["-C", "--no-coverage-search", fa, color_fq],
             "grouped": ["--max-index-bases", str(SLICE_GROUP_BASES), fa3,
-                        fq1, fq2]}
+                        fq1, fq2],
+            "long": ["--no-coverage-search", fa, long_fq]}
     for dev in devices:
         t0 = time.time()
         for name, args in runs.items():
             cli_main_checked(cli_main, ["-o", os.path.join(d, f"{name}_{dev}"),
                                         "--device", dev] + args)
-        log(f"small -G / --b2 / -C / grouped runs on {dev}: "
+        log(f"small -G / --b2 / -C / grouped / long-read runs on {dev}: "
             f"{time.time() - t0:.1f} s")
     a, b = devices
     for dev in devices:
@@ -1314,14 +1344,20 @@ def phase_small_slice_modes(codes, devices=("cuda", "cpu")):
     missed_c = sum(1 for i in range(SMALL_PAIRS)
                    if i % 4 and i % 3 != 1 and f"c{i}" not in color_names)
     n_color = len(color_names)
-    if missed or missed_b2 or missed_c:
-        fail(f"small -G / --b2 / -C runs: {missed} annotated-junction or "
-             f"intron mates, {missed_b2} --b2 junction or indel reads, "
-             f"{missed_c} error-free contiguous colorspace reads missed")
-    log(f"small input (2^21 + 4096 bases): -G paired, --b2, -C and grouped "
-        f"paired (3 contigs, 2 groups) runs byte-identical on {a} and {b}; "
-        f"recall 100% (-G, --b2); {n_color}/{SMALL_PAIRS} colorspace reads "
-        "aligned")
+    recall_long = junction_recall(os.path.join(d, f"long_{a}",
+                                               "accepted_hits.sam"),
+                                  SMALL_LONG_READS)
+    if missed or missed_b2 or missed_c or recall_long < 100.0:
+        fail(f"small -G / --b2 / -C / long-read runs: {missed} annotated-"
+             f"junction or intron mates, {missed_b2} --b2 junction or indel "
+             f"reads, {missed_c} error-free contiguous colorspace reads "
+             f"missed; long-read junction recall {recall_long:.2f}%")
+    log(f"small input (2^21 + 4096 bases): -G paired, --b2, -C, grouped "
+        f"paired (3 contigs, 2 groups) and long-read single-end "
+        f"({SMALL_LONG_READS} reads of "
+        f"{' and '.join(map(str, LONG_SE_LENS))} bp) runs byte-identical on "
+        f"{a} and {b}; recall 100% (-G, --b2, long reads); "
+        f"{n_color}/{SMALL_PAIRS} colorspace reads aligned")
 
 
 N_GENES = 8400             # phase 8: 21,000 transcripts
@@ -2567,7 +2603,6 @@ def phase_mesh(codes, juncs, index):
 
 # --------------------------------------------------------------- phase 14
 
-LONG_READ_LEN = 300         # MiSeq v3's 2 x 300 bp
 LONG_CHECK_PAIRS = 2048
 LONG_PAIRS = 8192
 LONG_HOLD_ROWS = 1024       # rows of each realign call held in the check
@@ -2650,6 +2685,163 @@ def phase_long_reads(codes, juncs, index, transcripts):
                 path_err=max(check.err, held.err))
 
 
+# --------------------------------------------------------------- phase 15
+
+LONG_SE_LENS = (5000, 8192)  # full-length cDNA, assembled transcripts
+LONG_SE_CHECK = 512
+LONG_SE_READS = 2048
+LONG_SE_HOLD_ROWS = 256     # rows of each realign call held
+
+
+def make_long_single_reads(codes, juncs, seed: int, n_reads: int,
+                           lens=LONG_SE_LENS):
+    """Single-end reads of 5,000 and 8,192 bp (alternating by read pair
+    of the junction pattern), 25% across a phase-4 intron (r0, r4, ...;
+    anchors of at least 30 bp), the rest contiguous with one mismatch."""
+    r = np.random.default_rng(seed)
+    n = len(codes)
+    seqs = []
+    for i in range(n_reads):
+        L = int(lens[(i // 2) % len(lens)])
+        if i % 4 == 0:
+            while True:
+                left, right = juncs[int(r.integers(0, len(juncs)))]
+                lo, hi = max(30, L - (n - right)), min(L - 30, left + 1)
+                if lo <= hi:
+                    break
+            t = int(r.integers(lo, hi + 1))
+            seq = np.concatenate([codes[left - t + 1:left + 1],
+                                  codes[right:right + L - t]])
+        else:
+            st = int(r.integers(0, n - L))
+            seq = codes[st:st + L].copy()
+            p = int(r.integers(0, L))
+            seq[p] = (seq[p] + 1) % 4
+        seqs.append(seq)
+    return seqs
+
+
+def phase_long_single(codes, juncs, index):
+    """The single-end CLI (--no-coverage-search, phase 4's genome and
+    index) on reads of 5,000 and 8,192 bp, 25% across a phase-4 intron:
+    a run of 512 reads holding every realign call against its plain
+    version on up to 256 of its rows, then a timed run of 2,048 reads
+    with reads/s, stage seconds, every realign call's R, E, L and q and
+    peak device memory, its calls held the same way after it. Fails if
+    no realign call is wider than 4,096 positions, no sparse realign was
+    launched, or junction-read recall is under 100%."""
+    import torch
+
+    from tophat_tpu_torch.cli import main as cli_mod
+    from tophat_tpu_torch.ops import align as align_mod
+    from tophat_tpu_torch.ops import beam as beam_mod
+    from tophat_tpu_torch.ops import events
+    from tophat_tpu_torch.pipeline import run as run_mod
+
+    t_phase = time.time()
+    fa = os.path.join(CACHE, "genome_2p27.fa")
+    fqs = {}
+    for tag, seed, n in (("check", 71, LONG_SE_CHECK),
+                         ("steady", 72, LONG_SE_READS)):
+        fqs[tag] = os.path.join(CACHE, f"long_se_{tag}.fq")
+        write_fastq(fqs[tag], make_long_single_reads(codes, juncs, seed, n))
+    log(f"long single-end inputs: {LONG_SE_CHECK} + {LONG_SE_READS} reads of "
+        f"{' and '.join(map(str, LONG_SE_LENS))} bp "
+        f"({time.time() - t_phase:.1f} s)")
+    argv = lambda out, fq: ["-o", out, "--no-coverage-search", "--tt-index",
+                            index, fa, fq]
+    widths = set()
+
+    def on_call(kind, args, out):
+        widths.add(int(args[0].shape[1]))
+        check(kind, args, out)
+
+    check = PathCheck(max_rows=LONG_SE_HOLD_ROWS)
+    t0 = time.time()
+    with RealignHooks(events, on_call):
+        cli_main_checked(cli_mod.main, argv(
+            os.path.join(CACHE, "long_se_check"), fqs["check"]))
+    log(f"long single-end check run: {time.time() - t0:.1f} s; realign "
+        f"exact in {len(check.shapes)} calls: " + ", ".join(check.shapes))
+
+    clock = StageClock()
+    clock.wrap(cli_mod, "read_fasta", "read_fasta")
+    clock.wrap(run_mod, "_map_mate",
+               "map (prep, full-read align, segments, stitch)")
+    # its word-axis Python loop: 512 words a row at 8,192 bp
+    for mod in (align_mod, beam_mod):
+        clock.wrap(mod, "count_mismatches_packed",
+                   "  of which count_mismatches_packed")
+    clock.wrap(run_mod, "discover_events", "discovery")
+    clock.wrap(run_mod, "candidates_for_mate",
+               "candidates (realign, collect, chains)")
+    clock.wrap(run_mod, "realign_events_sparse", "  of which realign, sparse")
+    clock.wrap(run_mod, "default_chains", "  of which default chains")
+    clock.wrap(run_mod, "accumulate_event_stats", "stats + filter")
+    clock.wrap(run_mod, "filter_junctions", "stats + filter")
+    kept, calls = [], []
+    keep = keep_calls(kept)
+
+    def on_timed(kind, args, got):
+        widths.add(int(args[0].shape[1]))
+        calls.append(realign_call_shape(kind, args))
+        keep(kind, args, got)
+
+    out = os.path.join(CACHE, "long_se_steady")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    realign_launches(reset=True)
+    t0 = time.time()
+    try:
+        with RealignHooks(events, on_timed):
+            cli_main_checked(cli_mod.main, argv(out, fqs["steady"]))
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        launches = realign_launches()
+    finally:
+        clock.restore()
+    peak = torch.cuda.max_memory_allocated()
+    stages = dict(clock.seconds)
+    top = sum(v for k, v in stages.items() if not k.startswith(" "))
+    stages["rest (FASTQ parse, index load, selection, output)"] = wall - top
+    recall = junction_recall(os.path.join(out, "accepted_hits.sam"),
+                             LONG_SE_READS)
+    realign_s = stages.get("  of which realign, sparse", 0.0)
+    log(f"long single-end timed run: {wall:.2f} s, "
+        f"{LONG_SE_READS / wall:.1f} reads/s; realign {realign_s:.3f} s "
+        f"({100 * realign_s / wall:.1f}% of the run), launches {launches} "
+        f"(dense, sparse); peak device memory {peak / 2**30:.3f} GiB; "
+        f"recall {recall:.2f}%")
+    for k, v in stages.items():
+        log(f"  stage {k}: {v:.3f} s" + calls_note(clock.calls.get(k)))
+    log("  realign calls: " + ", ".join(calls))
+    held = PathCheck(max_rows=LONG_SE_HOLD_ROWS)
+    t0 = time.time()
+    for kind, args, got in kept:
+        held(kind, args, got)
+    log(f"long single-end timed run: realign exact in {len(held.shapes)} "
+        f"calls ({time.time() - t0:.1f} s)")
+    del kept
+    phase_s = time.time() - t_phase
+    log(f"long single-end: phase 15 took {phase_s:.1f} s")
+    if max(widths) <= 4096:
+        fail(f"long single-end runs: realign widths {sorted(widths)}, none "
+             "over 4,096")
+    if launches[1] == 0:
+        fail("the long single-end run never launched the sparse realign "
+             "kernel")
+    if recall < 100.0:
+        fail(f"long single-end run: junction-read recall {recall:.2f}% < "
+             "100%")
+    return dict(wall_s=wall, reads_per_s=LONG_SE_READS / wall,
+                read_lens=list(LONG_SE_LENS), launches=launches,
+                realign_calls=calls, realign_widths=sorted(widths),
+                realign_s=realign_s, peak_device_bytes=peak,
+                recall_pct=recall, stages=stages,
+                stage_calls=dict(clock.calls),
+                path_err=max(check.err, held.err), phase_s=phase_s)
+
+
 def main():
     try:
         import torch
@@ -2694,8 +2886,10 @@ def main():
     mesh = phase_mesh(spliced["codes"], spliced["juncs"], spliced["index"])
     long_reads = phase_long_reads(spliced["codes"], spliced["juncs"],
                                   spliced["index"], transcripts)
+    long_single = phase_long_single(spliced["codes"], spliced["juncs"],
+                                    spliced["index"])
     path_phases = (spliced, paired, annotated, bowtie2, fusion, fusion_gtf,
-                   grouped, mesh, long_reads)
+                   grouped, mesh, long_reads, long_single)
     log(f"smoke phases done in {time.time() - t_start:.1f} s")
 
     print(json.dumps({
@@ -2708,7 +2902,7 @@ def main():
         "annotated": annotated, "bowtie2": bowtie2,
         "small_fusion": small_fusion, "fusion": fusion,
         "fusion_gtf": fusion_gtf, "grouped": grouped, "mesh": mesh,
-        "long_reads": long_reads,
+        "long_reads": long_reads, "long_single": long_single,
         "seconds": time.time() - t_start}), flush=True)
     main_case = next(k for k in kernels if (k["R"], k["E"], k["L"], k["q"])
                      == (8192, 69, 100, 0))     # the main path's shape

@@ -10,10 +10,12 @@ unpacked with `git archive`). Each side's tophat_tpu_torch/ops/
 realign_kernel.py is loaded from its own file and builds its own
 csrc/realign.cu into its own build/cuda. The inputs are chip_smoke.py's
 phase-3 cases: one-hot operands (L <= 256, the annotated event count
-included), then shift codes (257 to 1,000 positions). Both sides must
-give equal (best_t, mm, ok). Prints one JSON line: per case, the two
-runs of each side (ms, CUDA events, mean over `--iters` launches, 3
-above L = 300 or at the annotated event count) and the card.
+included), then shift codes (257 to 16,384 positions). Both sides must
+give equal (best_t, mm, ok); a case one side refuses (a width past its
+limit raises ValueError) is timed on the other side alone. Prints one
+JSON line: per case, the two runs of each side (ms, CUDA events, mean
+over `--iters` launches, 3 above L = 300 or at the annotated event
+count; an empty list for a side that refused it) and the card.
 """
 
 import argparse
@@ -23,10 +25,6 @@ import os
 import sys
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-CASES = [(16384, 128, 100, 0), (16384, 128, 100, 3), (16384, 128, 25, 0),
-         (8192, 128, 150, 0), (8192, 69, 100, 0), (8192, 4096, 100, 0),
-         (4096, 49998, 100, 0), (8192, 128, 257, 0), (8192, 128, 300, 3),
-         (8192, 128, 512, 3), (8192, 128, 1000, 0), (4096, 49998, 300, 0)]
 
 
 def load_kernel(root: str, name: str):
@@ -53,16 +51,25 @@ def main():
     sides = {"other": load_kernel(os.path.abspath(a.other), "rk_other"),
              "this": load_kernel(REPO, "rk_this")}
     out = []
-    for ci, (R, E, L, q) in enumerate(CASES):
+    for ci, (R, E, L, q) in enumerate(chip_smoke.REALIGN_CASES):
         args = chip_smoke.realign_case(R, E, L, q, seed=11 + ci)
-        got = {k: m.realign_group(*args, q, 8) for k, m in sides.items()}
+        got = {}
+        for k, m in sides.items():
+            try:
+                got[k] = m.realign_group(*args, q, 8)
+            except ValueError as e:
+                print(f"R={R} E={E} L={L} q={q}: {k} refuses it ({e})",
+                      file=sys.stderr, flush=True)
         torch.cuda.synchronize()
-        if not all(torch.equal(x, y) for x, y in zip(got["other"],
-                                                      got["this"])):
-            sys.exit(f"realign_ab: the two kernels disagree at R={R} E={E} "
-                     f"L={L} q={q}")
+        if not got or len(got) == 2 and not all(
+                torch.equal(x, y) for x, y in zip(got["other"],
+                                                  got["this"])):
+            sys.exit(f"realign_ab: the two kernels disagree (or both refuse)"
+                     f" at R={R} E={E} L={L} q={q}")
         row = {"R": R, "E": E, "L": L, "q": q, "other_ms": [], "this_ms": []}
         for k in ("other", "this", "this", "other"):
+            if k not in got:
+                continue
             fn = sides[k].realign_group
             row[f"{k}_ms"].append(chip_smoke.cuda_ms(
                 lambda: fn(*args, q, 8),

@@ -22,12 +22,13 @@ def cuda():
 
 def _realign_inputs(dev, L, q, R=2000, E=70, seed=11):
     """Reads planted across events (with mismatches and Ns, some over
-    genome Ns), random rows, zero-length and short rows; events at both
-    genome ends and next to an N run."""
+    genome Ns; a quarter at splits past 4,095 where the row has them),
+    random rows, zero-length and short rows; events at both genome ends
+    and next to an N run."""
     from tophat_tpu_torch.ops.realign_kernel import prepare_targets
 
     rng = np.random.default_rng(seed)
-    n = 50000
+    n = max(50000, 3 * L + 4000)
     genome = rng.integers(0, 4, n).astype(np.int8)
     genome[1000:1030] = 4
     lefts = rng.integers(L, n - 2 * L, E)
@@ -45,7 +46,10 @@ def _realign_inputs(dev, L, q, R=2000, E=70, seed=11):
     lengths = np.full(R, L, np.int32)
     for i in range(R):
         e = 4 + i % 2 if i < 64 and E > 6 else int(rng.integers(0, E))
-        t = int(rng.integers(1, max(2, L - 1 - q)))
+        if i % 4 == 3 and L - 1 - q >= 4096:
+            t = int(rng.integers(4096, L - q))    # past a 12-bit packing
+        else:
+            t = int(rng.integers(1, max(2, L - 1 - q)))
         st = int(lefts[e]) + 1 if q else int(rights[e])
         if i % 8 == 0 or st + L > n or lefts[e] - t + 1 < 0:
             continue
@@ -157,23 +161,57 @@ def test_realign_wide_mixed_lengths_match_plain(cuda, L, q):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("L,q", [(2048, 0), (4096, 3)])
+@pytest.mark.parametrize("L,q", [(2048, 0), (4096, 3), (4097, 0), (4097, 3),
+                                 (8192, 0), (8192, 3), (16384, 0),
+                                 (16384, 3), (32768, 0), (32768, 3)])
 def test_realign_kernel_widest_rows_match_plain(cuda, L, q):
-    """Rows too wide for a 64-row tile (16 x 16 and 16 x 8 tiles), up to
-    the kernel's cap; one row wider than the cap raises."""
-    from tophat_tpu_torch.ops.realign_kernel import (MAX_L, realign_group,
+    """Rows too wide for a 64-row tile (past 1,783 positions), their
+    operands streamed through shared memory in K chunks, from 2,048 to
+    32,768 positions. Dense and sparse entries exact, with
+    best splits past 4,095 (which a 12-bit argmin packing would lose)
+    wherever a row has them (all but 4,097 at q = 3)."""
+    from tophat_tpu_torch.ops.realign_kernel import (pack_sparse,
+                                                     realign_group,
+                                                     realign_group_sparse,
                                                      realign_plain)
 
     args = _realign_inputs(cuda, L, q, R=48, E=21)
+    valid = torch.as_tensor(np.random.default_rng(L).random(21) < 0.8,
+                            device=cuda)
     got = realign_group(*args, q, 8)
+    got_s = realign_group_sparse(*args, q, 8, valid)
     ref = realign_plain(*args, q, 8)
     torch.cuda.synchronize()
     for a, b in zip(got, ref):
         assert torch.equal(a, b)
-    assert int(ref[2].sum()) > 0 and L <= MAX_L
+    assert torch.equal(got_s, pack_sparse(ref[0], ref[1],
+                                          ref[2] & valid[None, :]))
+    assert int(ref[2].sum()) > 0
+    if L - 1 - q >= 4096:
+        assert int((ref[0][ref[2]] >= 4096).sum()) > 0
+
+
+@pytest.mark.gpu
+def test_realign_kernel_limits_raise(cuda):
+    """Rows wider than MAX_L (the kernel's int32 argmin accumulator) raise
+    ValueError naming the limit, through both entries, before a launch;
+    the sparse entry's R * E is no limit (only its record count is)."""
+    from tophat_tpu_torch.ops.realign_kernel import (MAX_L, realign_group,
+                                                     realign_group_sparse)
+
     wide = _realign_inputs(cuda, MAX_L + 1, 0, R=2, E=2)
-    with pytest.raises(ValueError, match=str(MAX_L)):
+    with pytest.raises(ValueError, match=f"{MAX_L}.*accumulator"):
         realign_group(*wide, 0, 8)
+    with pytest.raises(ValueError, match=f"{MAX_L}.*accumulator"):
+        realign_group_sparse(*wide, 0, 8, torch.ones(2, dtype=torch.bool,
+                                                     device=cuda))
+    R, E = 1 << 16, 1 << 15          # R * E = 2^31 pairs, no record
+    one = lambda n: torch.full((n, 1), -1, dtype=torch.int8, device=cuda)
+    rec = realign_group_sparse(one(R), torch.zeros(R, dtype=torch.int32,
+                                                   device=cuda),
+                               one(E), one(E), 0, 8,
+                               torch.ones(E, dtype=torch.bool, device=cuda))
+    assert rec.shape == (4, 0)
 
 
 @pytest.mark.gpu
@@ -297,6 +335,43 @@ def test_long_read_pipeline_on_card_matches_cpu(cuda, tmp_path):
     for f in OUTPUTS:
         assert (tmp_path / "cpu" / f).read_bytes() == \
             (tmp_path / "cuda" / f).read_bytes(), f
+
+
+@pytest.mark.gpu
+def test_long_read_cli_on_card_matches_cpu(cuda, tmp_path):
+    """Single-end reads of 4,200 and 5,000 bp through the CLI without the
+    coverage search: the read rows' realign calls are 5,000 positions
+    wide (the kernel's streamed operands, past the 4,096 its argmin once
+    packed), and the card's files equal the CPU's."""
+    from test_torch_pipeline import OUTPUTS  # numpy only at import time
+    from test_torch_pipeline import _workload as long_workload
+    from tophat_tpu_torch.cli.main import main
+    from tophat_tpu_torch.ops import events
+
+    n = 30000
+    codes, recs = long_workload(n, seed=17, read_lens=(4200, 5000),
+                                n_introns=4, n_plain=8)
+    fa, fq = tmp_path / "g.fa", tmp_path / "r.fq"
+    fa.write_text(">chrL\n" + "".join("ACGTN"[c] for c in codes) + "\n")
+    fq.write_text("".join(f"@{nm}\n{sq}\n+\n{q.decode()}\n"
+                          for nm, sq, q in recs))
+    widths = []
+    entry = events.realign_group_sparse
+    events.realign_group_sparse = lambda *a: (widths.append(
+        (a[0].device.type, a[0].shape[1])), entry(*a))[1]
+    try:
+        for dev in ("cpu", "cuda"):
+            assert main(["-o", str(tmp_path / dev), "--device", dev,
+                         "--no-coverage-search", str(fa), str(fq)]) == 0
+    finally:
+        events.realign_group_sparse = entry
+    assert ("cuda", 5000) in widths and ("cpu", 5000) in widths
+    for f in OUTPUTS:
+        assert (tmp_path / "cpu" / f).read_bytes() == \
+            (tmp_path / "cuda" / f).read_bytes(), f
+    sam = (tmp_path / "cuda" / "accepted_hits.sam").read_text()
+    assert sum(1 for ln in sam.splitlines() if not ln.startswith("@")
+               and "N" in ln.split("\t")[5]) >= 4     # one an intron
 
 
 @pytest.mark.gpu

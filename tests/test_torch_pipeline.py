@@ -10,18 +10,22 @@ OUTPUTS = ("accepted_hits.sam", "junctions.bed", "insertions.bed",
            "deletions.bed")
 
 
-def _workload(n, seed=5, read_lens=(50, 76, 76, 100)):
-    """Genome with an N run and planted GT-AG introns; reads of the given
-    lengths (by default 50, 76 or 100 bp) across the introns (some with a
-    mismatch), across 2-bp deletions and insertions, contiguous reads with
-    a mismatch, and one read over the N run."""
+def _workload(n, seed=5, read_lens=(50, 76, 76, 100), n_introns=12,
+              n_plain=40):
+    """Genome with an N run and n_introns planted GT-AG introns; reads of
+    the given lengths (by default 50, 76 or 100 bp) across the introns (3
+    each, some with a mismatch), across 2-bp deletions and insertions,
+    n_plain contiguous reads with a mismatch, and one read over the N
+    run. Reads over 2,000 bp keep their pieces inside the genome."""
     rng = np.random.default_rng(seed)
     lens = iter(rng.choice(read_lens, 200))
+    longest = max(read_lens)
     codes = rng.integers(0, 4, n).astype(np.int8)
     codes[n // 3:n // 3 + 20] = 4
     seqs = []
-    for k in range(12):
-        a = int(rng.integers(2000, n - 3000))
+    for k in range(n_introns):
+        a = int(rng.integers(max(2000, longest),
+                             n - max(3000, longest + 800)))
         il = int(rng.integers(100, 800))
         codes[a:a + 2] = [2, 3]
         codes[a + il - 2:a + il] = [0, 2]
@@ -36,13 +40,13 @@ def _workload(n, seed=5, read_lens=(50, 76, 76, 100)):
             seqs.append(seq)
     for k in range(4):
         L = int(next(lens))
-        s = int(rng.integers(1000, n - 1000))
+        s = int(rng.integers(1000, n - max(1000, longest + 2)))
         t = int(rng.integers(20, L - 20))
         seqs.append(np.concatenate([codes[s:s + t],
                                     codes[s + t + 2:s + L + 2]]))
         seqs.append(np.concatenate([codes[s:s + t], np.array([1, 2], np.int8),
                                     codes[s + t:s + L - 2]]))
-    for k in range(40):
+    for k in range(n_plain):
         L = int(next(lens))
         s = int(rng.integers(0, n - L))
         seq = codes[s:s + L].copy()
@@ -91,13 +95,15 @@ def test_run_pipeline_outputs_identical(tmp_path, n):
 
 
 @pytest.mark.parametrize("read_lens,coverage_search", [
-    ((150,), True), ((300,), True), ((260, 300), False)],
-    ids=["150", "300", "260-300"])
+    ((150,), True), ((300,), True), ((260, 300), False), ((4200,), False)],
+    ids=["150", "300", "260-300", "4200"])
 def test_run_pipeline_long_reads_identical(tmp_path, read_lens,
                                            coverage_search):
-    """Reads of 150 or 300 bp in TopHat's default mode, and of 260 and 300
+    """Reads of 150 or 300 bp in TopHat's default mode, of 260 and 300
     bp in one batch without the coverage search (realign rows 300
-    positions wide, some ending at 260): rows wider than 256 positions
+    positions wide, some ending at 260), and of 4,200 bp without it (rows
+    past the 4,096 positions the kernel's argmin once packed; fewer reads,
+    as the CPU's realign work grows as L^2): rows wider than 256 positions
     take the realign kernel's shift-code operands on the card; on the CPU
     both packages must still agree byte for byte."""
     from tophat_tpu.index.fasta import Genome as JGenome
@@ -110,7 +116,10 @@ def test_run_pipeline_long_reads_identical(tmp_path, read_lens,
     from tophat_tpu_torch.pipeline.run import run_pipeline
 
     n = 30000
-    codes, recs = _workload(n, seed=13, read_lens=read_lens)
+    n_introns = 12 if max(read_lens) <= 300 else 4
+    codes, recs = _workload(n, seed=13, read_lens=read_lens,
+                            n_introns=n_introns,
+                            n_plain=40 if max(read_lens) <= 300 else 8)
     offsets = np.array([0, n])
     jrun(JGenome(codes=codes, offsets=offsets, names=["chrL"]),
          jbatch(recs), JParams(coverage_search=coverage_search),
@@ -121,7 +130,7 @@ def test_run_pipeline_long_reads_identical(tmp_path, read_lens,
     sam = _compare(tmp_path / "jax", tmp_path / "torch")
     rows = [ln.split("\t") for ln in sam.splitlines()
             if not ln.startswith("@")]
-    assert sum(1 for t in rows if "N" in t[5]) >= 24
+    assert sum(1 for t in rows if "N" in t[5]) >= 2 * n_introns
     assert {len(t[9]) for t in rows} == set(read_lens)
 
 

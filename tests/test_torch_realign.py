@@ -98,14 +98,14 @@ def test_realign_plain_matches_pallas_and_scan(q):
     assert (got[1][lengths == 0] == 32767).all()
 
 
-def _long_case(seed, q, L, R=40, E=24):
+def _long_case(seed, q, L, R=40, E=24, far=256):
     """Rows wider than 256 positions: reads planted across events with
-    splits at 256 or past it where L - 1 - q allows (every third row),
+    splits at `far` or past it where L - 1 - q allows (every third row),
     anywhere else, or ending
     early (-1 past their length); random and zero-length rows; events at
     both genome ends and a right flank past the end."""
     rng = np.random.default_rng(seed)
-    n = 6000
+    n = max(6000, 3 * L + 1000)
     genome = rng.integers(0, 4, n).astype(np.int8)
     genome[2000:2010] = 4
     lefts = rng.integers(L, n - 2 * L, E).astype(np.int32)
@@ -129,7 +129,7 @@ def _long_case(seed, q, L, R=40, E=24):
             reads[i] = rng.integers(0, 5, L)
             continue
         e = int(rng.integers(3, E))
-        t = (int(rng.integers(min(256, L - 1 - q), L - q)) if i % 3 == 0
+        t = (int(rng.integers(min(far, L - 1 - q), L - q)) if i % 3 == 0
              else int(rng.integers(1, L - 1 - q)))
         start = lefts[e] + 1 if q else rights[e]
         read = np.concatenate([genome[lefts[e] - t + 1: lefts[e] + 1],
@@ -144,32 +144,39 @@ def _long_case(seed, q, L, R=40, E=24):
     return genome, reads, lengths, lefts, rights, kinds, seqs
 
 
-@pytest.mark.parametrize("L", [257, 300])
+@pytest.mark.parametrize("L", [257, 300, 4097, 4500])
 @pytest.mark.parametrize("q", [0, 3])
 def test_realign_plain_matches_jax_on_wide_rows(q, L):
-    """Rows of 257 and 300 positions (the kernel's shift-code path on the
-    card) against realign_pallas (interpret mode) and realign_scan: exact,
-    with best splits at t >= 256 (which an 8-bit argmin packing loses)
-    wherever a split can reach 256 (all but L = 257, q = 3)."""
+    """Rows of 257 and 300 positions (the kernel's resident shift-code
+    path on the card) against realign_pallas (interpret mode) and
+    realign_scan; rows of 4,097 and 4,500 positions (past the 4,096 the
+    kernel's argmin once packed) against realign_scan alone, on 12
+    events: interpret-mode realign_pallas walks a fori_loop of L steps
+    per grid cell and takes minutes at those widths. Exact, with best
+    splits at t >= 256 (which an 8-bit argmin packing loses), or t >=
+    4,096 for the widest rows (a 12-bit one), wherever a split can reach
+    them (all but L = 257 and 4,097 at q = 3)."""
     from tophat_tpu.ops.events import realign_scan
     from tophat_tpu.ops.pallas.realign_kernel import (prepare_inputs,
                                                       realign_pallas)
 
+    far = 256 if L <= 300 else 4096
     genome, reads, lengths, lefts, rights, kinds, seqs = _long_case(
-        L + q, q, L)
+        L + q, q, L, E=24 if L <= 300 else 12, far=far)
     X, YL, YC = prepare_inputs(jnp.asarray(genome), reads, jnp.asarray(lefts),
                                jnp.asarray(rights), jnp.asarray(kinds), seqs,
                                q, L)
-    ref_p = realign_pallas(X, YL, YC, jnp.asarray(lengths), L=L, q=q,
-                           max_mm=MAX_MM, interpret=True)
-    ref_s = realign_scan(X, YL, YC, jnp.asarray(lengths), L=L, q=q,
-                         max_mm=MAX_MM)
+    refs = [realign_scan(X, YL, YC, jnp.asarray(lengths), L=L, q=q,
+                         max_mm=MAX_MM)]
+    if L <= 300:
+        refs.append(realign_pallas(X, YL, YC, jnp.asarray(lengths), L=L, q=q,
+                                   max_mm=MAX_MM, interpret=True))
     got = _port(genome, reads, lengths, lefts, rights, kinds, seqs, q, L)
-    for name, a, b, c in zip(("best_t", "mm", "ok"), got, ref_p, ref_s):
-        np.testing.assert_array_equal(a, np.asarray(b), err_msg=name)
-        np.testing.assert_array_equal(a, np.asarray(c), err_msg=name)
+    for ref in refs:
+        for name, a, b in zip(("best_t", "mm", "ok"), got, ref):
+            np.testing.assert_array_equal(a, np.asarray(b), err_msg=name)
     bt, _, ok = got
-    assert (bt[ok] >= 256).sum() >= (8 if L - 1 - q >= 256 else 0)
+    assert (bt[ok] >= far).sum() >= (8 if L - 1 - q >= far else 0)
     assert ok.sum() >= 20 and not ok[lengths == 0].any()
     assert ok[(lengths > 0) & (lengths < L)].any()
 

@@ -89,9 +89,12 @@ def test_window_scan_matches(spliced):
                               _t(gs.nseg).long(), _t(gs.lengths).long(),
                               50, 500000, 25)
     fields = ("row", "gl", "gr", "sup_start", "sup_len", "valid")
+    # the port makes the valid lanes of JAX's flat table alone, in order
+    jvalid = np.asarray(jw.valid)
     for f in fields:
         np.testing.assert_array_equal(getattr(tw, f).numpy(),
-                                      np.asarray(getattr(jw, f)), err_msg=f)
+                                      np.asarray(getattr(jw, f))[jvalid],
+                                      err_msg=f)
     jw, jovf = J.compact_windows(jw, cap)
     tw, tovf = T.compact_windows(tw, cap)
     assert tovf == bool(jovf)

@@ -4,8 +4,9 @@ Replaces the Pallas TPU kernel tophat_tpu/ops/pallas/realign_kernel.py
 (_realign_kernel, launched by realign_pallas and fed by prepare_inputs).
 The CUDA C++ kernel is tophat_tpu_torch/csrc/realign.cu (its header gives
 the design and what bounds it on an H100): int8 tensor-core products for
-every row width up to MAX_L = 4,096, with one-hot operands up to 256
-positions and one-byte codes expanded in registers above. It is compiled
+every row width up to MAX_L = 262,143, with one-hot operands up to 256
+positions and one-byte codes expanded in registers above (streamed
+through shared memory in K chunks past 1,783 positions). It is compiled
 for sm_90a with nvcc into <repo>/build/cuda at first use and called
 through ctypes.
 
@@ -19,9 +20,12 @@ which a read N matches a genome N (the conv reference realign_chunk, with
 
 realign_group (dense (R, E) tables) and realign_group_sparse (the records
 of the ok pairs only, row-major) take the kernel for CUDA tensors and the
-plain torch version (an fp32 one-hot matmul per split point, exact below
-2^24) for CPU tensors; there is no other fallback. CUDA rows wider than
-MAX_L raise ValueError; the plain version takes any width.
+plain torch version (an fp32 one-hot matmul per block of split points,
+exact below 2^24) for CPU tensors; there is no other fallback. CUDA inputs past the
+kernel's int32 limits (rows wider than MAX_L, where its argmin
+accumulator would overflow; R or E of 2^31 or more; a sparse call that
+finds 2^31 records or more) raise ValueError naming the limit; the plain
+version takes any width.
 """
 
 from __future__ import annotations
@@ -34,7 +38,9 @@ import torch
 
 BIG = 32767
 C = 8                # one-hot channels of the plain version (codes 0..7)
-MAX_L = 4096         # widest row the kernel takes (its argmin packing)
+MAX_L = (1 << 18) - 1  # widest row the kernel takes: -2^30 + 4,096 L + 7
+#                        stays negative in its int32 argmin accumulator
+INT32_LIMIT = 2 ** 31
 
 _ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
@@ -107,26 +113,38 @@ def prepare_targets(genome, ev_left, ev_right, ev_kind, ev_ins_seq,
 
 
 def realign_plain(reads, lengths, flank_l, comb, q: int, max_mm: int):
-    """Plain torch version: per split t, fp32 one-hot matmuls count the
-    prefix and suffix matches (0/1 products, sums <= L: exact)."""
+    """Plain torch version. match(t) is the one-hot dot product of the
+    read with the window [flank_l | comb][L - t : 2L - t] of the event's
+    target; the windows of a block of splits are a strided view of the
+    target, so one fp32 matmul a block counts them all (0/1 products,
+    sums <= L: exact). Then mm = len - match over the interior splits,
+    the leftmost minimum below BIG."""
     R, L = reads.shape
     E = flank_l.shape[0]
     dev = reads.device
     ch = torch.arange(C, device=dev)
     onehot = lambda x: (x.long()[..., None] == ch).float()
-    X = onehot(reads)                                  # (R, L, C)
-    YL = onehot(flank_l)                               # (E, L, C)
-    YC = onehot(comb)
-    lens = lengths.long()[:, None]
+    X = onehot(reads).reshape(R, L * C)
+    T = onehot(torch.cat([flank_l, comb], 1)).reshape(E, 2 * L * C)
+    lens = lengths.long()[:, None, None]
     best = torch.full((R, E), BIG, dtype=torch.long, device=dev)
     best_t = torch.zeros((R, E), dtype=torch.long, device=dev)
-    for t in range(1, L):
-        match_l = X[:, :t].reshape(R, -1) @ YL[:, L - t:].reshape(E, -1).T
-        match_c = X[:, t:].reshape(R, -1) @ YC[:, :L - t].reshape(E, -1).T
-        mm = (t - match_l.long()) + ((lens - t) - match_c.long())
-        upd = (mm < best) & (t + q <= lens - 1)
-        best = torch.where(upd, mm, best)
-        best_t = torch.where(upd, t, best_t)
+    # splits a block: the windows' copy and the (R, E, n) match block
+    # within 2^25 elements
+    n_max = max(1, (1 << 25) // max(1, E * L * C, R * E))
+    for t0 in range(1, L, n_max):
+        n = min(L - t0, n_max)
+        # windows of t0 + n - 1, ..., t0: starts (L - t) C, ascending
+        win = T.as_strided((E, n, L * C), (2 * L * C, C, 1),
+                           (L - t0 - n + 1) * C)
+        match = (X @ win.reshape(E * n, L * C).T).reshape(R, E, n)
+        t = torch.arange(t0 + n - 1, t0 - 1, -1, device=dev)
+        mm = torch.where(t + q <= lens - 1, lens - match.long(), BIG)
+        low = mm.min(dim=2).values
+        t_low = torch.where(mm == low[..., None], t, L).min(dim=2).values
+        upd = low < best
+        best = torch.where(upd, low, best)
+        best_t = torch.where(upd, t_low, best_t)
     ok = best <= max_mm
     return best_t.int(), torch.where(ok, best, BIG).int(), ok
 
@@ -169,7 +187,10 @@ def _check(reads, lengths, flank_l, comb, q: int, valid=None):
             raise ValueError(f"{name}: not contiguous")
     if not 1 <= L <= MAX_L:
         raise ValueError(f"row width {L} outside the realign kernel's "
-                         f"1..{MAX_L}")
+                         f"1..{MAX_L} (MAX_L: its int32 argmin accumulator)")
+    if max(R, E) >= INT32_LIMIT:
+        raise ValueError(f"R = {R}, E = {E}: the realign kernel takes R and "
+                         "E below 2^31 (int32 sizes)")
     if not 0 <= q < L:
         raise ValueError(f"insertion length {q} outside 0..{L - 1}")
 
@@ -177,7 +198,7 @@ def _check(reads, lengths, flank_l, comb, q: int, valid=None):
 def _launch(reads, lengths, flank_l, comb, q: int, max_mm: int,
             dense=(None, None, None), sparse=(None, None, 0, None)):
     """One kernel launch on the current stream: dense = (best_t, mm, ok)
-    tables, or sparse = (valid, records (4, cap), cap, count (1,))."""
+    tables, or sparse = (valid, records (4, cap), cap, count (1,) int64)."""
     R, L = reads.shape
     E = flank_l.shape[0]
     lib = build()
@@ -206,8 +227,9 @@ def realign_group(reads, lengths, flank_l, comb, q: int, max_mm: int):
     reads: (R, L) int8 codes (-1 padded); lengths: (R,) int32 in 0..L;
     flank_l, comb: (E, L) int8 from prepare_targets. CUDA tensors launch
     the kernel on the current stream (any width 1 <= L <= MAX_L, all on
-    the int8 tensor cores; a device scratch buffer holds the targets);
-    CPU tensors take realign_plain, at any width."""
+    the int8 tensor cores; a device scratch buffer holds the targets, and
+    past 1,783 positions the rows' codes too); CPU tensors take
+    realign_plain, at any width."""
     if reads.device.type == "cpu":
         return realign_plain(reads, lengths, flank_l, comb, q, max_mm)
     _check(reads, lengths, flank_l, comb, q)
@@ -247,13 +269,16 @@ def realign_group_sparse(reads, lengths, flank_l, comb, q: int, max_mm: int,
     cap = min(R * E, max(4096, 2 * R, realign_group_sparse.cap_hint))
     while True:
         rec = torch.empty((4, cap), dtype=torch.int32, device=dev)
-        count = torch.zeros(1, dtype=torch.int32, device=dev)
+        count = torch.zeros(1, dtype=torch.int64, device=dev)
         _launch(reads, lengths, flank_l, comb, q, max_mm,
                 sparse=(valid, rec, cap, count))
         realign_group_sparse.launches += 1
         n = int(count.item())
         if n <= cap:
             break
+        if n >= INT32_LIMIT:
+            raise ValueError(f"the sparse realign entry found {n} records: "
+                             "its int32 record table holds fewer than 2^31")
         cap = realign_group_sparse.cap_hint = n
     rec = rec[:, :n]
     # row * E + event is unique to a pair: any sort gives one order

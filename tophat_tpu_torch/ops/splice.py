@@ -67,13 +67,16 @@ def _end_cut(cuts, doff):
 
 def _pairs_for_offset(seg_pos, seg_valid, cuts, nseg, doff,
                       min_gap, max_gap):
-    """Enumerate (left-hit, partner-hit) combos where the partner is the
-    segment `doff` places to the right. Returns flat tensors (R*S*H*H,)."""
+    """(left-hit, partner-hit) combos where the partner is the segment
+    `doff` places to the right: the (R, S, H, H) mask of admissible
+    combos, and a function that makes the PairWindows of the lanes a
+    mask selects, in row-major lane order."""
     R, S, H = seg_pos.shape
     dev = seg_pos.device
     pl = seg_pos[:, :, :, None]                      # (R, S, H, 1) left hit
     vl = seg_valid[:, :, :, None]
-    pr = torch.roll(seg_pos, -doff, dims=1)[:, :, None, :]  # partner hits
+    partner = torch.roll(seg_pos, -doff, dims=1)     # (R, S, H) partner hits
+    pr = partner[:, :, None, :]
     vr = torch.roll(seg_valid, -doff, dims=1)[:, :, None, :]
     j = torch.arange(S, device=dev)[None, :, None, None]
     has_partner_seg = (j + doff) < nseg[:, None, None, None]
@@ -92,23 +95,28 @@ def _pairs_for_offset(seg_pos, seg_valid, cuts, nseg, doff,
     contiguous = (vl & vr1 & has_next & (pr1 - left_end == 0)).any(
         dim=3, keepdim=True)
     ok &= ~contiguous
+    end_cut = _end_cut(cuts, doff)
 
-    rowi = torch.arange(R, device=dev)[:, None, None, None]
-    # support span: [boundary_after_left - 8, partner_start_boundary + 8)
-    sup_start = cuts[:, 1:][:, :, None, None] - LOOK_BP
-    sup_end = _end_cut(cuts, doff)[:, :, None, None] + LOOK_BP
+    def windows(mask):
+        r, s, h, k = mask.nonzero(as_tuple=True)
+        # support span: [boundary_after_left - 8, partner_start_boundary + 8)
+        sup_start = cuts[r, s + 1] - LOOK_BP
+        return PairWindows(
+            row=r, gl=seg_pos[r, s, h] + (cuts[r, s + 1] - cuts[r, s]),
+            gr=partner[r, s, k], sup_start=sup_start,
+            sup_len=end_cut[r, s] + LOOK_BP - sup_start,
+            valid=torch.ones_like(r, dtype=torch.bool))
 
-    flat = lambda a: a.expand(ok.shape).reshape(-1)
-    return PairWindows(
-        row=flat(rowi), gl=flat(left_end), gr=flat(pr),
-        sup_start=flat(sup_start), sup_len=flat(sup_end - sup_start),
-        valid=ok.reshape(-1))
+    return ok, windows
 
 
 def build_pair_windows(seg_pos, seg_valid, cuts, nseg, lengths,
                        min_seg_intron: int, max_seg_intron: int,
                        segment_length: int):
-    """All candidate windows for a batch.
+    """The valid candidate windows of a batch: the valid lanes of the JAX
+    package's flat (R*S*H*H) drs and rrs tables, in their order, with no
+    table of all the lanes made (a read of 8 kb has 328 segments, so R*S*H*H
+    lanes of five int64 fields took ~12 GB at 1,024 rows).
 
     seg_pos/seg_valid : (R, S, H) genome-space segment hit tables
     cuts              : (R, S+1) genome-space segment boundary offsets
@@ -119,17 +127,14 @@ def build_pair_windows(seg_pos, seg_valid, cuts, nseg, lengths,
     skip one (unmapped) segment with gap in [min+seg_len, max+seg_len).
     rrs windows take precedence when both exist for a left hit."""
     seg_pos = seg_pos.long()
-    drs = _pairs_for_offset(seg_pos, seg_valid, cuts, nseg, 1,
-                            min_seg_intron, max_seg_intron)
-    rrs = _pairs_for_offset(seg_pos, seg_valid, cuts, nseg, 2,
-                            min_seg_intron + segment_length,
-                            max_seg_intron + segment_length)
-    R, S, H = seg_pos.shape
-    rrs_any = rrs.valid.reshape(R, S, H, H).any(dim=3, keepdim=True)
-    drs.valid = (drs.valid.reshape(R, S, H, H) & ~rrs_any).reshape(-1)
-
-    cat = lambda f: torch.cat([getattr(drs, f), getattr(rrs, f)])
-    out = PairWindows(**{f.name: cat(f.name)
+    drs_ok, drs = _pairs_for_offset(seg_pos, seg_valid, cuts, nseg, 1,
+                                    min_seg_intron, max_seg_intron)
+    rrs_ok, rrs = _pairs_for_offset(seg_pos, seg_valid, cuts, nseg, 2,
+                                    min_seg_intron + segment_length,
+                                    max_seg_intron + segment_length)
+    parts = (drs(drs_ok & ~rrs_ok.any(dim=3, keepdim=True)), rrs(rrs_ok))
+    out = PairWindows(**{f.name: torch.cat([getattr(p, f.name)
+                                            for p in parts])
                          for f in dataclasses.fields(PairWindows)})
 
     # clamp the support span to the read (reference substr semantics)
