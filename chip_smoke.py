@@ -116,9 +116,26 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      peak device memory, its calls held the same way; fails if no
      realign call is wider than 4,096, no sparse realign was launched, or
      under 100% junction-read recall
-Phases run in the order 1-10, 12, 11, 13, 14, 15. Launches in the
-kernels line are summed over phases 4, 6, 8, 9, 10, 11, 12, 13, 14 and
-15 (each counted from 0 just before its timed run), max_abs_err over
+ 16. a human-scale genome: 24 contigs in hg19's size order (3,093,000,000
+     random bases, 48 planted GT..AG introns of 100-5,000 bp, 22 of them
+     on contigs that begin past 2^31), single-end through the CLI
+     (--no-coverage-search --tt-index, the default --max-index-bases: 2
+     contig groups, chr1-11 and chr12-24, k = 13, sa_rate 4). A child
+     process started before phase 2 (chip_smoke.py --human-build) writes
+     the FASTA and builds the group indexes under the CLI's cache prefix
+     while phases 2-15 run; the phase waits for it, then a run of 4,096
+     reads holds every realign call against its plain version on up to
+     2,048 of its rows and a timed run of 16,384 reads records reads/s,
+     stage seconds, group loads and swaps, each group's FMIndex bytes on
+     the card, peak device and host memory and every realign call; fails
+     with other than 2 groups, under 100% junction-read recall, with a
+     designed intron missing from junctions.bed at its contig-local
+     coordinates, a contiguous read not at its contig and POS, no read on
+     a contig past 2^31, no sparse realign launch or any dense one, or the
+     genome axis started
+Phases run in the order 1-10, 12, 11, 13, 14, 15, 16. Launches in the
+kernels line are summed over phases 4, 6, 8, 9, 10, 11, 12, 13, 14, 15
+and 16 (each counted from 0 just before its timed run), max_abs_err over
 every check.
 Standard output ends with four lines: the measured numbers (JSON), the
 kernels (JSON), the nvidia-smi name/power line, and the result JSON.
@@ -590,14 +607,23 @@ def make_reads(codes, juncs, seed: int, n_reads: int = N_READS):
 
 
 def write_fasta(path, codes, width: int = 4096, cuts=(0,)):
-    """FASTA of `codes`; contig chr<i + 1> starts at cuts[i]."""
+    """FASTA of `codes`; contig chr<i + 1> starts at cuts[i]. Whole lines
+    go out in blocks of 4,096 (a 3 Gbp genome in seconds)."""
     lut = np.frombuffer(b"ACGTN", np.uint8)
     ends = list(cuts[1:]) + [len(codes)]
+    block = 4096 * width
     with open(path, "wb") as f:
         for i, (a, b) in enumerate(zip(cuts, ends)):
             f.write(b">chr%d\n" % (i + 1))
-            for s in range(a, b, width):
-                f.write(lut[codes[s:min(s + width, b)]].tobytes() + b"\n")
+            whole = a + (b - a) // width * width
+            for s in range(a, whole, block):
+                e = min(s + block, whole)
+                lines = np.empty(((e - s) // width, width + 1), np.uint8)
+                lines[:, :width] = lut[codes[s:e]].reshape(-1, width)
+                lines[:, width] = ord("\n")
+                f.write(lines.tobytes())
+            if whole < b:
+                f.write(lut[codes[whole:b]].tobytes() + b"\n")
 
 
 def write_fastq(path, seqs, prefix: str = "r"):
@@ -2842,6 +2868,486 @@ def phase_long_single(codes, juncs, index):
                 path_err=max(check.err, held.err), phase_s=phase_s)
 
 
+# --------------------------------------------------------------- phase 16
+
+# hg19's 24 chromosomes in its size order, Mbp: 3,093,000,000 bases, the
+# JAX package's scale proof's ladder (its own copy here)
+HUMAN_CONTIG_MBP = (249, 243, 198, 191, 181, 171, 159, 146, 141, 136, 135,
+                    134, 115, 107, 103, 90, 81, 78, 59, 63, 48, 51, 155, 59)
+HUMAN_PER_MBP = 1_000_000   # bases a ladder Mbp; 1,000 rehearses at 1/1,000
+HUMAN_MAX_INDEX_BASES = 0   # --max-index-bases; 0: the CLI's default (2
+#                             groups here; 1,950,000 cuts the 1/1,000 one)
+HUMAN_SEED = 31
+HUMAN_INTRONS_PER_CONTIG = 2  # GT..AG, 100-5,000 bp: 22 on chr14-chr24
+HUMAN_CHECK_READS = 4096
+HUMAN_READS = 16384
+HUMAN_HOLD_ROWS = 2048      # rows of each realign call held
+HUMAN_DIR = os.path.join(CACHE, "human")
+POS_2P31 = 1 << 31
+
+
+def human_paths():
+    """(FASTA, --tt-index prefix, the build child's log, its record)."""
+    tag = f"hs{HUMAN_PER_MBP}"
+    return tuple(os.path.join(HUMAN_DIR, tag + s) for s in
+                 (".fa", "", ".build.log", ".build.json"))
+
+
+def human_genome():
+    """Phase 16's genome: HUMAN_CONTIG_MBP contigs of random codes (seed
+    HUMAN_SEED) with HUMAN_INTRONS_PER_CONTIG planted GT..AG introns (100 to
+    5,000 bp) on each. Returns (codes, offsets, names, introns); an intron
+    is (contig, last exonic base, first exonic base after it), contig-local
+    and 0-based."""
+    rng = np.random.default_rng(HUMAN_SEED)
+    sizes = [m * HUMAN_PER_MBP for m in HUMAN_CONTIG_MBP]
+    offsets = np.concatenate([[0], np.cumsum(sizes)]).astype(np.int64)
+    codes = np.empty(int(offsets[-1]), np.int8)
+    introns = []
+    for c, size in enumerate(sizes):
+        base = int(offsets[c])
+        codes[base:base + size] = rng.integers(0, 4, size, dtype=np.int8)
+        for _ in range(HUMAN_INTRONS_PER_CONTIG):
+            il = int(rng.integers(100, 5001))
+            a = base + int(rng.integers(1000, size - 1000 - il))
+            codes[a:a + 2] = (2, 3)                  # GT
+            codes[a + il - 2:a + il] = (0, 2)        # AG
+            introns.append((c, a - 1 - base, a + il - base))
+    names = [f"chr{i + 1}" for i in range(len(sizes))]
+    return codes, offsets, names, introns
+
+
+def fasta_bytes(offsets, width: int = 4096) -> int:
+    """Size of write_fasta's file of contigs at `offsets`."""
+    lens = np.diff(offsets)
+    return int(sum(len(b">chr%d\n" % (i + 1)) + n + -(-n // width)
+                   for i, n in enumerate(lens)))
+
+
+def human_reads(codes, offsets, introns, seed: int, n_reads: int):
+    """Single-end reads of READ_LEN: 25% (r0, r4, ...) across a designed
+    intron (anchors of 30-69 bases), the rest contiguous with one mismatch,
+    drawn uniformly over the whole genome (none crossing a contig end).
+    Returns (reads, truth): truth[i] is (contig, 0-based local start) of
+    a contiguous read, None for a junction read."""
+    r = np.random.default_rng(seed)
+    n = len(codes)
+    seqs, truth = [], []
+    for i in range(n_reads):
+        if i % 4 == 0:
+            c, left, right = introns[int(r.integers(0, len(introns)))]
+            base = int(offsets[c])
+            t = int(r.integers(30, 70))
+            seq = np.concatenate([codes[base + left - t + 1:base + left + 1],
+                                  codes[base + right:
+                                        base + right + READ_LEN - t]])
+            truth.append(None)
+        else:
+            while True:
+                g = int(r.integers(0, n - READ_LEN))
+                c = int(np.searchsorted(offsets, g, side="right")) - 1
+                if g + READ_LEN <= offsets[c + 1]:
+                    break
+            seq = codes[g:g + READ_LEN].copy()
+            p = int(r.integers(0, READ_LEN))
+            seq[p] = (seq[p] + 1) % 4
+            truth.append((c, g - int(offsets[c])))
+        seqs.append(seq)
+    return np.stack(seqs), truth
+
+
+def human_placement(out, names, offsets, introns, truth) -> dict:
+    """What a run of human_reads' reads wrote: junction-read recall, the
+    designed introns missing from junctions.bed (contig and contig-local
+    coordinates), the contiguous reads with no record at their designed
+    contig and POS, and the records on contigs that start past 2^31."""
+    want = {f"r{i}": (names[t[0]], t[1] + 1) for i, t in enumerate(truth)
+            if t is not None}
+    placed = set()
+    past = {names[c] for c in range(len(names)) if offsets[c] >= POS_2P31}
+    n_past = n_group = 0
+    max_global = -1
+    cid = {nm: c for c, nm in enumerate(names)}
+    with open(os.path.join(out, "accepted_hits.sam")) as f:
+        for line in f:
+            if line.startswith("@"):
+                continue
+            t = line.split("\t", 6)
+            if t[2] == "*":
+                continue
+            pos = int(t[3])
+            if want.get(t[0]) == (t[2], pos) and t[5] == f"{READ_LEN}M":
+                placed.add(t[0])
+            n_past += t[2] in past
+            max_global = max(max_global, int(offsets[cid[t[2]]]) + pos - 1)
+    found = set()
+    with open(os.path.join(out, "junctions.bed")) as f:
+        for line in f:
+            if line.startswith("track"):
+                continue
+            x = line.split("\t")
+            start = int(x[1])
+            sizes = x[10].split(",")
+            starts = x[11].split(",")
+            found.add((x[0], start + int(sizes[0]) - 1, start + int(starts[1])))
+    return dict(
+        recall_pct=junction_recall(os.path.join(out, "accepted_hits.sam"),
+                                   len(truth)),
+        missing_introns=[(names[c], a, b) for c, a, b in introns
+                         if (names[c], a, b) not in found],
+        misplaced=sorted(set(want) - placed, key=lambda s: int(s[1:])),
+        n_contiguous=len(want), records_past_2p31=n_past,
+        max_global_pos=max_global)
+
+
+def start_human_build():
+    """Start phase 16's index build in a child process (a fresh
+    interpreter, not a fork of this process, which holds CUDA): it writes
+    the genome's FASTA and builds the group indexes under the CLI's cache
+    prefix, overlapping phases 2-15. Returns the Popen; the child and its
+    build workers (one process group) are killed if the smoke exits first."""
+    import atexit
+    import signal
+
+    fa, prefix, logf, rec = human_paths()
+    os.makedirs(HUMAN_DIR, exist_ok=True)
+    if os.path.exists(rec):
+        os.remove(rec)
+    with open(logf, "w") as f:
+        child = subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--human-build",
+             str(HUMAN_PER_MBP), str(HUMAN_MAX_INDEX_BASES)],
+            stdout=f, stderr=subprocess.STDOUT, cwd=REPO,
+            start_new_session=True)
+
+    def stop():
+        if child.poll() is None:
+            os.killpg(child.pid, signal.SIGKILL)
+            child.wait()
+    atexit.register(stop)
+    return child
+
+
+def human_build():
+    """The build child (chip_smoke.py --human-build PER_MBP MAX_BASES):
+    phase 16's FASTA (reused when its size matches), then the port's
+    build_grouped_fm as the CLI calls it (its --max-index-bases and index
+    design point), under the prefix the CLI gets as --tt-index (cached
+    groups are reused). Writes its seconds and peak host memory as
+    JSON."""
+    import resource
+
+    sys.path.insert(0, REPO)
+    from tophat_tpu_torch.cli import main as cli_mod
+    from tophat_tpu_torch.index.fasta import Genome
+    from tophat_tpu_torch.index.grouped import MAX_GROUP_BASES
+
+    fa, prefix, _, rec = human_paths()
+    t0 = time.time()
+    codes, offsets, names, _ = human_genome()
+    synth_s = time.time() - t0
+    t0 = time.time()
+    fresh_fasta = not (os.path.exists(fa)
+                       and os.path.getsize(fa) == fasta_bytes(offsets))
+    if fresh_fasta:
+        write_fasta(fa + ".tmp", codes, cuts=offsets[:-1])
+        os.replace(fa + ".tmp", fa)
+    fasta_s = time.time() - t0
+    kk, sr = cli_mod._index_design_point(len(codes) > (1 << 28))
+    msgs = []
+    t0 = time.time()
+    gfm = cli_mod.build_grouped_fm(
+        Genome(codes=codes, offsets=offsets, names=names),
+        max_bases=HUMAN_MAX_INDEX_BASES or MAX_GROUP_BASES, kmer_k=kk,
+        sa_rate=sr, cache_prefix=prefix, log=lambda m: (msgs.append(m),
+                                                        print(m, flush=True)))
+    build_s = time.time() - t0
+    with open(rec, "w") as f:
+        json.dump(dict(
+            synth_s=synth_s, fasta_s=fasta_s, fresh_fasta=fresh_fasta,
+            build_s=build_s, kmer_k=kk, sa_rate=sr,
+            reused_groups=sum("reusing" in m for m in msgs),
+            n_groups=gfm.n_groups, group_bases=[fm.n for fm in gfm.fms],
+            group_contigs=[len(g.names) for g in gfm.sub_genomes],
+            peak_rss_bytes=1024 * resource.getrusage(
+                resource.RUSAGE_SELF).ru_maxrss,
+            worker_peak_rss_bytes=1024 * resource.getrusage(
+                resource.RUSAGE_CHILDREN).ru_maxrss), f)
+
+
+class HostPeak:
+    """Peak resident set of this process within the block, sampled every
+    20 ms from /proc/self/statm (a sandbox's kernel may offer no resettable
+    VmHWM). Where statm is unreadable, the process's lifetime peak
+    (getrusage) stands in, and `lifetime` says so."""
+
+    def __enter__(self):
+        import threading
+
+        self.bytes, self.lifetime = 0, False
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._sample, daemon=True)
+        self._thread.start()
+        return self
+
+    def _sample(self):
+        page = os.sysconf("SC_PAGE_SIZE")
+        while True:
+            try:
+                with open("/proc/self/statm") as f:
+                    rss = int(f.read().split()[1]) * page
+            except (OSError, ValueError, IndexError):
+                self.lifetime = True
+                return
+            self.bytes = max(self.bytes, rss)
+            if self._stop.wait(0.02):
+                return
+
+    def __exit__(self, *exc):
+        import resource
+
+        self._stop.set()
+        self._thread.join()
+        if self.lifetime or not self.bytes:
+            self.lifetime = True
+            self.bytes = 1024 * resource.getrusage(
+                resource.RUSAGE_SELF).ru_maxrss
+
+
+def phase_human(build, grouped=None):
+    """The human-scale genome on the card: HUMAN_CONTIG_MBP's 24 contigs
+    (3,093,000,000 bases) through the CLI as a user types it
+    (--no-coverage-search --tt-index, the default --max-index-bases: 2
+    groups, chr1-11 and chr12-24, k = 13, sa_rate 4), on the group
+    indexes the build child wrote. A run of 4,096 reads holds every
+    realign call against its plain version on up to 2,048 of its rows;
+    then a timed run of 16,384 reads records reads/s, stage seconds, group
+    swaps and their seconds, each group's FMIndex bytes on the card (with
+    phase 11's projection when `grouped` is given), peak device and host
+    memory, whether the genome axis started and every realign call's R,
+    E, L and q, its calls held after it the same way. Fails with other
+    than 2 groups, under 100% junction-read recall, with a designed
+    intron missing from junctions.bed at its contig-local coordinates, a
+    contiguous read not at its designed contig and POS, no read placed on
+    a contig past 2^31, no sparse realign launch or any dense one, or the
+    genome axis started."""
+    import torch
+
+    from tophat_tpu_torch.cli import main as cli_mod
+    from tophat_tpu_torch.index.fm import FMIndex
+    from tophat_tpu_torch.ops import events
+    from tophat_tpu_torch.parallel import auto
+    from tophat_tpu_torch.pipeline import grouped as grouped_mod
+    from tophat_tpu_torch.pipeline import run as run_mod
+
+    t_phase = time.time()
+    fa, prefix, logf, rec = human_paths()
+    rc = build.wait()
+    wait_s = time.time() - t_phase
+    with open(logf) as f:
+        tail = f.read()[-3000:]
+    if rc != 0 or not os.path.exists(rec):
+        fail(f"human-scale index build exited {rc}:\n{tail}")
+    with open(rec) as f:
+        built = json.load(f)
+    log(f"human-scale build child: genome {built['synth_s']:.1f} s, FASTA "
+        f"{built['fasta_s']:.1f} s ({'written' if built['fresh_fasta'] else 'reused'}), "
+        f"{built['n_groups']} group indexes in {built['build_s']:.1f} s ("
+        + ("fresh build" if built["reused_groups"] == 0 else
+           f"{built['reused_groups']} reused from .smoke_cache/")
+        + f"); peak host memory {built['peak_rss_bytes'] / 2**30:.2f} GiB, "
+        f"build workers {built['worker_peak_rss_bytes'] / 2**30:.2f} GiB; "
+        f"phase 16 waited {wait_s:.1f} s for it")
+
+    t0 = time.time()
+    codes, offsets, names, introns = human_genome()
+    fqs, truths = {}, {}
+    for tag, seed, n in (("check", 81, HUMAN_CHECK_READS),
+                         ("steady", 82, HUMAN_READS)):
+        seqs, truths[tag] = human_reads(codes, offsets, introns, seed, n)
+        fqs[tag] = os.path.join(HUMAN_DIR, f"reads_{tag}.fq")
+        write_fastq(fqs[tag], seqs)
+    del codes
+    n_past_introns = sum(int(offsets[c] >= POS_2P31) for c, _, _ in introns)
+    log(f"human-scale inputs: {int(offsets[-1])} bases, {len(names)} "
+        f"contigs, {len(introns)} designed introns ({n_past_introns} on "
+        f"contigs past 2^31); {HUMAN_CHECK_READS} + {HUMAN_READS} reads "
+        f"({time.time() - t0:.1f} s)")
+    argv = lambda out, fq: (
+        ["-o", out, "--no-coverage-search", "--tt-index", prefix]
+        + (["--max-index-bases", str(HUMAN_MAX_INDEX_BASES)]
+           if HUMAN_MAX_INDEX_BASES else []) + [fa, fq])
+
+    to = FMIndex.to
+    loads, axis = [], []    # each group transfer; the genome axis then
+
+    def to_measured(self, device):
+        axis.append(auto.genome_sharded())
+        before = torch.cuda.memory_allocated()
+        out = to(self, device)
+        if out.device.type == "cuda":
+            loads.append(dict(bases=self.n, bytes_on_card=int(
+                torch.cuda.memory_allocated() - before),
+                table_bytes=sum(fm_table_bytes(out).values())))
+        return out
+
+    FMIndex.to = to_measured
+    build_fm = cli_mod.build_grouped_fm
+    runs = []               # (groups, build messages) of each CLI run
+
+    def build_seen(*a, **k):
+        msgs, say = [], k.get("log")
+        k["log"] = lambda m: (msgs.append(m), say and say(m))
+        gfm = build_fm(*a, **k)
+        runs.append((gfm.n_groups, msgs))
+        return gfm
+
+    cli_mod.build_grouped_fm = build_seen
+    try:
+        check = PathCheck(max_rows=HUMAN_HOLD_ROWS)
+        out_check = os.path.join(HUMAN_DIR, "out_check")
+        t0 = time.time()
+        with RealignHooks(events, check):
+            cli_main_checked(cli_mod.main, argv(out_check, fqs["check"]))
+        check_s = time.time() - t0
+        log(f"human-scale check run: {check_s:.1f} s; realign exact in "
+            f"{len(check.shapes)} calls: " + ", ".join(check.shapes))
+        n_groups, msgs = runs[-1]
+        if n_groups != 2:
+            fail(f"human-scale run: {n_groups} contig groups, not 2")
+        if sum("reusing FM index" in m for m in msgs) != n_groups:
+            fail("the human-scale CLI run did not reuse the child's group "
+                 f"indexes: {msgs}")
+        checked = human_placement(out_check, names, offsets, introns,
+                                  truths["check"])
+
+        clock = StageClock()
+        clock.wrap(cli_mod, "read_fasta", "read_fasta")
+        clock.wrap(cli_mod, "build_grouped_fm",
+                   "group index load (2 cached groups)")
+        clock.wrap(FMIndex, "to", "group loads and swaps (FMIndex.to)")
+        clock.wrap(grouped_mod, "align_reads_adaptive",
+                   "full-read align (per group)")
+        clock.wrap(grouped_mod, "_spliced_mate",
+                   "segments + stitch (per group)")
+        clock.wrap(grouped_mod, "discover_events", "discovery")
+        clock.wrap(grouped_mod, "candidates_for_mate",
+                   "candidates (realign, collect)")
+        clock.wrap(run_mod, "realign_events_sparse",
+                   "  of which realign, sparse")
+        clock.wrap(grouped_mod, "default_chains", "default chains")
+        clock.wrap(grouped_mod, "accumulate_event_stats", "stats + filter")
+        clock.wrap(grouped_mod, "filter_junctions", "stats + filter")
+        clock.wrap(grouped_mod, "write_outputs", "output")
+        kept, calls = [], []
+        keep = keep_calls(kept)
+
+        def on_timed(kind, args, got):
+            calls.append(realign_call_shape(kind, args))
+            keep(kind, args, got)
+
+        out = os.path.join(HUMAN_DIR, "out_steady")
+        del loads[:]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        realign_launches(reset=True)
+        t0 = time.time()
+        try:
+            with RealignHooks(events, on_timed), HostPeak() as host:
+                cli_main_checked(cli_mod.main, argv(out, fqs["steady"]))
+            torch.cuda.synchronize()
+            wall = time.time() - t0
+            launches = realign_launches()
+        finally:
+            clock.restore()
+        peak = torch.cuda.max_memory_allocated()
+    finally:
+        FMIndex.to = to
+        cli_mod.build_grouped_fm = build_fm
+    stages = dict(clock.seconds)
+    top = sum(v for k, v in stages.items() if not k.startswith(" "))
+    stages["rest (FASTQ parse, prep, selection)"] = wall - top
+    placed = human_placement(out, names, offsets, introns, truths["steady"])
+    transfers = clock.calls.get("group loads and swaps (FMIndex.to)", 0)
+    transfer_s = clock.seconds.get("group loads and swaps (FMIndex.to)", 0.0)
+    groups = {}
+    for x in loads:
+        groups.setdefault(x["bases"], x)
+    groups = [groups[n] for n in sorted(groups, reverse=True)]
+    if grouped:             # phase 11's per-base bytes at these groups' sizes
+        per_base = max(x["other_b_per_base"] for x in grouped["groups"])
+        fixed = max(x["kmer_table_bytes"] for x in grouped["groups"])
+        for x in groups:
+            x["phase11_projection"] = fixed + per_base * x["bases"]
+    log(f"human-scale timed run: {wall:.2f} s, {HUMAN_READS / wall:.1f} "
+        f"reads/s; {transfers} group loads and swaps in {transfer_s:.3f} s; "
+        f"realign launches {launches} (dense, sparse); peak device memory "
+        f"{peak / 2**30:.3f} GiB; host peak RSS {host.bytes / 2**30:.2f} GiB"
+        + (" (the process's lifetime peak)" if host.lifetime else "")
+        + f"; genome axis started: {any(axis)}")
+    for k, v in stages.items():
+        log(f"  stage {k}: {v:.3f} s" + calls_note(clock.calls.get(k)))
+    for x in groups:
+        log(f"  group of {x['bases']} bases: {x['bytes_on_card'] / 1e9:.3f} "
+            f"GB on the card ({x['bytes_on_card'] / x['bases']:.3f} B/base; "
+            f"tables {x['table_bytes'] / 1e9:.3f} GB)"
+            + (f", phase 11's projection {x['phase11_projection'] / 1e9:.3f} "
+               "GB" if "phase11_projection" in x else ""))
+    log("  realign calls: " + ", ".join(calls))
+    held = PathCheck(max_rows=HUMAN_HOLD_ROWS)
+    t0 = time.time()
+    for kind, args, got in kept:
+        held(kind, args, got)
+    log(f"human-scale timed run: realign exact in {len(held.shapes)} calls "
+        f"({time.time() - t0:.1f} s)")
+    del kept
+    for tag, p in (("check", checked), ("timed", placed)):
+        log(f"human-scale {tag} run: junction-read recall "
+            f"{p['recall_pct']:.2f}%; designed introns found "
+            f"{len(introns) - len(p['missing_introns'])}/{len(introns)}; "
+            f"contiguous reads at their contig and POS "
+            f"{p['n_contiguous'] - len(p['misplaced'])}/{p['n_contiguous']}; "
+            f"{p['records_past_2p31']} records on contigs past 2^31 (largest "
+            f"global position {p['max_global_pos']})")
+        if p["recall_pct"] < 100.0:
+            fail(f"human-scale {tag} run: junction-read recall "
+                 f"{p['recall_pct']:.2f}% < 100%")
+        if p["missing_introns"]:
+            fail(f"human-scale {tag} run: designed introns missing from "
+                 f"junctions.bed: {p['missing_introns'][:8]}")
+        if p["misplaced"]:
+            fail(f"human-scale {tag} run: {len(p['misplaced'])} contiguous "
+                 f"reads not at their designed contig and POS, e.g. "
+                 f"{p['misplaced'][:8]}")
+        if not p["records_past_2p31"]:
+            fail(f"human-scale {tag} run: no read placed on a contig past "
+                 "2^31")
+    if launches[0] or not launches[1]:
+        fail(f"the human-scale run launched the realign kernel's entries "
+             f"{launches} (dense, sparse) times; it must take the sparse "
+             "entry only")
+    if any(axis):
+        fail("the human-scale run started the genome axis on one card")
+    phase_s = time.time() - t_phase
+    log(f"human scale: phase 16 took {phase_s:.1f} s")
+    return dict(genome_bases=int(offsets[-1]), n_contigs=len(names),
+                n_groups=built["n_groups"], build=built, build_wait_s=wait_s,
+                wall_s=wall, reads_per_s=HUMAN_READS / wall,
+                check_run_s=check_s, group_transfers=transfers,
+                group_transfer_s=transfer_s, groups=groups,
+                peak_device_bytes=peak, host_peak_rss_bytes=host.bytes,
+                host_peak_lifetime=host.lifetime,
+                genome_axis_started=any(axis),
+                launches=launches, realign_calls=calls,
+                path_err=max(check.err, held.err), stages=stages,
+                stage_calls=dict(clock.calls),
+                recall_pct=placed["recall_pct"],
+                designed_introns=len(introns),
+                introns_past_2p31=n_past_introns,
+                records_past_2p31=placed["records_past_2p31"],
+                max_global_pos=placed["max_global_pos"], phase_s=phase_s)
+
+
 def main():
     try:
         import torch
@@ -2856,6 +3362,7 @@ def main():
     t_start = time.time()
     card = card_line()
     log(f"card: {card}")
+    human_build_child = start_human_build()
 
     from tophat_tpu_torch.ops import realign_kernel
 
@@ -2888,8 +3395,9 @@ def main():
                                   spliced["index"], transcripts)
     long_single = phase_long_single(spliced["codes"], spliced["juncs"],
                                     spliced["index"])
+    human = phase_human(human_build_child, grouped)
     path_phases = (spliced, paired, annotated, bowtie2, fusion, fusion_gtf,
-                   grouped, mesh, long_reads, long_single)
+                   grouped, mesh, long_reads, long_single, human)
     log(f"smoke phases done in {time.time() - t_start:.1f} s")
 
     print(json.dumps({
@@ -2903,7 +3411,8 @@ def main():
         "small_fusion": small_fusion, "fusion": fusion,
         "fusion_gtf": fusion_gtf, "grouped": grouped, "mesh": mesh,
         "long_reads": long_reads, "long_single": long_single,
-        "seconds": time.time() - t_start}), flush=True)
+        "human_scale": human, "seconds": time.time() - t_start}),
+        flush=True)
     main_case = next(k for k in kernels if (k["R"], k["E"], k["L"], k["q"])
                      == (8192, 69, 100, 0))     # the main path's shape
     print(json.dumps({"kernels": [{
@@ -2924,4 +3433,8 @@ def main():
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--human-build"]:
+        HUMAN_PER_MBP, HUMAN_MAX_INDEX_BASES = map(int, sys.argv[2:4])
+        human_build()
+    else:
+        main()

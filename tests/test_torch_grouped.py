@@ -450,3 +450,150 @@ def test_fusion_gtf_run_matches_jax(tmp_path):
                  + argv) == 0
     _same(tmp_path / "jax", tmp_path / "torch", FILES)
     assert (tmp_path / "torch" / "fusions.out").read_text().count("\n") >= 6
+
+
+def _smoke():
+    """chip_smoke.py, whose phase 16 maps the human-scale ladder."""
+    import sys
+
+    sys.path.insert(0, os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))))
+    import chip_smoke
+    return chip_smoke
+
+
+def _ladder(G, per_mbp=1_000_000):
+    """The 24-contig human ladder (3,093,000,000 bases at full scale) as a
+    Genome of class G over a zero-stride codes view: nothing of its size
+    is allocated."""
+    sizes = np.array(_smoke().HUMAN_CONTIG_MBP, np.int64) * per_mbp
+    offsets = np.concatenate([[0], np.cumsum(sizes)])
+    return G(codes=np.broadcast_to(np.int8(0), (int(offsets[-1]),)),
+             offsets=offsets, names=[f"chr{i + 1}" for i in range(24)])
+
+
+def test_human_ladder_groups_match_jax():
+    """The default --max-index-bases cuts the human ladder into chr1-11
+    and chr12-24 at global bases [0, 1,950,000,000], in both packages."""
+    from tophat_tpu.index.fasta import Genome as JGenome
+    from tophat_tpu.index.grouped import MAX_GROUP_BASES as JMAX
+    from tophat_tpu.index.grouped import contig_group_ranges as jranges
+    from tophat_tpu.index.grouped import sub_genome as jsub
+    from tophat_tpu_torch.index.fasta import Genome
+    from tophat_tpu_torch.index.grouped import (MAX_GROUP_BASES,
+                                                contig_group_ranges,
+                                                sub_genome)
+
+    g, jg = _ladder(Genome), _ladder(JGenome)
+    assert g.n == 3_093_000_000 and MAX_GROUP_BASES == JMAX
+    got = contig_group_ranges(g)
+    assert got == [range(0, 11), range(11, 24)] == jranges(jg)
+    assert [int(g.offsets[r.start]) for r in got] == [0, 1_950_000_000]
+    for r, n in zip(got, (1_950_000_000, 1_143_000_000)):
+        s, js = sub_genome(g, r), jsub(jg, r)
+        assert s.n == js.n == n and s.names == js.names
+        np.testing.assert_array_equal(s.offsets, js.offsets)
+        assert s.offsets.dtype == np.int64 and s.offsets[-1] == n
+
+
+def test_global_to_contig_past_2p31_matches_jax():
+    """Global positions either side of 2^31 (chr13 spans it; chr14 starts
+    at 2,199,000,000) map to the same contig and local position in both
+    packages, at int64, and back."""
+    from tophat_tpu.index.fasta import Genome as JGenome
+    from tophat_tpu_torch.index.fasta import Genome
+
+    g, jg = _ladder(Genome), _ladder(JGenome)
+    off = [int(x) for x in g.offsets]
+    pos = [0, (1 << 31) - 1, 1 << 31, (1 << 31) + 1, off[13] - 1, off[13],
+           off[13] + 1, off[22] + 5, g.n - 1]
+    want_c = [max(c for c in range(24) if off[c] <= p) for p in pos]
+    want_l = [p - off[c] for p, c in zip(pos, want_c)]
+    for G in (g, jg):
+        cid, local = G.global_to_contig(np.array(pos, np.int64))
+        assert cid.tolist() == want_c and local.tolist() == want_l
+        assert local.dtype == np.int64
+        back = G.contig_to_global(cid, local)
+        assert back.dtype == np.int64 and back.tolist() == pos
+    assert want_c[1:4] == [12, 12, 12] and want_c[5] == 13
+
+
+def test_human_scale_design_matches_jax(tmp_path, monkeypatch):
+    """chip_smoke.py's phase 16 at 1/1,000 of its ladder (24 contigs,
+    3,093,000 bases, its planted introns and reads) through both
+    packages' CLIs, --no-coverage-search, --max-index-bases cutting at
+    chr12 as the default cuts the full ladder (2 groups): identical
+    files, and the phase's own checks pass on them."""
+    from tophat_tpu.cli.main import main as jmain
+    from tophat_tpu_torch.cli.main import main as tmain
+
+    cs = _smoke()
+    monkeypatch.setattr(cs, "HUMAN_PER_MBP", 1000)
+    codes, offsets, names, introns = cs.human_genome()
+    assert len(codes) == 3_093_000 and len(introns) == 48
+    seqs, truth = cs.human_reads(codes, offsets, introns, 82, 2048)
+    fa, fq = str(tmp_path / "hs.fa"), str(tmp_path / "r.fq")
+    cs.write_fasta(fa, codes, cuts=offsets[:-1])
+    cs.write_fastq(fq, seqs)
+    argv = ["--no-coverage-search", "--max-index-bases", "1950000", fa, fq]
+    assert jmain(["-o", str(tmp_path / "jax"), "--tt-index",
+                  str(tmp_path / "j")] + argv) == 0
+    assert tmain(["-o", str(tmp_path / "torch"), "--tt-index",
+                  str(tmp_path / "t"), "--device", "cpu"] + argv) == 0
+    _same(tmp_path / "jax", tmp_path / "torch",
+          OUTPUTS + ("align_summary.txt",))
+    log = (tmp_path / "torch" / "logs" / "tophat.log").read_text()
+    assert "2 contig groups" in log
+    got = cs.human_placement(str(tmp_path / "torch"), names, offsets,
+                             introns, truth)
+    assert got["recall_pct"] == 100.0
+    assert got["missing_introns"] == [] and got["misplaced"] == []
+    assert got["n_contiguous"] == 1536
+
+
+def test_grouped_mapper_keeps_one_group_resident(tmp_path, monkeypatch):
+    """A group's index arrives on the device only after the group before
+    it is gone: no device copy of an earlier group is alive at any
+    FMIndex.to of the grouped run (single-end and paired), so a human
+    genome's two groups (8.9 and 5.5 GB) never sit on the card at once."""
+    import weakref
+
+    from tophat_tpu_torch.index.fm import FMIndex
+
+    to = FMIndex.to
+    copies, alive_at_to = [], []
+
+    def to_tracked(self, device):
+        alive_at_to.append(sum(r() is not None for r in copies))
+        out = to(self, device)
+        copies.append(weakref.ref(out))
+        return out
+
+    monkeypatch.setattr(FMIndex, "to", to_tracked)
+    for mode in ("single", "paired"):
+        copies.clear()
+        alive_at_to.clear()
+        run_library("torch", tmp_path / mode, mode)
+        assert len(alive_at_to) >= 3 and not any(alive_at_to), alive_at_to
+
+
+@pytest.mark.parametrize("avail_gb,want", [(100, 2), (75, 2), (60, 1),
+                                           (None, 1)])
+def test_build_workers_fit_the_human_groups(avail_gb, want, monkeypatch):
+    """The group-build budget sums the scratch of the groups that can
+    build at once: a human genome's two groups (1.95 and 1.143 Gbp) build
+    together on a host with ~71 GB free, where charging every worker the
+    largest group's scratch allowed one; less memory, or none readable,
+    builds them one after the other."""
+    import types
+
+    from tophat_tpu_torch.index import grouped
+
+    monkeypatch.setattr(grouped.os, "cpu_count", lambda: 8)
+    subs = [types.SimpleNamespace(n=n) for n in (1_950_000_000,
+                                                 1_143_000_000)]
+    avail = None if avail_gb is None else avail_gb * 10 ** 9
+    if avail is None:
+        monkeypatch.setattr(grouped, "_mem_available", lambda: None)
+    assert grouped._build_workers(subs, [0, 1], avail) == want
+    assert grouped._build_workers(subs, [1], avail) == 1

@@ -104,3 +104,79 @@ def test_backward_search_and_hits_match(codes, kmer_k, sa_rate):
     np.testing.assert_array_equal(pos.numpy(), np.asarray(jpos))
     np.testing.assert_array_equal(valid.numpy(), np.asarray(jvalid))
     np.testing.assert_array_equal(trunc.numpy(), np.asarray(jtrunc))
+
+
+def _sa_texts():
+    """Texts that take every branch of the port's SA-IS: random ones of
+    1 to 4 symbols, long runs (an N gap read as A), periodic and tandem
+    repeats (deep recursion), and codes over 126 (two-byte symbols)."""
+    rng = np.random.default_rng(23)
+    texts = [rng.integers(0, k, n) for n in (1, 2, 3, 17, 1000, 20_000)
+             for k in (1, 2, 4)]
+    runs = rng.integers(0, 4, 30_000)
+    runs[5_000:12_000] = 0
+    runs[20_000:26_000] = np.tile(runs[:60], 100)
+    texts += [runs, np.tile([0, 1], 4_000), np.tile([2, 1, 0], 3_000),
+              np.tile(rng.integers(0, 4, 1_000), 20),
+              rng.integers(0, 200, 5_000), rng.integers(120, 255, 3_000)]
+    return [np.asarray(t, np.uint8) for t in texts]
+
+
+def _sais64(text):
+    """The port's 64-bit SA-IS entry, which the Python wrapper takes only
+    past 2^31 symbols."""
+    import ctypes
+
+    from tophat_tpu_torch.native import sais
+
+    out = np.empty(len(text) + 1, np.int64)
+    fn = sais.lib.sais_suffix_array
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.POINTER(ctypes.c_uint8), ctypes.c_int64,
+                   ctypes.POINTER(ctypes.c_int64)]
+    assert fn(text.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)),
+              ctypes.c_int64(len(text)),
+              out.ctypes.data_as(ctypes.POINTER(ctypes.c_int64))) == 0
+    return out
+
+
+def _kmer_table_numpy(text, sa, k):
+    """SA interval [lo, hi) of every k-mer by counting (0, 0 if absent)."""
+    n = len(text)
+    lo = np.zeros(4 ** k, np.int32)
+    hi = np.zeros(4 ** k, np.int32)
+    for row, s in enumerate(sa):
+        if s + k <= n:
+            v = int(np.dot(text[s:s + k], 4 ** np.arange(k - 1, -1, -1)))
+            lo[v] = row if not hi[v] else lo[v]
+            hi[v] = row + 1
+    return lo, hi
+
+
+@pytest.mark.parametrize("i", range(len(_sa_texts())))
+def test_sais_matches_jax(i):
+    """The port's SA-IS (compact, 32-bit indexes below 2^31 symbols, the
+    rewrite a 1.95 Gbp group needed) gives the JAX package's suffix array
+    and prefix doubling's, on both index widths; the BWT and k-mer passes
+    give the same on either width (the k-mer table the same as counting
+    its rows with numpy)."""
+    from tophat_tpu.index.suffix import suffix_array as jax_sa
+    from tophat_tpu.index.suffix import suffix_array_doubling
+    from tophat_tpu_torch.native import sais
+
+    text = _sa_texts()[i]
+    got = sais.suffix_array(text)
+    assert got.dtype == np.int32
+    want = np.asarray(jax_sa(text))
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(_sais64(text), want)
+    np.testing.assert_array_equal(suffix_array_doubling(text), want)
+    b32, p32 = sais.bwt_from_sa(text, got)
+    b64, p64 = sais.bwt_from_sa(text, got.astype(np.int64))
+    np.testing.assert_array_equal(b32, b64)
+    assert p32 == p64 == int(np.nonzero(want == 0)[0][0])
+    if len(text) and text.max() < 4:
+        want_k = _kmer_table_numpy(text.astype(np.int64), want, 5)
+        for sa in (got, got.astype(np.int64)):
+            for a, b in zip(sais.kmer_table(text, sa, 5), want_k):
+                np.testing.assert_array_equal(a, b)

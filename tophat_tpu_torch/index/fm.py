@@ -62,23 +62,28 @@ def _to_tensor(a, np_dtype, device) -> torch.Tensor:
     return torch.from_numpy(a).to(device)
 
 
+def _words(packed: np.ndarray, nwords: int) -> np.ndarray:
+    """Little-endian bytes (zero-padded to whole words) -> uint32 words."""
+    out = np.zeros(nwords * 4, np.uint8)
+    out[:packed.shape[0]] = packed
+    return out.view("<u4").astype(np.uint32, copy=False)
+
+
 def pack_2bit(codes: np.ndarray) -> np.ndarray:
     """Pack int8 2-bit codes (values 0..3) into uint32 words, 16 per word,
-    code i at bits [2*(i%16), 2*(i%16)+1]. Blocked: peak scratch is one
-    chunk's expansion, not 8 B/base."""
+    code i at bits [2*(i%16), 2*(i%16)+1]: four codes a byte, the bytes
+    read as little-endian words. Blocked: scratch is one chunk's."""
     n = codes.shape[0]
-    nwords = (n + 15) // 16
-    out = np.empty(nwords, np.uint32)
-    shifts = (2 * np.arange(16, dtype=np.uint32))[None, :]
-    step = _PACK_CHUNK  # multiple of 16
-    for s in range(0, max(n, 1), step):
-        e = min(s + step, n)
-        w0, w1 = s // 16, (e + 15) // 16
-        padded = np.zeros((w1 - w0) * 16, dtype=np.uint32)
-        padded[: e - s] = codes[s:e].astype(np.uint32)
-        out[w0:w1] = np.bitwise_or.reduce(
-            padded.reshape(-1, 16) << shifts, axis=1).astype(np.uint32)
-    return out
+    nbytes = (n + 3) // 4
+    out = np.zeros(nbytes, np.uint8)
+    for s in range(0, n, _PACK_CHUNK):   # a multiple of 4
+        c = np.asarray(codes[s:s + _PACK_CHUNK]).astype(np.uint8)
+        if c.shape[0] % 4:
+            c = np.concatenate([c, np.zeros(4 - c.shape[0] % 4, np.uint8)])
+        q = c.reshape(-1, 4)
+        out[s // 4:s // 4 + q.shape[0]] = (q[:, 0] | (q[:, 1] << 2)
+                                           | (q[:, 2] << 4) | (q[:, 3] << 6))
+    return _words(out, (n + 15) // 16)
 
 
 @dataclasses.dataclass
@@ -170,21 +175,9 @@ class FMIndex:
 
 
 def pack_1bit(bits: np.ndarray) -> np.ndarray:
-    """Pack a boolean array into uint32 words, bit i%32 of word i//32.
-    Blocked like pack_2bit."""
-    n = bits.shape[0]
-    nwords = (n + 31) // 32
-    out = np.empty(nwords, np.uint32)
-    shifts = np.arange(32, dtype=np.uint32)[None, :]
-    step = _PACK_CHUNK  # multiple of 32
-    for s in range(0, max(n, 1), step):
-        e = min(s + step, n)
-        w0, w1 = s // 32, (e + 31) // 32
-        padded = np.zeros((w1 - w0) * 32, dtype=np.uint32)
-        padded[: e - s] = bits[s:e].astype(np.uint32)
-        out[w0:w1] = np.bitwise_or.reduce(
-            padded.reshape(-1, 32) << shifts, axis=1).astype(np.uint32)
-    return out
+    """Pack a boolean array into uint32 words, bit i%32 of word i//32."""
+    return _words(np.packbits(np.asarray(bits, bool), bitorder="little"),
+                  (bits.shape[0] + 31) // 32)
 
 
 def _sub_block_counts(arr: np.ndarray, nblocks: int, sub: int,
@@ -219,9 +212,7 @@ def _build_kmer_table(text: np.ndarray, sa: np.ndarray, k: int):
     try:
         from tophat_tpu_torch.native import sais
 
-        kv = sais.kmer_vals(text, sa, k)   # threaded single pass
-        lo, hi = sais.kmer_table(kv, k)    # sequential interval pass
-        return lo, hi
+        return sais.kmer_table(text, sa, k)   # threaded single pass
     except Exception:
         v = np.zeros(n - k + 1, dtype=np.int64)
         for j in range(k):
@@ -284,7 +275,7 @@ def build_fm_index(genome: Genome | np.ndarray,
     device = resolve_device(device)
     codes = genome.codes if isinstance(genome, Genome) else np.asarray(genome)
     codes = codes.astype(np.int8)
-    text = np.where(codes == 4, 0, codes).astype(np.int8)  # N -> A in FM text
+    text = np.where(codes == 4, 0, codes).astype(np.int8, copy=False)  # N->A
     n = text.shape[0]
 
     if sa is None:
@@ -311,11 +302,14 @@ def build_fm_index(genome: Genome | np.ndarray,
         kmer_lo = kmer_hi = np.zeros(0, np.int32)
 
     if sa_rate:
-        marked = (sa % sa_rate) == 0
+        marked = np.empty(m, bool)   # blocked: no O(n) remainder temporary
+        for s in range(0, m, _PACK_CHUNK):
+            np.equal(sa[s:s + _PACK_CHUNK] % sa_rate, 0,
+                     out=marked[s:s + _PACK_CHUNK])
         sa_marks = pack_1bit(marked)
         nb = (m + 127) // 128
         # per-32-row marked counts, blocked (class 1 of the int8 view)
-        per_sub = _sub_block_counts(marked.astype(np.int8), nb, 32,
+        per_sub = _sub_block_counts(marked.view(np.int8), nb, 32,
                                     2)[:, 1].reshape(nb, 4)
         csum = np.cumsum(per_sub.sum(axis=1, dtype=np.int64))
         sa_mark_ck = np.concatenate([[0], csum]).astype(np.int32)
@@ -325,17 +319,21 @@ def build_fm_index(genome: Genome | np.ndarray,
             :, :-1].astype(np.uint8)
         sa_mark_mid = np.concatenate(
             [mid.reshape(-1), np.zeros(4, np.uint8)]).astype(np.uint8)
-        sa_samples = sa[marked].astype(np.int32)
+        sa_samples = sa[marked].astype(np.int32, copy=False)
         sa_store = np.zeros(0, np.int32)
+        del marked
     else:
         sa_marks = np.zeros(0, np.uint32)
         sa_mark_ck = np.zeros(0, np.int32)
         sa_mark_mid = np.zeros(0, np.uint8)
         sa_samples = np.zeros(0, np.int32)
-        sa_store = sa.astype(np.int32)
+        sa_store = sa.astype(np.int32, copy=False)
 
+    del sa          # the build's largest array, freed before the packing
+    packed_bwt = pack_2bit(bwt)
+    del bwt
     tables = types.SimpleNamespace(
-        packed_bwt=pack_2bit(bwt), occ_ck=occ_ck, occ_mid=occ_mid, C=C,
+        packed_bwt=packed_bwt, occ_ck=occ_ck, occ_mid=occ_mid, C=C,
         sa=sa_store, genome=codes, primary=int(primary),
         packed_genome=np.concatenate([pack_2bit(text), pack_2bit(text[8:])]),
         pg_dual=True, n_mask=pack_1bit(codes == 4),

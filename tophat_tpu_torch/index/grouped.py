@@ -199,23 +199,40 @@ def _group_build_child(sg: Genome, kmer_k: int, sa_rate: int,
     _save(fm, path, path + f".tmp{os.getpid()}")
 
 
-def _build_workers(subs, todo) -> int:
-    """Concurrent group-build budget: one worker per core, bounded so the
-    summed construction scratch (~18 B/base/group) stays inside available
-    host memory."""
-    if len(todo) < 2:
-        return 1
+# host scratch of one group's build, bytes per base at k = 13, sa_rate 4:
+# a 1.95 Gbp group's forked worker peaked at 31.3 GiB resident on an H100
+# host, ~3.5 GiB of it pages shared with its parent
+BUILD_BYTES_PER_BASE = 16
+
+
+def _mem_available() -> Optional[int]:
+    """MemAvailable of /proc/meminfo in bytes, None where unreadable."""
     try:
-        avail = None
         with open("/proc/meminfo") as f:
             for line in f:
                 if line.startswith("MemAvailable:"):
-                    avail = int(line.split()[1]) * 1024
-                    break
-        if avail is None:
-            return 1
+                    return int(line.split()[1]) * 1024
     except OSError:
+        pass
+    return None
+
+
+def _build_workers(subs, todo, avail: Optional[int] = None) -> int:
+    """Concurrent group-build budget: one worker per core, bounded so the
+    summed construction scratch of the builds that can run at once (the
+    largest ones: workers take groups largest first) stays inside 70% of
+    available host memory. A human genome's two groups (1.95 and 1.143
+    Gbp, ~49 GB together) build at once on a host with ~71 GB free."""
+    if len(todo) < 2:
         return 1
-    per = max(subs[i].n for i in todo) * 18
-    by_mem = max(1, int(avail * 0.7 / max(per, 1)))
-    return min(os.cpu_count() or 1, by_mem, len(todo))
+    avail = _mem_available() if avail is None else avail
+    if avail is None:
+        return 1
+    sizes = sorted((subs[i].n for i in todo), reverse=True)
+    w, need = 0, 0
+    for n in sizes[:os.cpu_count() or 1]:
+        need += n * BUILD_BYTES_PER_BASE
+        if w and need > avail * 0.7:
+            break
+        w += 1
+    return w

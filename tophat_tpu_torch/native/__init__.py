@@ -42,6 +42,15 @@ def _build_and_load(name: str, extra_flags=()):
     return ctypes.CDLL(so)
 
 
+def _bytes(codes: np.ndarray) -> np.ndarray:
+    """Codes as a contiguous uint8 array: a view of int8 codes (a genome's
+    worth of bytes is not copied), else a converted copy."""
+    codes = np.ascontiguousarray(codes)
+    if codes.dtype in (np.int8, np.uint8):
+        return codes.view(np.uint8)
+    return codes.astype(np.uint8)
+
+
 class _Sais:
     def __init__(self):
         self._lib = None
@@ -50,98 +59,77 @@ class _Sais:
     def lib(self):
         if self._lib is None:
             self._lib = _build_and_load("sais")
-            self._lib.sais_suffix_array.restype = ctypes.c_int
-            self._lib.sais_suffix_array.argtypes = [
-                ctypes.POINTER(ctypes.c_uint8), ctypes.c_int64,
-                ctypes.POINTER(ctypes.c_int64)]
         return self._lib
+
+    @staticmethod
+    def _sa_args(sa: np.ndarray):
+        """(contiguous SA, ctypes pointer type, symbol suffix) of an SA of
+        32- or 64-bit indexes: each width has its own native entry."""
+        if sa.dtype == np.int32:
+            return (np.ascontiguousarray(sa), ctypes.POINTER(ctypes.c_int32),
+                    "32")
+        return (np.ascontiguousarray(sa, dtype=np.int64),
+                ctypes.POINTER(ctypes.c_int64), "")
 
     def bwt_from_sa(self, codes: np.ndarray, sa: np.ndarray):
         """Threaded BWT gather; returns (bwt int8[n+1], primary)."""
         import os
 
-        lib = self.lib
-        if not hasattr(lib, "sais_bwt_from_sa"):
-            raise AttributeError("sais_bwt_from_sa missing (stale .so?)")
-        lib.sais_bwt_from_sa.restype = ctypes.c_int64
-        lib.sais_bwt_from_sa.argtypes = [
-            ctypes.POINTER(ctypes.c_uint8), ctypes.c_int64,
-            ctypes.POINTER(ctypes.c_int64),
+        sa, sa_ptr, width = self._sa_args(sa)
+        fn = getattr(self.lib, f"sais_bwt_from_sa{width}")
+        fn.restype = ctypes.c_int64
+        fn.argtypes = [
+            ctypes.POINTER(ctypes.c_uint8), ctypes.c_int64, sa_ptr,
             ctypes.POINTER(ctypes.c_uint8), ctypes.c_int]
-        codes = np.ascontiguousarray(codes, dtype=np.uint8)
-        sa = np.ascontiguousarray(sa, dtype=np.int64)
+        codes = _bytes(codes)
         n = codes.shape[0]
         bwt = np.empty(n + 1, np.uint8)
-        primary = lib.sais_bwt_from_sa(
+        primary = fn(
             codes.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)),
-            ctypes.c_int64(n),
-            sa.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)),
+            ctypes.c_int64(n), sa.ctypes.data_as(sa_ptr),
             bwt.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)),
             min(os.cpu_count() or 1, 8))
         if primary < 0:
             raise RuntimeError("bwt_from_sa: no sentinel row")
         return bwt.view(np.int8), int(primary)
 
-    def kmer_vals(self, codes: np.ndarray, sa: np.ndarray,
-                  k: int) -> np.ndarray:
-        """Per-SA-row k-mer key (or -1), threaded single pass."""
+    def kmer_table(self, codes: np.ndarray, sa: np.ndarray, k: int):
+        """SA interval [lo, hi) int32[4^k] of every k-mer (0, 0 where it
+        is absent), threaded single pass over the SA rows."""
         import os
 
-        lib = self.lib
-        if not hasattr(lib, "sais_kmer_vals"):
-            raise AttributeError("sais_kmer_vals missing (stale .so?)")
-        lib.sais_kmer_vals.restype = ctypes.c_int
-        lib.sais_kmer_vals.argtypes = [
-            ctypes.POINTER(ctypes.c_uint8), ctypes.c_int64,
-            ctypes.POINTER(ctypes.c_int64), ctypes.c_int,
-            ctypes.POINTER(ctypes.c_int32), ctypes.c_int]
-        codes = np.ascontiguousarray(codes, dtype=np.uint8)
-        sa = np.ascontiguousarray(sa, dtype=np.int64)
-        n = codes.shape[0]
-        out = np.empty(n + 1, np.int32)
-        rc = lib.sais_kmer_vals(
-            codes.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)),
-            ctypes.c_int64(n),
-            sa.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)),
-            ctypes.c_int(k),
-            out.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)),
-            min(os.cpu_count() or 1, 8))
-        if rc != 0:
-            raise RuntimeError("sais_kmer_vals failed")
-        return out
-
-    def kmer_table(self, kv: np.ndarray, k: int):
-        """kv (SA-order k-mer keys, -1 invalid) -> (lo, hi) int32[4^k]."""
-        lib = self.lib
-        if not hasattr(lib, "sais_kmer_table"):
-            raise AttributeError("sais_kmer_table missing (stale .so?)")
-        lib.sais_kmer_table.restype = ctypes.c_int
-        lib.sais_kmer_table.argtypes = [
-            ctypes.POINTER(ctypes.c_int32), ctypes.c_int64,
-            ctypes.c_int64, ctypes.POINTER(ctypes.c_int32),
-            ctypes.POINTER(ctypes.c_int32)]
-        kv = np.ascontiguousarray(kv, dtype=np.int32)
-        K4 = 4 ** k
-        lo = np.empty(K4, np.int32)
-        hi = np.empty(K4, np.int32)
+        sa, sa_ptr, width = self._sa_args(sa)
+        fn = getattr(self.lib, f"sais_kmer_table{width}")
+        fn.restype = ctypes.c_int
         i32 = ctypes.POINTER(ctypes.c_int32)
-        lib.sais_kmer_table(kv.ctypes.data_as(i32),
-                            ctypes.c_int64(kv.shape[0]),
-                            ctypes.c_int64(K4),
-                            lo.ctypes.data_as(i32),
-                            hi.ctypes.data_as(i32))
+        fn.argtypes = [ctypes.POINTER(ctypes.c_uint8), ctypes.c_int64,
+                       sa_ptr, ctypes.c_int, i32, i32, ctypes.c_int]
+        codes = _bytes(codes)
+        lo = np.empty(4 ** k, np.int32)
+        hi = np.empty(4 ** k, np.int32)
+        fn(codes.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)),
+           ctypes.c_int64(codes.shape[0]), sa.ctypes.data_as(sa_ptr),
+           ctypes.c_int(k), lo.ctypes.data_as(i32), hi.ctypes.data_as(i32),
+           min(os.cpu_count() or 1, 8))
         return lo, hi
 
     def suffix_array(self, codes: np.ndarray) -> np.ndarray:
         """SA of codes + implicit sentinel (sa[0] == n), like
-        suffix.suffix_array_doubling."""
-        codes = np.ascontiguousarray(codes, dtype=np.uint8)
+        suffix.suffix_array_doubling: int32 while n + 1 + 64 < 2^31 (half
+        the bytes of every pass over it), else int64."""
+        codes = _bytes(codes)
         n = codes.shape[0]
-        out = np.empty(n + 1, dtype=np.int64)
-        rc = self.lib.sais_suffix_array(
-            codes.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)),
-            ctypes.c_int64(n),
-            out.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)))
+        if n + 1 + 64 < (1 << 31):
+            out = np.empty(n + 1, dtype=np.int32)
+            fn, ptr = self.lib.sais_suffix_array32, ctypes.c_int32
+        else:
+            out = np.empty(n + 1, dtype=np.int64)
+            fn, ptr = self.lib.sais_suffix_array, ctypes.c_int64
+        fn.restype = ctypes.c_int
+        fn.argtypes = [ctypes.POINTER(ctypes.c_uint8), ctypes.c_int64,
+                       ctypes.POINTER(ptr)]
+        rc = fn(codes.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)),
+                ctypes.c_int64(n), out.ctypes.data_as(ctypes.POINTER(ptr)))
         if rc != 0:
             raise RuntimeError(f"sais_suffix_array failed ({rc})")
         return out

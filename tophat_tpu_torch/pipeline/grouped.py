@@ -203,6 +203,7 @@ class GroupedMapper:
                                        params.read_mismatches),
                 narrow_hits=min(8, params.hits_per_seed),
                 wide_hits=params.hits_per_seed))
+            del fm      # the next group arrives only once this one is gone
             alns.append(al)
             total += al.n_hits
         if params.prefilter_multihits:
