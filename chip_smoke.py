@@ -133,10 +133,29 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      coordinates, a contiguous read not at its contig and POS, no read on
      a contig past 2^31, no sparse realign launch or any dense one, or the
      genome axis started
-Phases run in the order 1-10, 12, 11, 13, 14, 15, 16. Launches in the
-kernels line are summed over phases 4, 6, 8, 9, 10, 11, 12, 13, 14, 15
-and 16 (each counted from 0 just before its timed run), max_abs_err over
-every check.
+ 17. TopHat's annotated paired default run on the human-scale genome
+     (-G genes.gtf --transcriptome-index ... --tt-index, coverage search
+     on, 2 contig groups): phase 16's genome, FASTA and group indexes; a
+     synthetic GTF with GENCODE 19's counts (57,820 genes, 196,520
+     transcripts, ~378,000 distinct introns, a third of the genes past
+     2^31) and its transcriptome files and index, which the build child
+     writes after the groups; pairs of 2 x 100 bp (50% transcript
+     fragments, 10% with mate 1 across a phase-16 intron, the rest
+     contiguous). A run of 4,096 pairs holds every realign call against
+     its plain version on up to 2,048 of its rows; a timed run of 16,384
+     pairs records pairs/s, stage seconds, group swaps, E, every realign
+     call, peak device and host memory, the concordant share and whether
+     the coverage search's event cap bound; fails with other than 2
+     groups, under 100% recall (annotated-junction mates,
+     unannotated-intron mates 1), a crossed planted intron missing from
+     junctions.bed or a crossed annotated one past 2^31 placed by no
+     record's CIGAR, at its contig-local coordinates, no mate placed past
+     2^31, E < 300,000, no
+     sparse realign launch or any dense one, or the genome axis started
+Phases run in the order 1-10, 12, 11, 13, 14, 15, 16, 17. Launches in
+the kernels line are summed over phases 4, 6, 8, 9, 10, 11, 12, 13, 14,
+15, 16 and 17 (each counted from 0 just before its timed run),
+max_abs_err over every check.
 Standard output ends with four lines: the measured numbers (JSON), the
 kernels (JSON), the nvidia-smi name/power line, and the result JSON.
 """
@@ -1025,6 +1044,28 @@ def _motif(codes, a: int, b: int):
     return np.nonzero((codes[:-1] == a) & (codes[1:] == b))[0]
 
 
+def exon_chain(rng, starts, ends, s: int, k: int):
+    """k exons of 50-300 bp from base s, joined by introns of 70-5,000 bp
+    (log-uniform) at the sorted intron-start and intron-end motif
+    positions `starts` and `ends` (GT and AG for a '+' gene): [(start,
+    end), ...] 0-based; fewer than k where the motifs run out."""
+    exons = []
+    for _ in range(k - 1):
+        lo = np.searchsorted(starts, s + 50)
+        hi = np.searchsorted(starts, s + 301)
+        if hi <= lo:
+            return exons
+        d = int(starts[int(rng.integers(lo, hi))])      # intron start
+        target = int(np.exp(rng.uniform(np.log(70), np.log(5000))))
+        a_lo = np.searchsorted(ends, d + max(target, 70) - 2)
+        if a_lo >= len(ends) or ends[a_lo] + 2 - d > 5000:
+            return exons
+        exons.append((s, d))
+        s = int(ends[a_lo]) + 2                         # next exon start
+    exons.append((s, s + int(rng.integers(50, 301))))
+    return exons
+
+
 def make_annotation(codes, avoid, n_genes: int, seed: int = 29,
                     chrom: str = "chr1"):
     """A synthetic GTF of the order of a Drosophila annotation (FlyBase r6:
@@ -1048,23 +1089,8 @@ def make_annotation(codes, avoid, n_genes: int, seed: int = 29,
         if p + 60000 >= len(codes):
             fail(f"annotation: the genome holds only {gi} genes")
         strand = "+" if gi % 2 == 0 else "-"
-        starts, ends = motifs[strand]
         k = int(rng.integers(3, 9))
-        exons, s = [], p
-        for j in range(k - 1):
-            lo = np.searchsorted(starts, s + 50)
-            hi = np.searchsorted(starts, s + 301)
-            if hi <= lo:
-                break
-            d = int(starts[int(rng.integers(lo, hi))])   # intron start
-            target = int(np.exp(rng.uniform(np.log(70), np.log(5000))))
-            a_lo = np.searchsorted(ends, d + max(target, 70) - 2)
-            if a_lo >= len(ends) or ends[a_lo] + 2 - d > 5000:
-                break
-            exons.append((s, d))
-            s = int(ends[a_lo]) + 2                     # next exon start
-        else:
-            exons.append((s, s + int(rng.integers(50, 301))))
+        exons = exon_chain(rng, *motifs[strand], p, k)
         if len(exons) != k:
             p = exons[-1][1] + 100 if exons else p + 100
             continue
@@ -1095,15 +1121,18 @@ def make_annotation(codes, avoid, n_genes: int, seed: int = 29,
 
 
 def make_annotated_pairs(codes, transcripts, juncs, seed: int, n_pairs: int,
-                         L: int = READ_LEN):
+                         L: int = READ_LEN, offsets=None, crossed=None):
     """Mate pairs of 2 x L bp for the annotated run, inner distance from
     N(50, 20) clipped at 0, mate 2 the reverse complement downstream of
     mate 1: in 50% of pairs (i % 10 < 5) both mates are a fragment of an
     annotated transcript long enough to hold it (in transcript space,
     mates swapped in every other such pair); in 10% (i % 10 == 5) mate 1
     crosses one of `juncs` (none annotated) with >= 20 bp on each side;
-    the rest are contiguous with one mismatch per mate. Returns (m1, m2,
-    spans (n, 2) bool: the mate crosses an annotated junction,
+    the rest are contiguous with one mismatch per mate (with contig
+    `offsets`, none across a contig end). A dict `crossed` maps (left,
+    right, annotated) of every intron a designed mate crosses to the
+    [(pair, mate 1 or 2), ...] that cross it. Returns
+    (m1, m2, spans (n, 2) bool: the mate crosses an annotated junction,
     unannotated (n,) bool)."""
     from tophat_tpu_torch.index.fasta import revcomp
 
@@ -1128,7 +1157,15 @@ def make_annotated_pairs(codes, transcripts, juncs, seed: int, n_pairs: int,
             a, b = seqs[ti][s:s + L], revcomp(seqs[ti][e2:e2 + L])
             sp = (bool(((cuts[ti] > s) & (cuts[ti] < s + L)).any()),
                   bool(((cuts[ti] > e2) & (cuts[ti] < e2 + L)).any()))
-            if (i // 10) % 2:
+            swap = (i // 10) % 2
+            if crossed is not None:
+                ex = transcripts[ti]
+                for at, mate in ((s, 1 + swap), (e2, 2 - swap)):
+                    for j in np.nonzero((cuts[ti] > at)
+                                        & (cuts[ti] < at + L))[0]:
+                        crossed.setdefault((ex[j][1] - 1, ex[j + 1][0], True),
+                                           []).append((i, mate))
+            if swap:
                 a, b, sp = b, a, sp[::-1]
             m1[i], m2[i], spans[i] = a, b, sp
         elif kind == 5:
@@ -1139,8 +1176,16 @@ def make_annotated_pairs(codes, transcripts, juncs, seed: int, n_pairs: int,
             s2 = right + L - t + inner
             m2[i] = revcomp(codes[s2:s2 + L])
             unannotated[i] = True
+            if crossed is not None:
+                crossed.setdefault((left, right, False), []).append((i, 1))
         else:
-            s = int(r.integers(0, len(codes) - 3 * L - 400))
+            while True:
+                s = int(r.integers(0, len(codes) - 3 * L - 400))
+                if offsets is None:
+                    break
+                c = int(np.searchsorted(offsets, s, side="right")) - 1
+                if s + 3 * L + 400 <= offsets[c + 1]:
+                    break
             a = codes[s:s + L].copy()
             b = codes[s + L + inner:s + 2 * L + inner].copy()
             for x in (a, b):
@@ -1392,11 +1437,12 @@ MIN_EVENTS = 30000         # phase 8 fails with fewer events
 
 def reads_on_transcripts(log_path) -> int:
     """Reads placed on annotated transcripts, summed over a run's mates
-    and chunks (the transcriptome stage's lines in its tophat.log)."""
+    and chunks (the transcriptome stage's lines in its tophat.log, of
+    the single-index or the grouped mapper)."""
     n = 0
     with open(log_path) as f:
         for line in f:
-            if "reads placed on annotated transcripts" in line:
+            if "transcriptome map: " in line and " reads placed" in line:
                 n += int(line.split("transcriptome map: ")[1].split()[0])
     return n
 
@@ -1476,6 +1522,20 @@ def phase_annotated(codes, juncs, index):
                 path_err=check.err, build_stages=build.seconds), transcripts
 
 
+def annotated_recall(out, spans, unannotated):
+    """(annotated-junction mate recall %, unannotated-intron mate-1
+    recall %, annotated-junction mates) of a run of make_annotated_pairs'
+    pairs: a mate counts when it has a record with an N in its CIGAR."""
+    got = n_cigar_reads(os.path.join(out, "accepted_hits.sam"))
+    n_span = int(spans.sum())
+    missed_a = sum(1 for i, m in zip(*np.nonzero(spans))
+                   if (f"p{i}", int(m) + 1) not in got)
+    missed_u = sum(1 for i in np.nonzero(unannotated)[0]
+                   if (f"p{i}", 1) not in got)
+    return (100.0 * (n_span - missed_a) / n_span,
+            100.0 * (1 - missed_u / int(unannotated.sum())), n_span)
+
+
 def annotated_timed_run(tag, argv, out, reads, n_pairs: int, kept=None):
     """One timed annotated run through the CLI, argv(out, FASTQs) on
     reads = (FASTQs, spans, unannotated) from make_annotated_pairs: stage
@@ -1551,14 +1611,7 @@ def annotated_timed_run(tag, argv, out, reads, n_pairs: int, kept=None):
         cli_mod.FMIndex = saved_fm
     peak = torch.cuda.max_memory_allocated()
 
-    got = n_cigar_reads(os.path.join(out, "accepted_hits.sam"))
-    n_span = int(spans.sum())
-    missed_a = sum(1 for i, m in zip(*np.nonzero(spans))
-                   if (f"p{i}", int(m) + 1) not in got)
-    missed_u = sum(1 for i in np.nonzero(unannotated)[0]
-                   if (f"p{i}", 1) not in got)
-    recall_a = 100.0 * (n_span - missed_a) / n_span
-    recall_u = 100.0 * (1 - missed_u / int(unannotated.sum()))
+    recall_a, recall_u, n_span = annotated_recall(out, spans, unannotated)
     placed = reads_on_transcripts(os.path.join(out, "logs", "tophat.log"))
     aligned, disc = align_summary_pairs(os.path.join(out,
                                                      "align_summary.txt"))
@@ -2956,6 +3009,23 @@ def human_reads(codes, offsets, introns, seed: int, n_reads: int):
     return np.stack(seqs), truth
 
 
+def bed_junctions(out) -> set:
+    """{(contig, last exonic base, first exonic base after)} of a run's
+    junctions.bed, contig-local and 0-based."""
+    found = set()
+    with open(os.path.join(out, "junctions.bed")) as f:
+        for line in f:
+            if line.startswith("track"):
+                continue
+            x = line.split("\t")
+            start = int(x[1])
+            sizes = x[10].split(",")
+            starts = x[11].split(",")
+            found.add((x[0], start + int(sizes[0]) - 1,
+                       start + int(starts[1])))
+    return found
+
+
 def human_placement(out, names, offsets, introns, truth) -> dict:
     """What a run of human_reads' reads wrote: junction-read recall, the
     designed introns missing from junctions.bed (contig and contig-local
@@ -2980,16 +3050,7 @@ def human_placement(out, names, offsets, introns, truth) -> dict:
                 placed.add(t[0])
             n_past += t[2] in past
             max_global = max(max_global, int(offsets[cid[t[2]]]) + pos - 1)
-    found = set()
-    with open(os.path.join(out, "junctions.bed")) as f:
-        for line in f:
-            if line.startswith("track"):
-                continue
-            x = line.split("\t")
-            start = int(x[1])
-            sizes = x[10].split(",")
-            starts = x[11].split(",")
-            found.add((x[0], start + int(sizes[0]) - 1, start + int(starts[1])))
+    found = bed_junctions(out)
     return dict(
         recall_pct=junction_recall(os.path.join(out, "accepted_hits.sam"),
                                    len(truth)),
@@ -3004,15 +3065,17 @@ def start_human_build():
     """Start phase 16's index build in a child process (a fresh
     interpreter, not a fork of this process, which holds CUDA): it writes
     the genome's FASTA and builds the group indexes under the CLI's cache
-    prefix, overlapping phases 2-15. Returns the Popen; the child and its
-    build workers (one process group) are killed if the smoke exits first."""
+    prefix, then phase 17's annotation and transcriptome index,
+    overlapping phases 2-16. Returns the Popen; the child and its build
+    workers (one process group) are killed if the smoke exits first."""
     import atexit
     import signal
 
     fa, prefix, logf, rec = human_paths()
     os.makedirs(HUMAN_DIR, exist_ok=True)
-    if os.path.exists(rec):
-        os.remove(rec)
+    for path in (rec, human_annotation_paths()[2]):
+        if os.path.exists(path):
+            os.remove(path)
     with open(logf, "w") as f:
         child = subprocess.Popen(
             [sys.executable, os.path.abspath(__file__), "--human-build",
@@ -3033,8 +3096,9 @@ def human_build():
     phase 16's FASTA (reused when its size matches), then the port's
     build_grouped_fm as the CLI calls it (its --max-index-bases and index
     design point), under the prefix the CLI gets as --tt-index (cached
-    groups are reused). Writes its seconds and peak host memory as
-    JSON."""
+    groups are reused). Writes its seconds and peak host memory as JSON
+    (phase 16 starts on it), then builds phase 17's inputs
+    (human_annotation_build)."""
     import resource
 
     sys.path.insert(0, REPO)
@@ -3044,7 +3108,7 @@ def human_build():
 
     fa, prefix, _, rec = human_paths()
     t0 = time.time()
-    codes, offsets, names, _ = human_genome()
+    codes, offsets, names, introns = human_genome()
     synth_s = time.time() - t0
     t0 = time.time()
     fresh_fasta = not (os.path.exists(fa)
@@ -3062,7 +3126,7 @@ def human_build():
         sa_rate=sr, cache_prefix=prefix, log=lambda m: (msgs.append(m),
                                                         print(m, flush=True)))
     build_s = time.time() - t0
-    with open(rec, "w") as f:
+    with open(rec + ".tmp", "w") as f:
         json.dump(dict(
             synth_s=synth_s, fasta_s=fasta_s, fresh_fasta=fresh_fasta,
             build_s=build_s, kmer_k=kk, sa_rate=sr,
@@ -3073,6 +3137,9 @@ def human_build():
                 resource.RUSAGE_SELF).ru_maxrss,
             worker_peak_rss_bytes=1024 * resource.getrusage(
                 resource.RUSAGE_CHILDREN).ru_maxrss), f)
+    os.replace(rec + ".tmp", rec)
+    del gfm
+    human_annotation_build(codes, offsets, names, introns)
 
 
 class HostPeak:
@@ -3114,12 +3181,21 @@ class HostPeak:
                 resource.RUSAGE_SELF).ru_maxrss
 
 
-def phase_human(build, grouped=None):
+def wait_for_record(build, path):
+    """Wait until the build child has written `path` or exited; returns
+    the child's exit code, None while it still runs."""
+    while not os.path.exists(path) and build.poll() is None:
+        time.sleep(1)
+    return build.poll()
+
+
+def phase_human(build, hg, grouped=None):
     """The human-scale genome on the card: HUMAN_CONTIG_MBP's 24 contigs
     (3,093,000,000 bases) through the CLI as a user types it
     (--no-coverage-search --tt-index, the default --max-index-bases: 2
     groups, chr1-11 and chr12-24, k = 13, sa_rate 4), on the group
-    indexes the build child wrote. A run of 4,096 reads holds every
+    indexes the build child wrote (the phase starts once their record is
+    written; hg is human_genome()'s tuple). A run of 4,096 reads holds every
     realign call against its plain version on up to 2,048 of its rows;
     then a timed run of 16,384 reads records reads/s, stage seconds, group
     swaps and their seconds, each group's FMIndex bytes on the card (with
@@ -3142,11 +3218,11 @@ def phase_human(build, grouped=None):
 
     t_phase = time.time()
     fa, prefix, logf, rec = human_paths()
-    rc = build.wait()
+    rc = wait_for_record(build, rec)
     wait_s = time.time() - t_phase
     with open(logf) as f:
         tail = f.read()[-3000:]
-    if rc != 0 or not os.path.exists(rec):
+    if rc not in (None, 0) or not os.path.exists(rec):
         fail(f"human-scale index build exited {rc}:\n{tail}")
     with open(rec) as f:
         built = json.load(f)
@@ -3160,14 +3236,13 @@ def phase_human(build, grouped=None):
         f"phase 16 waited {wait_s:.1f} s for it")
 
     t0 = time.time()
-    codes, offsets, names, introns = human_genome()
+    codes, offsets, names, introns = hg
     fqs, truths = {}, {}
     for tag, seed, n in (("check", 81, HUMAN_CHECK_READS),
                          ("steady", 82, HUMAN_READS)):
         seqs, truths[tag] = human_reads(codes, offsets, introns, seed, n)
         fqs[tag] = os.path.join(HUMAN_DIR, f"reads_{tag}.fq")
         write_fastq(fqs[tag], seqs)
-    del codes
     n_past_introns = sum(int(offsets[c] >= POS_2P31) for c, _, _ in introns)
     log(f"human-scale inputs: {int(offsets[-1])} bases, {len(names)} "
         f"contigs, {len(introns)} designed introns ({n_past_introns} on "
@@ -3348,6 +3423,554 @@ def phase_human(build, grouped=None):
                 max_global_pos=placed["max_global_pos"], phase_s=phase_s)
 
 
+# --------------------------------------------------------------- phase 17
+
+HUMAN_GENES = 57_820        # GENCODE release 19 (the hg19 annotation TopHat
+HUMAN_TRANSCRIPTS = 196_520  # users pass with -G): genes and transcripts
+HUMAN_MIN_EVENTS = 300_000  # phase 17 fails with fewer (both scale with the
+#                             ladder's HUMAN_PER_MBP)
+HUMAN_CHECK_PAIRS = 4096
+HUMAN_PAIRS = 16384
+GENE_ROOM = 30_000          # bases the widest gene may span (6 exons of 300
+#                             bp, 5 introns of 5,000)
+GENE_MARGIN = 2000          # no gene within this of a contig end
+
+
+def human_scaled(count: int) -> int:
+    """A count of the full-size ladder at HUMAN_PER_MBP's scale."""
+    return int(round(count * HUMAN_PER_MBP / 1_000_000))
+
+
+def human_annotation_paths():
+    """(phase 17's GTF, its --transcriptome-index prefix, the build
+    child's record of them)."""
+    tag = f"hs{HUMAN_PER_MBP}"
+    return (os.path.join(HUMAN_DIR, tag + ".gtf"),
+            os.path.join(HUMAN_DIR, "tx", tag),
+            os.path.join(HUMAN_DIR, tag + ".annotation.json"))
+
+
+def write_human_gtf(path, codes, offsets, names, introns,
+                    seed: int = HUMAN_SEED + 2):
+    """Phase 17's annotation: a synthetic GTF with GENCODE 19's counts
+    (HUMAN_GENES genes and HUMAN_TRANSCRIPTS transcripts, scaled) on phase
+    16's genome. Genes are spread over the contigs in proportion to
+    their length, one a slot, strands alternating; exons of 50-300 bp
+    and introns of 70-5,000 bp at naturally occurring GT..AG (CT..AC on
+    the forward strand for '-' genes), as exon_chain makes them. A gene
+    has 3 isoforms, or 4 in HUMAN_TRANSCRIPTS - 3 HUMAN_GENES genes
+    spread evenly: every exon, then one isoform for each of 2 or 3
+    internal exons skipped, a different one each. No intron equals one
+    of phase 16's `introns`. Writes the GTF; returns (the transcripts'
+    exons [(start, end), ...] at global 0-based coordinates, in file
+    order, and the distinct introns {(last exonic base, first exonic
+    base after)}, global)."""
+    rng = np.random.default_rng(seed)
+    n_genes = human_scaled(HUMAN_GENES)
+    n4 = human_scaled(HUMAN_TRANSCRIPTS) - 3 * n_genes
+    sizes = np.diff(offsets)
+    per = np.diff(np.rint(n_genes * np.concatenate(
+        [[0], np.cumsum(sizes)]) / offsets[-1])).astype(np.int64)
+    planted = set(introns)
+    transcripts, distinct = [], set()
+    gi = 0
+    with open(path, "w") as f:
+        for c, name in enumerate(names):
+            base, size, n_c = int(offsets[c]), int(sizes[c]), int(per[c])
+            seq = codes[base:base + size]
+            motifs = {"+": (_motif(seq, 2, 3), _motif(seq, 0, 2)),
+                      "-": (_motif(seq, 1, 3), _motif(seq, 0, 1))}
+            slot = (size - 2 * GENE_MARGIN - GENE_ROOM) / max(n_c, 1)
+            p = GENE_MARGIN
+            for j in range(n_c):
+                p = max(p, GENE_MARGIN + int(j * slot))
+                strand = "+-"[gi % 2]
+                n_iso = 4 if (gi + 1) * n4 // n_genes > gi * n4 // n_genes \
+                    else 3
+                while True:
+                    if p + GENE_ROOM > size - GENE_MARGIN:
+                        fail(f"human annotation: no room for gene {gi} on "
+                             f"{name}")
+                    k = int(rng.integers(n_iso + 1, 7))
+                    exons = exon_chain(rng, *motifs[strand], p, k)
+                    if len(exons) == k:
+                        skips = sorted(rng.choice(np.arange(1, k - 1),
+                                                  n_iso - 1, replace=False))
+                        isoforms = [exons] + [exons[:x] + exons[x + 1:]
+                                              for x in skips]
+                        gene = {(e1 - 1, s2) for ex in isoforms
+                                for (_, e1), (s2, _) in zip(ex, ex[1:])}
+                        if not any((c, a, b) in planted for a, b in gene):
+                            break
+                    p = (exons[-1][1] if exons else p) + 100
+                for ti, ex in enumerate(isoforms):
+                    f.write("".join(
+                        f'{name}\tsmoke\texon\t{a + 1}\t{b}\t.\t{strand}\t.'
+                        f'\tgene_id "g{gi}"; transcript_id "g{gi}.{ti + 1}";'
+                        "\n" for a, b in ex))
+                    transcripts.append([(base + a, base + b) for a, b in ex])
+                distinct |= {(base + a, base + b) for a, b in gene}
+                p = exons[-1][1] + int(rng.integers(300, 3000))
+                gi += 1
+    return transcripts, distinct
+
+
+def human_annotation_build(codes, offsets, names, introns):
+    """The build child's second part: phase 17's GTF (write_human_gtf),
+    then the transcriptome files and FM index that the CLI's
+    --transcriptome-index makes (parse_gtf, write_transcriptome_files,
+    build_transcriptome_index, on the CPU) under the prefix the CLI
+    gets, so the CLI reuses them. Writes their seconds, counts and the
+    peak host memory as JSON."""
+    import resource
+
+    from tophat_tpu_torch.index.fasta import Genome
+    from tophat_tpu_torch.io.gtf import parse_gtf, write_transcriptome_files
+    from tophat_tpu_torch.pipeline.transcriptome import \
+        build_transcriptome_index
+
+    gtf, tprefix, rec = human_annotation_paths()
+    os.makedirs(os.path.dirname(tprefix), exist_ok=True)
+    if os.path.exists(tprefix + ".tt.npz"):
+        os.remove(tprefix + ".tt.npz")      # build, never reuse, here
+    t0 = time.time()
+    transcripts, distinct = write_human_gtf(gtf, codes, offsets, names,
+                                            introns)
+    gtf_s = time.time() - t0
+    genome = Genome(codes=codes, offsets=offsets, names=names)
+    t0 = time.time()
+    parsed = parse_gtf(gtf)
+    parse_s = time.time() - t0
+    t0 = time.time()
+    write_transcriptome_files(tprefix, genome, parsed, gtf)
+    files_s = time.time() - t0
+    t0 = time.time()
+    tix = build_transcriptome_index(genome, parsed, prefix=tprefix,
+                                    log=print, device="cpu")
+    index_s = time.time() - t0
+    lefts = np.array(sorted(a for a, _ in distinct), np.int64)
+    contig = np.searchsorted(offsets, lefts, side="right") - 1
+    with open(rec + ".tmp", "w") as f:
+        json.dump(dict(
+            genes=human_scaled(HUMAN_GENES), transcripts=len(transcripts),
+            gtf_transcripts=len(parsed), introns=len(distinct),
+            introns_past_2p31=int((offsets[contig] >= POS_2P31).sum()),
+            gtf_bytes=os.path.getsize(gtf), exon_lines=sum(
+                len(t) for t in transcripts),
+            transcriptome_bases=int(tix.n), gtf_s=gtf_s, parse_s=parse_s,
+            files_s=files_s, index_s=index_s,
+            peak_rss_bytes=1024 * resource.getrusage(
+                resource.RUSAGE_SELF).ru_maxrss), f)
+    os.replace(rec + ".tmp", rec)
+
+
+def human_transcripts(gtf, names, offsets):
+    """The transcripts of phase 17's GTF as parse_gtf reads them, in file
+    order: [(start, end), ...] exons at global 0-based coordinates."""
+    from tophat_tpu_torch.io.gtf import parse_gtf
+
+    cid = {nm: c for c, nm in enumerate(names)}
+    return [[(int(offsets[cid[t.chrom]]) + a, int(offsets[cid[t.chrom]]) + b)
+             for a, b in t.exons] for t in parse_gtf(gtf).values()]
+
+
+def sam_introns(out) -> set:
+    """{(contig, last exonic base, first exonic base after)} of every N
+    in the CIGARs of a run's accepted_hits.sam, contig-local and
+    0-based."""
+    import re
+
+    found = set()
+    with open(os.path.join(out, "accepted_hits.sam")) as f:
+        for line in f:
+            if line.startswith("@"):
+                continue
+            t = line.split("\t", 6)
+            if "N" not in t[5]:
+                continue
+            p = int(t[3]) - 1
+            for n, op in re.findall(r"(\d+)([MIDNSHP=X])", t[5]):
+                if op == "N":
+                    found.add((t[2], p - 1, p + int(n)))
+                if op in "MDN=X":
+                    p += int(n)
+    return found
+
+
+def exact_elsewhere(out, codes, names, offsets, mates, wanted) -> set:
+    """The (pair, mate)s of `wanted` that accepted_hits.sam reports
+    where they match the genome base for base, at the record's contig,
+    contig-local POS and CIGAR: mates placed exactly, wherever that is.
+    mates = (mate-1 rows, mate-2 rows) of codes."""
+    import re
+
+    from tophat_tpu_torch.index.fasta import revcomp
+
+    cid = {nm: c for c, nm in enumerate(names)}
+    ok = set()
+    with open(os.path.join(out, "accepted_hits.sam")) as f:
+        for line in f:
+            if line.startswith("@"):
+                continue
+            t = line.split("\t", 6)
+            flag = int(t[1])
+            key = (int(t[0][1:]), 1 if flag & 0x40 else 2)
+            if key not in wanted or t[2] == "*":
+                continue
+            read = mates[key[1] - 1][key[0]]
+            read = revcomp(read) if flag & 0x10 else read
+            p, q, exact = int(offsets[cid[t[2]]]) + int(t[3]) - 1, 0, True
+            for n, op in re.findall(r"(\d+)([MIDNSHP=X])", t[5]):
+                n = int(n)
+                if op in "M=X":
+                    exact &= np.array_equal(codes[p:p + n], read[q:q + n])
+                p += n if op in "MDN=X" else 0
+                q += n if op in "MIS=X" else 0
+            if exact and q == len(read):
+                ok.add(key)
+    return ok
+
+
+def human_annotated_placement(out, names, offsets, reads, crossed, codes,
+                              mates) -> dict:
+    """What a phase-17 run wrote: annotated-junction mate and
+    unannotated-intron mate-1 recall, the planted introns that its
+    designed mates cross but junctions.bed lacks, the annotated introns
+    on contigs past 2^31 that they cross but no record's CIGAR places at
+    their contig-local coordinates (a paired run's junctions.bed, in both
+    packages, lists no junction of a transcriptome placement), unless
+    every mate crossing one is reported elsewhere base for base (a short
+    anchor that fits another isoform exactly, which pair grading may
+    pick), and the records on contigs past 2^31."""
+    _, spans, unannotated = reads
+    recall_a, recall_u, n_span = annotated_recall(out, spans, unannotated)
+    found = bed_junctions(out)
+    placed = sam_introns(out)
+    past = {names[c] for c in range(len(names)) if offsets[c] >= POS_2P31}
+
+    def local(left, right):
+        c = int(np.searchsorted(offsets, left, side="right")) - 1
+        return (names[c], left - int(offsets[c]), right - int(offsets[c]))
+
+    planted = [local(a, b) for a, b, ann in crossed if not ann]
+    annotated_past = [local(a, b) for a, b, ann in crossed
+                      if ann and local(a, b)[0] in past]
+    unplaced = [(a, b) for a, b, ann in crossed if ann
+                and local(a, b)[0] in past and local(a, b) not in placed]
+    exact = exact_elsewhere(out, codes, names, offsets, mates, {
+        m for a, b in unplaced for m in crossed[(a, b, True)]})
+    missing = [local(a, b) for a, b in unplaced
+               if not all(m in exact for m in crossed[(a, b, True)])]
+    n_past = 0
+    with open(os.path.join(out, "accepted_hits.sam")) as f:
+        for line in f:
+            if not line.startswith("@"):
+                n_past += line.split("\t", 3)[2] in past
+    return dict(recall_annotated_pct=recall_a,
+                recall_unannotated_pct=recall_u, annotated_mates=n_span,
+                planted_crossed=len(planted),
+                missing_planted=[x for x in planted if x not in found],
+                annotated_past_2p31_crossed=len(annotated_past),
+                missing_annotated_past_2p31=missing,
+                annotated_past_2p31_exact_elsewhere=len(unplaced)
+                - len(missing),
+                annotated_in_bed=sum(x in found for a, b, ann in crossed
+                                     if ann for x in [local(a, b)]),
+                records_past_2p31=n_past)
+
+
+def phase_human_annotated(build, hg):
+    """TopHat's annotated paired default run on the human-scale genome,
+    `tophat -G genes.gtf --transcriptome-index ... genome r1.fq r2.fq`,
+    through the CLI: phase 16's genome, FASTA and group indexes (the
+    default --max-index-bases: 2 groups), the coverage search on, and the
+    build child's GENCODE-sized GTF, transcriptome files and index
+    (reused by the CLI). Pairs of 2 x 100 bp as make_annotated_pairs
+    makes them (50% transcript fragments, 10% with mate 1 across one of
+    phase 16's planted introns, the rest contiguous within a contig). A
+    run of 4,096 pairs holds every realign call against its plain
+    version on up to 2,048 of its rows; a timed run of 16,384 pairs
+    records pairs/s, stage seconds (the coverage search, the GTF parse,
+    the transcriptome load and map each their own), group swaps, E (in
+    all and per group), every realign call's R, E, L and q (held after
+    the run the same way), peak device and host memory, the concordant
+    share and whether the coverage search's MAX_COV_EVENTS bound. Fails
+    with other than 2 groups, a group or transcriptome index not reused,
+    under 100% annotated-junction mate or unannotated-intron mate-1
+    recall, a crossed planted intron missing from junctions.bed at its
+    contig-local coordinates, a crossed annotated intron on a contig
+    past 2^31 that no record's CIGAR places there while a mate crossing
+    it is not reported exactly elsewhere (junctions.bed lists no
+    junction of a transcriptome placement in a paired run, in the JAX
+    package and the port alike), no mate placed past 2^31, E under HUMAN_MIN_EVENTS
+    (scaled), no sparse realign launch or any dense one, or the genome
+    axis started."""
+    import torch
+
+    from tophat_tpu_torch.cli import main as cli_mod
+    from tophat_tpu_torch.index.fm import FMIndex
+    from tophat_tpu_torch.ops import events
+    from tophat_tpu_torch.parallel import auto
+    from tophat_tpu_torch.pipeline import grouped as grouped_mod
+    from tophat_tpu_torch.pipeline import paired as paired_mod
+    from tophat_tpu_torch.pipeline import run as run_mod
+    from tophat_tpu_torch.pipeline.coverage import MAX_COV_EVENTS
+
+    t_phase = time.time()
+    codes, offsets, names, introns = hg
+    fa, prefix, logf, _ = human_paths()
+    gtf, tprefix, arec = human_annotation_paths()
+    rc = build.wait()
+    wait_s = time.time() - t_phase
+    with open(logf) as f:
+        tail = f.read()[-3000:]
+    if rc != 0 or not os.path.exists(arec):
+        fail(f"human-scale annotation build exited {rc}:\n{tail}")
+    with open(arec) as f:
+        built = json.load(f)
+    log(f"human-scale annotation (build child): {built['genes']} genes, "
+        f"{built['transcripts']} transcripts, {built['exon_lines']} exon "
+        f"lines, {built['introns']} distinct introns "
+        f"({built['introns_past_2p31']} on contigs past 2^31); GTF "
+        f"{built['gtf_s']:.1f} s, parse {built['parse_s']:.1f} s, "
+        f"transcriptome files {built['files_s']:.1f} s, transcriptome FM "
+        f"index of {built['transcriptome_bases']} bases "
+        f"{built['index_s']:.1f} s; peak host memory "
+        f"{built['peak_rss_bytes'] / 2**30:.2f} GiB; phase 17 waited "
+        f"{wait_s:.1f} s for it")
+
+    t0 = time.time()
+    transcripts = human_transcripts(gtf, names, offsets)
+    planted = [(int(offsets[c]) + a, int(offsets[c]) + b)
+               for c, a, b in introns]
+    reads, crossed, mates = {}, {}, {}
+    for tag, seed, n in (("check", 91, HUMAN_CHECK_PAIRS),
+                         ("steady", 92, HUMAN_PAIRS)):
+        crossed[tag] = {}
+        m1, m2, spans, unannotated = make_annotated_pairs(
+            codes, transcripts, planted, seed, n, offsets=offsets,
+            crossed=crossed[tag])
+        mates[tag] = (m1, m2)
+        fqs = [os.path.join(HUMAN_DIR, f"pairs_{tag}_{k}.fq") for k in (1, 2)]
+        write_fastq(fqs[0], m1, "p")
+        write_fastq(fqs[1], m2, "p")
+        reads[tag] = (fqs, spans, unannotated)
+    log(f"human-scale annotated inputs: {len(transcripts)} transcripts "
+        f"parsed; {HUMAN_CHECK_PAIRS} + {HUMAN_PAIRS} pairs "
+        f"({time.time() - t0:.1f} s)")
+    argv = lambda out, fqs: (
+        ["-o", out, "-G", gtf, "--transcriptome-index", tprefix,
+         "--tt-index", prefix]
+        + (["--max-index-bases", str(HUMAN_MAX_INDEX_BASES)]
+           if HUMAN_MAX_INDEX_BASES else []) + [fa] + fqs)
+
+    to = FMIndex.to
+    axis, runs, n_events, cov_sizes = [], [], [], []
+
+    def to_seen(self, device):
+        axis.append(auto.genome_sharded())
+        return to(self, device)
+
+    build_fm = cli_mod.build_grouped_fm
+
+    def build_seen(*a, **k):
+        msgs, say = [], k.get("log")
+        k["log"] = lambda m: (msgs.append(m), say and say(m))
+        gfm = build_fm(*a, **k)
+        runs.append((gfm.n_groups, msgs))
+        return gfm
+
+    finalize = grouped_mod.GroupedMapper.finalize_events
+
+    def finalize_counted(self, known_events=None):
+        ev = finalize(self, known_events)
+        n_events.append((len(ev["left"]),
+                         [len(e["left"]) for e in self.group_events]))
+        return ev
+
+    coverage = grouped_mod.coverage_search_events
+
+    def coverage_counted(*a, **k):
+        ev = coverage(*a, **k)
+        cov_sizes.append(len(ev["left"]))
+        return ev
+
+    FMIndex.to = to_seen
+    cli_mod.build_grouped_fm = build_seen
+    grouped_mod.GroupedMapper.finalize_events = finalize_counted
+    grouped_mod.coverage_search_events = coverage_counted
+    try:
+        check = PathCheck(max_rows=HUMAN_HOLD_ROWS)
+        out_check = os.path.join(HUMAN_DIR, "annot_out_check")
+        t0 = time.time()
+        with RealignHooks(events, check):
+            cli_main_checked(cli_mod.main, argv(out_check,
+                                                reads["check"][0]))
+        check_s = time.time() - t0
+        log(f"human-scale annotated check run: {check_s:.1f} s; realign "
+            f"exact in {len(check.shapes)} calls: " + ", ".join(check.shapes))
+        n_groups, msgs = runs[-1]
+        if n_groups != 2:
+            fail(f"human-scale annotated run: {n_groups} contig groups, "
+                 "not 2")
+        if sum("reusing FM index" in m for m in msgs) != n_groups:
+            fail("the human-scale annotated run did not reuse the group "
+                 f"indexes: {msgs}")
+        with open(os.path.join(out_check, "logs", "tophat.log")) as f:
+            if "transcriptome FM index: reusing" not in f.read():
+                fail("the human-scale annotated run did not reuse the "
+                     "build child's transcriptome index")
+        checked = human_annotated_placement(
+            out_check, names, offsets, reads["check"], crossed["check"],
+            codes, mates["check"])
+
+        clock = StageClock()
+        clock.wrap(cli_mod, "read_fasta", "read_fasta")
+        clock.wrap(cli_mod, "build_grouped_fm",
+                   "group index load (2 cached groups)")
+        clock.wrap(FMIndex, "to", "group loads and swaps (FMIndex.to)")
+        clock.wrap(cli_mod, "parse_gtf",
+                   "GTF parse (parse_gtf, gtf_junctions)")
+        clock.wrap(cli_mod, "gtf_junctions",
+                   "GTF parse (parse_gtf, gtf_junctions)")
+        clock.wrap(cli_mod, "build_transcriptome_index",
+                   "transcriptome index reuse (sequences + FMIndex.load)")
+        clock.wrap(grouped_mod, "map_reads_transcriptome",
+                   "transcriptome map (align + rebase)")
+        clock.wrap(grouped_mod, "align_reads_adaptive",
+                   "full-read align (per group)")
+        clock.wrap(grouped_mod, "_spliced_mate",
+                   "segments + stitch (per group)")
+        clock.wrap(grouped_mod, "discover_events", "discovery")
+        clock.wrap(grouped_mod, "coverage_search_events", "coverage search")
+        clock.wrap(grouped_mod, "candidates_for_mate",
+                   "candidates (realign, collect)")
+        clock.wrap(run_mod, "realign_events_sparse",
+                   "  of which realign, sparse")
+        clock.wrap(grouped_mod, "transcriptome_candidates",
+                   "transcriptome candidates")
+        clock.wrap(grouped_mod, "default_chains", "default chains")
+        clock.wrap(paired_mod, "accumulate_event_stats", "stats + filter")
+        clock.wrap(paired_mod, "filter_junctions", "stats + filter")
+        kept, calls = [], []
+        keep = keep_calls(kept)
+
+        def on_timed(kind, args, got):
+            calls.append(realign_call_shape(kind, args))
+            keep(kind, args, got)
+
+        out = os.path.join(HUMAN_DIR, "annot_out_steady")
+        del cov_sizes[:], n_events[:]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        realign_launches(reset=True)
+        t0 = time.time()
+        try:
+            with RealignHooks(events, on_timed), HostPeak() as host:
+                cli_main_checked(cli_mod.main, argv(out, reads["steady"][0]))
+            torch.cuda.synchronize()
+            wall = time.time() - t0
+            launches = realign_launches()
+        finally:
+            clock.restore()
+        peak = torch.cuda.max_memory_allocated()
+    finally:
+        FMIndex.to = to
+        cli_mod.build_grouped_fm = build_fm
+        grouped_mod.GroupedMapper.finalize_events = finalize
+        grouped_mod.coverage_search_events = coverage
+    stages = dict(clock.seconds)
+    top = sum(v for k, v in stages.items() if not k.startswith(" "))
+    stages["rest (FASTQ parse, prep, selection, pair grading, output)"] = \
+        wall - top
+    placed = human_annotated_placement(out, names, offsets, reads["steady"],
+                                       crossed["steady"], codes,
+                                       mates["steady"])
+    E, group_E = n_events[-1] if n_events else (0, [])
+    on_tx = reads_on_transcripts(os.path.join(out, "logs", "tophat.log"))
+    aligned, disc = align_summary_pairs(os.path.join(out,
+                                                     "align_summary.txt"))
+    concordant = 100.0 * (aligned - disc) / HUMAN_PAIRS
+    cov_bound = any(x >= MAX_COV_EVENTS for x in cov_sizes)
+    transfers = clock.calls.get("group loads and swaps (FMIndex.to)", 0)
+    transfer_s = clock.seconds.get("group loads and swaps (FMIndex.to)", 0.0)
+    log(f"human-scale annotated timed run: {wall:.2f} s, "
+        f"{HUMAN_PAIRS / wall:.1f} pairs/s; E={E} (per group {group_E}); "
+        f"{on_tx} reads placed on transcripts; {transfers} group loads and "
+        f"swaps in {transfer_s:.3f} s; realign launches {launches} (dense, "
+        f"sparse); peak device memory {peak / 2**30:.3f} GiB; host peak "
+        f"RSS {host.bytes / 2**30:.2f} GiB"
+        + (" (the process's lifetime peak)" if host.lifetime else "")
+        + f"; concordant {concordant:.2f}% of pairs; coverage search "
+        f"events per call {cov_sizes} (MAX_COV_EVENTS {MAX_COV_EVENTS} "
+        f"{'bound' if cov_bound else 'not reached'}); genome axis started: "
+        f"{any(axis)}")
+    for k, v in stages.items():
+        log(f"  stage {k}: {v:.3f} s" + calls_note(clock.calls.get(k)))
+    log("  realign calls: " + ", ".join(calls))
+    held = PathCheck(max_rows=HUMAN_HOLD_ROWS)
+    t0 = time.time()
+    for kind, args, got in kept:
+        held(kind, args, got)
+    log(f"human-scale annotated timed run: realign exact in "
+        f"{len(held.shapes)} calls ({time.time() - t0:.1f} s)")
+    del kept
+    for tag, p in (("check", checked), ("timed", placed)):
+        log(f"human-scale annotated {tag} run: recall "
+            f"{p['recall_annotated_pct']:.2f}% of {p['annotated_mates']} "
+            f"annotated-junction mates, {p['recall_unannotated_pct']:.2f}% "
+            f"of unannotated-intron mates 1; planted introns crossed "
+            f"{p['planted_crossed']}, missing from junctions.bed "
+            f"{len(p['missing_planted'])}; annotated introns crossed past "
+            f"2^31 {p['annotated_past_2p31_crossed']}, not placed by a "
+            f"record {len(p['missing_annotated_past_2p31'])} (their mates "
+            f"all placed exactly elsewhere: "
+            f"{p['annotated_past_2p31_exact_elsewhere']}); crossed "
+            f"annotated introns in junctions.bed {p['annotated_in_bed']}; "
+            f"{p['records_past_2p31']} records on contigs past 2^31")
+        if min(p["recall_annotated_pct"], p["recall_unannotated_pct"]) < 100:
+            fail(f"human-scale annotated {tag} run: recall "
+                 f"{p['recall_annotated_pct']:.2f}% (annotated), "
+                 f"{p['recall_unannotated_pct']:.2f}% (unannotated) < 100%")
+        if p["missing_planted"]:
+            fail(f"human-scale annotated {tag} run: planted introns missing "
+                 f"from junctions.bed: {p['missing_planted'][:8]}")
+        if p["missing_annotated_past_2p31"]:
+            fail(f"human-scale annotated {tag} run: annotated introns past "
+                 f"2^31 that no record places at their contig-local "
+                 f"coordinates: {p['missing_annotated_past_2p31'][:8]}")
+        if not p["records_past_2p31"]:
+            fail(f"human-scale annotated {tag} run: no mate placed on a "
+                 "contig past 2^31")
+    if E < human_scaled(HUMAN_MIN_EVENTS):
+        fail(f"human-scale annotated run: E = {E} < "
+             f"{human_scaled(HUMAN_MIN_EVENTS)} events")
+    if launches[0] or not launches[1]:
+        fail(f"the human-scale annotated run launched the realign kernel's "
+             f"entries {launches} (dense, sparse) times; it must take the "
+             "sparse entry only")
+    if any(axis):
+        fail("the human-scale annotated run started the genome axis on one "
+             "card")
+    phase_s = time.time() - t_phase
+    log(f"human scale, annotated: phase 17 took {phase_s:.1f} s")
+    return dict(annotation=built, build_wait_s=wait_s, wall_s=wall,
+                pairs_per_s=HUMAN_PAIRS / wall, check_run_s=check_s,
+                events=E, group_events=group_E, reads_on_transcripts=on_tx,
+                group_transfers=transfers, group_transfer_s=transfer_s,
+                peak_device_bytes=peak, host_peak_rss_bytes=host.bytes,
+                host_peak_lifetime=host.lifetime,
+                genome_axis_started=any(axis), launches=launches,
+                realign_calls=calls, path_err=max(check.err, held.err),
+                coverage_events=cov_sizes, max_cov_events_bound=cov_bound,
+                concordant_pct=concordant, stages=stages,
+                stage_calls=dict(clock.calls),
+                check={k: v for k, v in checked.items()
+                       if not k.startswith("missing")},
+                timed={k: v for k, v in placed.items()
+                       if not k.startswith("missing")}, phase_s=phase_s)
+
+
 def main():
     try:
         import torch
@@ -3395,9 +4018,13 @@ def main():
                                   spliced["index"], transcripts)
     long_single = phase_long_single(spliced["codes"], spliced["juncs"],
                                     spliced["index"])
-    human = phase_human(human_build_child, grouped)
+    hg = human_genome()
+    human = phase_human(human_build_child, hg, grouped)
+    human_annotated = phase_human_annotated(human_build_child, hg)
+    del hg
     path_phases = (spliced, paired, annotated, bowtie2, fusion, fusion_gtf,
-                   grouped, mesh, long_reads, long_single, human)
+                   grouped, mesh, long_reads, long_single, human,
+                   human_annotated)
     log(f"smoke phases done in {time.time() - t_start:.1f} s")
 
     print(json.dumps({
@@ -3411,7 +4038,8 @@ def main():
         "small_fusion": small_fusion, "fusion": fusion,
         "fusion_gtf": fusion_gtf, "grouped": grouped, "mesh": mesh,
         "long_reads": long_reads, "long_single": long_single,
-        "human_scale": human, "seconds": time.time() - t_start}),
+        "human_scale": human, "human_annotated": human_annotated,
+        "seconds": time.time() - t_start}),
         flush=True)
     main_case = next(k for k in kernels if (k["R"], k["E"], k["L"], k["q"])
                      == (8192, 69, 100, 0))     # the main path's shape

@@ -169,3 +169,74 @@ def test_run_pipeline_search_modes_identical(tmp_path, mode, n):
             "microexon": "microexon"}[mode]
     assert any(ln.startswith(f"{what} search: ") for ln in logs), logs
     assert len(out["events"]["left"]) >= 8
+
+
+def _hit_tables(gs, seg_pos, case, seed):
+    """Segment hit tables (pos, mm, valid) shaped like `seg_pos` for the
+    coverage search's edge cases, on a genome of n = 30,000 bases: the
+    run's own hits with random ones mixed in, islands at base 0 and
+    running past n, islands that touch end to start (one island), and no
+    hit at all."""
+    rng = np.random.default_rng(seed)
+    n = 30000
+    pos = np.array(seg_pos, np.int32)
+    valid = pos >= 0
+    seg_len = gs.cuts[:, 1:] - gs.cuts[:, :-1]
+    if case == "random":
+        extra = rng.random(pos.shape) < 0.3
+        pos = np.where(extra, rng.integers(0, n, pos.shape),
+                       pos).astype(np.int32)
+        valid = valid | extra
+    elif case == "edges":
+        # islands at base 0 and ending on (or clipped to) base n, and two
+        # pairs of hits that touch: [a, a + l) then [a + l, a + 2 l)
+        first = np.unravel_index(np.arange(8), pos.shape)
+        for k, (r, s, h) in enumerate(zip(*first)):
+            ln = int(seg_len[r, s])
+            at = [0, 3, n - ln, n - 5, 12000, 12000 + ln, 20000,
+                  20000 + ln][k]
+            pos[r, s, h], valid[r, s, h] = at, True
+    elif case == "empty":
+        valid[:] = False
+    return (pos, np.zeros(pos.shape, np.int8), valid)
+
+
+@pytest.mark.parametrize("case,seed,contigs", [
+    ("random", 1, (0, 30000)), ("random", 2, (0, 12010, 12060, 30000)),
+    ("random", 3, (0, 200, 29900, 30000)), ("edges", 4, (0, 30000)),
+    ("edges", 5, (0, 12000, 12030, 30000)), ("empty", 6, (0, 30000))])
+def test_coverage_search_from_intervals_matches_jax(mapped, case, seed,
+                                                    contigs):
+    """The port's coverage search finds islands, look windows and
+    dinucleotide sites from the hits' intervals, with no pass over the
+    genome; its event tables equal the JAX package's painted search,
+    element for element and in order: random hits over the run's own,
+    islands at base 0 and past n, touching islands, look windows that
+    overlap across contig ends (contigs of 50, 30 and 100 bases), and
+    an empty hit set."""
+    import types
+
+    import torch
+
+    from tophat_tpu.pipeline import coverage as jc
+    from tophat_tpu_torch.index.fasta import Genome
+    from tophat_tpu_torch.pipeline import coverage
+    from tophat_tpu_torch.pipeline.params import Params
+
+    genome, fm, m, gs_jax = mapped
+    g = Genome(codes=genome.codes, offsets=np.array(contigs, np.int64),
+               names=[f"c{i}" for i in range(len(contigs) - 1)])
+    tables = _hit_tables(m.gs, m.seg_tables[0].numpy(), case, seed)
+    got = coverage.coverage_search_events(
+        fm, g, m.gs, tuple(torch.as_tensor(t) for t in tables), Params())
+    ref = jc.coverage_search_events(
+        types.SimpleNamespace(n=fm.n, genome=genome.codes), g, gs_jax,
+        tables, _jax_params())
+    assert sorted(got) == sorted(ref)
+    for k in ref:
+        np.testing.assert_array_equal(got[k], np.asarray(ref[k]), err_msg=k)
+        assert got[k].dtype == np.asarray(ref[k]).dtype, k
+    if case == "empty":
+        assert len(got["left"]) == 0
+    elif contigs == (0, 30000):
+        assert len(got["left"]) >= 4

@@ -597,3 +597,140 @@ def test_build_workers_fit_the_human_groups(avail_gb, want, monkeypatch):
         monkeypatch.setattr(grouped, "_mem_available", lambda: None)
     assert grouped._build_workers(subs, [0, 1], avail) == want
     assert grouped._build_workers(subs, [1], avail) == 1
+
+
+def _ladder_gtf(path, names):
+    """A two-exon transcript on every contig of the ladder: exons
+    [1000, 1200) and [1500, 1700), contig-local, so its intron is (1199,
+    1500); '-' on even contigs."""
+    path.write_text("".join(
+        f'{c}\tt\texon\t{s + 1}\t{e}\t.\t{"-+"[i % 2]}\t.\tgene_id "g{i}"; '
+        f'transcript_id "t{i}";\n'
+        for i, c in enumerate(names) for s, e in ((1000, 1200), (1500, 1700))))
+    return str(path)
+
+
+def test_known_events_past_2p31(tmp_path):
+    """On the human ladder (chr14-chrY start past 2^31) the port's -G
+    junctions and its -j / --insertions / --deletions tables keep every
+    global position, at int64, and _slice_known_events gives each back
+    at group-local coordinates; the JAX package's gtf_junctions
+    overflows int32 there (a reference fault, kept in the reference).
+    Where every position fits, the tables stay int32, as JAX's are."""
+    from tophat_tpu.index.fasta import Genome as JGenome
+    from tophat_tpu.io import gtf as jgtf
+    from tophat_tpu_torch.cli.main import load_known_events
+    from tophat_tpu_torch.index.fasta import Genome
+    from tophat_tpu_torch.index.grouped import contig_group_ranges
+    from tophat_tpu_torch.io import gtf
+    from tophat_tpu_torch.pipeline.grouped import _slice_known_events
+
+    g = _ladder(Genome)
+    off = [int(x) for x in g.offsets]
+    gtf_path = _ladder_gtf(tmp_path / "genes.gtf", g.names)
+    ev, accept = gtf.gtf_junctions(g, gtf.parse_gtf(gtf_path))
+    assert ev["left"].dtype == ev["right"].dtype == np.int64
+    got = sorted(zip(ev["left"].tolist(), ev["right"].tolist()))
+    assert got == [(o + 1199, o + 1500) for o in off[:24]]
+    assert sum(o >= 1 << 31 for o in off[:24]) == 11
+    assert (off[23] + 1199, off[23] + 1500, False) in accept
+    with pytest.raises(OverflowError):
+        jgtf.gtf_junctions(_ladder(JGenome), jgtf.parse_gtf(gtf_path))
+
+    (tmp_path / "j.juncs").write_text(
+        "chr1\t99\t400\t+\nchr14\t99\t400\t-\nchr24\t5\t7000\t+\n")
+    (tmp_path / "ins.bed").write_text(
+        "track name=ins\nchr2\t50\t50\tAC\nchr20\t60\t60\tGTT\n")
+    (tmp_path / "del.bed").write_text(
+        "track name=del\nchr3\t70\t72\t-\nchr22\t80\t83\t-\n")
+    known = load_known_events(g, str(tmp_path / "ins.bed"),
+                              str(tmp_path / "del.bed"),
+                              str(tmp_path / "j.juncs"))
+    assert known["left"].dtype == known["right"].dtype == np.int64
+    want = {(1, off[1] + 50, off[1] + 51), (1, off[19] + 60, off[19] + 61),
+            (2, off[2] + 69, off[2] + 72), (2, off[21] + 79, off[21] + 83),
+            (0, off[0] + 99, off[0] + 400), (0, off[13] + 99, off[13] + 400),
+            (0, off[23] + 5, off[23] + 7000)}
+    from tophat_tpu_torch.ops.splice import (KIND_DELETION, KIND_INSERTION,
+                                             KIND_JUNCTION)
+    kind = {KIND_JUNCTION: 0, KIND_INSERTION: 1, KIND_DELETION: 2}
+    assert {(kind[int(k)], int(a), int(b)) for k, a, b in zip(
+        known["kind"], known["left"], known["right"])} == want
+
+    merged = {k: np.concatenate([ev[k], known[k]]) for k in ev}
+    for r in contig_group_ranges(g):
+        base, length = off[r.start], off[r.stop] - off[r.start]
+        part = _slice_known_events(merged, base, length)
+        assert part["left"].dtype == np.int32
+        inside = [(a - base, b - base)
+                  for a, b in zip(merged["left"].tolist(),
+                                  merged["right"].tolist())
+                  if base <= a and b < base + length]
+        assert sorted(zip(part["left"].tolist(),
+                          part["right"].tolist())) == sorted(inside)
+        assert len(inside) == len(r) + (3 if r.start == 0 else 4)
+
+    small = Genome(codes=np.zeros(5000, np.int8),
+                   offsets=np.array([0, 2500, 5000], np.int64),
+                   names=["chr1", "chr2"])
+    ev, _ = gtf.gtf_junctions(small, gtf.parse_gtf(gtf_path))
+    jev, _ = jgtf.gtf_junctions(JGenome(codes=small.codes,
+                                        offsets=small.offsets,
+                                        names=small.names),
+                                jgtf.parse_gtf(gtf_path))
+    for k in jev:
+        np.testing.assert_array_equal(ev[k], jev[k])
+        assert ev[k].dtype == jev[k].dtype, k
+    assert ev["left"].dtype == np.int32 and len(ev["left"]) == 2
+
+
+def test_human_annotated_design_matches_jax(tmp_path, monkeypatch):
+    """chip_smoke.py's phase 17 at 1/1,000 of its ladder: its GENCODE-
+    sized annotation (58 genes, 197 transcripts here) and its check run's
+    4,096 annotated pairs on phase 16's genome, through both packages'
+    CLIs as TopHat's annotated paired default run (-G, --transcriptome-index, coverage
+    search on), --max-index-bases cutting at chr12 as the default cuts
+    the full ladder (2 groups): identical files, transcriptome files
+    included, and the phase's own checks pass on them."""
+    from tophat_tpu.cli.main import main as jmain
+    from tophat_tpu_torch.cli.main import main as tmain
+
+    cs = _smoke()
+    monkeypatch.setattr(cs, "HUMAN_PER_MBP", 1000)
+    codes, offsets, names, introns = cs.human_genome()
+    gtf = str(tmp_path / "genes.gtf")
+    transcripts, distinct = cs.write_human_gtf(gtf, codes, offsets, names,
+                                               introns)
+    assert len(transcripts) == 197 and len(distinct) >= 300
+    planted = [(int(offsets[c]) + a, int(offsets[c]) + b)
+               for c, a, b in introns]
+    crossed = {}
+    m1, m2, spans, unannotated = cs.make_annotated_pairs(
+        codes, cs.human_transcripts(gtf, names, offsets), planted, 91,
+        cs.HUMAN_CHECK_PAIRS, offsets=offsets, crossed=crossed)
+    fa = str(tmp_path / "hs.fa")
+    fqs = [str(tmp_path / f"r_{k}.fq") for k in (1, 2)]
+    cs.write_fasta(fa, codes, cuts=offsets[:-1])
+    cs.write_fastq(fqs[0], m1, "p")
+    cs.write_fastq(fqs[1], m2, "p")
+    for pkg, run, extra in (("jax", jmain, []),
+                            ("torch", tmain, ["--device", "cpu"])):
+        argv = ["-o", str(tmp_path / pkg), "-G", gtf,
+                "--transcriptome-index", str(tmp_path / f"{pkg}_tx" / "g"),
+                "--tt-index", str(tmp_path / pkg[0]), "--max-index-bases",
+                "1950000"] + extra + [fa] + fqs
+        assert run(argv) == 0
+    _same(tmp_path / "jax", tmp_path / "torch",
+          OUTPUTS + ("align_summary.txt",))
+    for suffix in (".fa", ".fa.tlst", ".gff", ".ver"):
+        assert (tmp_path / "jax_tx" / f"g{suffix}").read_bytes() == \
+            (tmp_path / "torch_tx" / f"g{suffix}").read_bytes(), suffix
+    log = (tmp_path / "torch" / "logs" / "tophat.log").read_text()
+    assert "2 contig groups" in log
+    got = cs.human_annotated_placement(str(tmp_path / "torch"), names,
+                                       offsets, (fqs, spans, unannotated),
+                                       crossed, codes, (m1, m2))
+    assert got["recall_annotated_pct"] == got["recall_unannotated_pct"] \
+        == 100.0
+    assert got["planted_crossed"] == 48 and got["missing_planted"] == []
+    assert got["missing_annotated_past_2p31"] == []

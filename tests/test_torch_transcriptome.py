@@ -243,3 +243,48 @@ def test_transcriptome_index_rebuilds_a_corrupt_file(tmp_path):
                                    log=msgs.append, device="cpu")
     assert msgs[-1].startswith("transcriptome FM index: saved")
     assert t3.n < t2.n
+
+
+@pytest.mark.parametrize("seed", [1, 2])
+def test_transcriptome_candidates_match_jax(seed):
+    """Transcriptome hits become the JAX package's candidates, in its
+    order, against an event table where a (left, right) holds junctions
+    of both senses, an indel shares a junction's coordinates, positions
+    pass 2^31 and some hits name a junction missing from the table."""
+    from tophat_tpu.pipeline.transcriptome import \
+        transcriptome_candidates as jcands
+    from tophat_tpu_torch.ops.splice import (KIND_DELETION, KIND_INSERTION,
+                                             KIND_JUNCTION)
+    from tophat_tpu_torch.pipeline.params import Params
+    from tophat_tpu_torch.pipeline.transcriptome import \
+        transcriptome_candidates
+
+    rng = np.random.default_rng(seed)
+    base = np.int64(1 << 31) - 5000 if seed == 2 else np.int64(0)
+    left = base + np.sort(rng.choice(4000, 60, replace=False)).astype(
+        np.int64)
+    right = left + rng.integers(70, 400, 60)
+    kind = np.full(60, KIND_JUNCTION, np.int8)
+    kind[rng.choice(60, 12, replace=False)] = KIND_DELETION
+    kind[:3] = KIND_INSERTION
+    anti = rng.random(60) < 0.5
+    dup = rng.choice(np.nonzero(kind == KIND_JUNCTION)[0], 8, replace=False)
+    events = dict(left=np.concatenate([left, left[dup]]),
+                  right=np.concatenate([right, right[dup]]),
+                  kind=np.concatenate([kind, kind[dup]]),
+                  antisense=np.concatenate([anti, ~anti[dup]]))
+    hits = {}
+    for r in range(40):
+        e = int(rng.integers(0, 60))
+        gp = int(left[e]) - 29
+        n = int(right[e] - left[e] - 1)
+        ops = ([("M", 30), ("N", n), ("M", 46)] if r % 5
+               else [("M", 76)] if r % 10 else [("M", 30), ("N", n + 1),
+                                                 ("M", 46)])
+        hits[r] = [(r % 2, gp, r % 3, ops)]
+    got = transcriptome_candidates(hits, events, Params())
+    ref = jcands(hits, events, Params())
+    assert list(got) == list(ref)
+    assert {r: [repr(c) for c in v] for r, v in got.items()} == \
+        {r: [repr(c) for c in v] for r, v in ref.items()}
+    assert sum(c.kind == -2 for v in got.values() for c in v) >= 10

@@ -266,7 +266,10 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def load_known_events(genome, ins_path, del_path, juncs_path):
+    """-j / --insertions / --deletions files as one known-event table at
+    global positions (int64 on a genome past the int32 range), or None."""
     name2id = genome.name_to_id()
+    dtype = genome.pos_dtype
     tables = [empty_events()]
 
     def to_global(name, pos):
@@ -288,8 +291,8 @@ def load_known_events(genome, ins_path, del_path, juncs_path):
             c = encode_seq(s)[:MAX_INS]
             ins_seq[i, : len(c)] = c
         tables.append(dict(
-            left=np.array(lefts, np.int32),
-            right=np.array(lefts, np.int32) + 1,
+            left=np.array(lefts, dtype),
+            right=np.array(lefts, dtype) + 1,
             kind=np.full(len(lefts), KIND_INSERTION, np.int8),
             antisense=np.zeros(len(lefts), bool),
             ins_len=np.array([min(len(s), MAX_INS) for s in seqs], np.int8),
@@ -304,7 +307,7 @@ def load_known_events(genome, ins_path, del_path, juncs_path):
                 lefts.append(to_global(t[0], int(t[1]) - 1))
                 rights.append(to_global(t[0], int(t[2])))
         tables.append(dict(
-            left=np.array(lefts, np.int32), right=np.array(rights, np.int32),
+            left=np.array(lefts, dtype), right=np.array(rights, dtype),
             kind=np.full(len(lefts), KIND_DELETION, np.int8),
             antisense=np.zeros(len(lefts), bool),
             ins_len=np.zeros(len(lefts), np.int8),
@@ -320,7 +323,7 @@ def load_known_events(genome, ins_path, del_path, juncs_path):
                 rights.append(to_global(t[0], int(t[2])))
                 anti.append(t[3].strip() == "-")
         tables.append(dict(
-            left=np.array(lefts, np.int32), right=np.array(rights, np.int32),
+            left=np.array(lefts, dtype), right=np.array(rights, dtype),
             kind=np.full(len(lefts), KIND_JUNCTION, np.int8),
             antisense=np.array(anti, bool),
             ins_len=np.zeros(len(lefts), np.int8),

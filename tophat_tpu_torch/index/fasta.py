@@ -70,6 +70,13 @@ class Genome:
         return int(self.codes.shape[0])
 
     @property
+    def pos_dtype(self):
+        """dtype of global-position tables (known events): int32 where
+        every position fits, as the JAX package makes them; int64 on a
+        genome past the int32 range."""
+        return np.int32 if self.n <= np.iinfo(np.int32).max else np.int64
+
+    @property
     def num_contigs(self) -> int:
         return len(self.names)
 

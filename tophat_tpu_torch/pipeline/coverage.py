@@ -1,4 +1,5 @@
-# Copy of tophat_tpu/pipeline/coverage.py (host code), imports rewritten.
+# Port of tophat_tpu/pipeline/coverage.py (host code): the same events,
+# found from the hits' intervals without genome-wide passes.
 """Coverage search: junctions from island-end pairing.
 
 Reference: segment_juncs.cpp capture_island_ends (:4268) + pair_covered_sites
@@ -34,18 +35,55 @@ MAX_PAIRS_PER_SITE = 16
 MAX_COV_EVENTS = 65536
 
 
-def _paint(n, starts, lo_off, hi_off):
-    """Boolean mask with [s+lo_off, s+hi_off) painted for every s."""
-    diff = np.zeros(n + 1, np.int32)
-    a = np.clip(starts + lo_off, 0, n)
-    b = np.clip(starts + hi_off, 0, n)
-    np.add.at(diff, a, 1)
-    np.add.at(diff, b, -1)
-    return np.cumsum(diff[:-1]) > 0
+def _positive_runs(lo, hi, n):
+    """Sorted, disjoint [start, end) runs of the bases of [0, n) where the
+    intervals [lo, hi), both ends clipped to [0, n), overlap positively:
+    np.cumsum of their +1/-1 difference array > 0, computed from the
+    interval ends alone (no pass over the n bases)."""
+    lo = np.clip(np.asarray(lo, np.int64), 0, n)
+    hi = np.clip(np.asarray(hi, np.int64), 0, n)
+    pts = np.concatenate([lo, hi])
+    step = np.concatenate([np.ones(len(lo), np.int64),
+                           np.full(len(hi), -1, np.int64)])
+    inside = pts < n            # a step at n falls outside the genome
+    pts, step = pts[inside], step[inside]
+    if pts.size == 0:
+        z = np.zeros(0, np.int64)
+        return z, z.copy()
+    at, which = np.unique(pts, return_inverse=True)
+    level = np.cumsum(np.bincount(which, weights=step,
+                                  minlength=len(at)).astype(np.int64)) > 0
+    ends = np.append(at[1:], n)     # level k holds on [at[k], ends[k])
+    before = np.concatenate([[False], level[:-1]])
+    after = np.concatenate([level[1:], [False]])
+    return at[level & ~before], ends[level & ~after]
+
+
+def _run_positions(starts, ends, n):
+    """Every position of the runs [starts, ends), clipped to [0, n), in
+    order (runs sorted and disjoint)."""
+    ends = np.minimum(ends, n)
+    lens = np.maximum(ends - starts, 0)
+    total = int(lens.sum())
+    if total == 0:
+        return np.zeros(0, np.int64)
+    first = np.cumsum(lens) - lens
+    return (np.repeat(starts - first, lens)
+            + np.arange(total, dtype=np.int64))
+
+
+def _motif_sites(g, starts, ends, n, a: int, b: int):
+    """Positions p in the runs, p < n - 1, with g[p], g[p + 1] == a, b."""
+    p = _run_positions(starts, ends, n - 1)
+    return p[(g[p] == a) & (g[p + 1] == b)]
 
 
 def coverage_search_events(fm, genome, gs, seg_tables,
                            params) -> Dict[str, np.ndarray]:
+    """The JAX package's coverage_search_events, element for element, in
+    O(hits + window bases): islands, look windows and dinucleotide sites
+    come from the segment hits' intervals, where the reference paints
+    every base of the genome (diff/cumsum masks)."""
     n = fm.n
     seg_pos, seg_mm, seg_valid = (x.cpu().numpy() for x in seg_tables)
     seg_len = (gs.cuts[:, 1:] - gs.cuts[:, :-1])  # (rows, S)
@@ -56,34 +94,22 @@ def coverage_search_events(fm, genome, gs, seg_tables,
     if starts.size == 0:
         return empty_events()
 
-    diff = np.zeros(n + 1, np.int32)
-    np.add.at(diff, np.clip(starts, 0, n), 1)
-    np.add.at(diff, np.clip(starts + lens, 0, n), -1)
-    cov = np.cumsum(diff[:-1]) > 0
-
     # islands of length >= MIN_COV_LENGTH
-    c = cov.astype(np.int8)
-    rises = np.nonzero(np.diff(np.concatenate([[0], c])) == 1)[0]
-    falls = np.nonzero(np.diff(np.concatenate([c, [0]])) == -1)[0] + 1
+    rises, falls = _positive_runs(starts, starts + lens, n)
     keep = (falls - rises) >= MIN_COV_LENGTH
     rises, falls = rises[keep], falls[keep]
     if rises.size == 0:
         return empty_events()
 
-    look_left = _paint(n, rises, -EXTEND, REPEAT_TOL)    # island left edges
-    look_right = _paint(n, falls, -REPEAT_TOL, EXTEND)   # island right edges
+    # look-left windows around island starts, look-right around ends
+    left_runs = _positive_runs(rises - EXTEND, rises + REPEAT_TOL, n)
+    right_runs = _positive_runs(falls - REPEAT_TOL, falls + EXTEND, n)
 
     g = host_codes(fm)
-    g1 = g[:-1]
-    g2 = g[1:]
-    di_pos = np.arange(n - 1)
-    lookL = look_left[:-1]
-    lookR = look_right[:-1]
-
-    fwd_donors = di_pos[lookR & (g1 == 2) & (g2 == 3)]      # GT
-    fwd_acceptors = di_pos[lookL & (g1 == 0) & (g2 == 2)]   # AG
-    rev_acceptors = di_pos[lookR & (g1 == 1) & (g2 == 3)]   # CT
-    rev_donors = di_pos[lookL & (g1 == 0) & (g2 == 1)]      # AC
+    fwd_donors = _motif_sites(g, *right_runs, n, 2, 3)      # GT
+    fwd_acceptors = _motif_sites(g, *left_runs, n, 0, 2)    # AG
+    rev_acceptors = _motif_sites(g, *right_runs, n, 1, 3)   # CT
+    rev_donors = _motif_sites(g, *left_runs, n, 0, 1)       # AC
 
     offsets = genome.offsets
 

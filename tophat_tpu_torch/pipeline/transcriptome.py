@@ -143,13 +143,12 @@ def transcriptome_candidates(trans_hits: Dict[int, List[Tuple]], events,
     contiguous candidates; spliced hits become chain candidates whose
     chain_events all exist in the merged event table (GTF junctions are
     injected as known events by the driver)."""
-    ev_index = {}
-    kinds = events["kind"]
-    lefts = events["left"]
-    rights = events["right"]
-    for i in range(len(lefts)):
-        if int(kinds[i]) == KIND_JUNCTION:
-            ev_index[(int(lefts[i]), int(rights[i]))] = i
+    # (left, right) -> the last junction event there, built without a
+    # Python pass over an annotation's hundreds of thousands of events
+    jx = np.nonzero(np.asarray(events["kind"]) == KIND_JUNCTION)[0]
+    ev_index = dict(zip(zip(np.asarray(events["left"])[jx].tolist(),
+                            np.asarray(events["right"])[jx].tolist()),
+                        jx.tolist()))
 
     out: Dict[int, list] = {}
     for r, hits in trans_hits.items():
