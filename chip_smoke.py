@@ -10,8 +10,9 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      path's shapes and wider (L = 25 to 1,000; at the annotated event
      count, L = 100 and 300, the latter held and its plain version timed
      on 256 rows; R = 1,024, E = 128 at L = 2,048 to 16,384, streamed,
-     8,192 and 16,384 held and timed on 64 rows), through the realign
-     kernel's dense and sparse entries,
+     8,192 and 16,384 held and timed on 64 rows; R = 4,096, L = 100 at
+     phase 17's two groups' E, held and timed on 64 rows), through the
+     realign kernel's dense and sparse entries,
      demanding exact equality; kernel, sparse-entry and plain times, the
      bound and share of bound, and at L = 100 and 300 the conv1d
      yardstick (phases 4 and 6 repeat the check on the exact inputs the
@@ -152,9 +153,28 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      record's CIGAR, at its contig-local coordinates, no mate placed past
      2^31, E < 300,000, no
      sparse realign launch or any dense one, or the genome axis started
-Phases run in the order 1-10, 12, 11, 13, 14, 15, 16, 17. Launches in
-the kernels line are summed over phases 4, 6, 8, 9, 10, 11, 12, 13, 14,
-15, 16 and 17 (each counted from 0 just before its timed run),
+ 18. TopHat-Fusion on the human-scale genome, both entry points as its
+     manual gives them: the CLI with FUSION_FLAGS (paired, 2 contig
+     groups, no --tt-index: the group caches are found beside the FASTA,
+     where symlinks to the build child's files put them), then
+     tophat-fusion-post on the card, whose kmer map runs over the same
+     group caches. 24 designed breaks within the groups (12 a group, 10
+     of the last group's past 2^31, half between two contigs) and 4
+     across them (chr9-chr22 among them; no package finds those, and
+     their count is only recorded); pairs of phase 10's design. A run of
+     4,096 pairs holds every realign call against its plain version on
+     up to 2,048 of its rows; a timed run of 16,384 pairs records
+     pairs/s, stage seconds, chain seconds per group, group transfers, E
+     per group, every realign call, peak device and host memory, then
+     fusion-post's seconds by stage. Fails with other than 2 groups, a
+     group index built by either CLI, under 100% break-read or
+     junction-read recall, a within-group designed break missing from
+     fusions.out at its contig-local coordinates, no designed break in
+     result.txt, no sparse realign launch or any dense one, or the
+     genome axis started
+Phases run in the order 1-10, 12, 11, 13, 14, 15, 16, 17, 18. Launches
+in the kernels line are summed over phases 4, 6, 8, 9, 10, 11, 12, 13,
+14, 15, 16, 17 and 18 (each counted from 0 just before its timed run),
 max_abs_err over every check.
 Standard output ends with four lines: the measured numbers (JSON), the
 kernels (JSON), the nvidia-smi name/power line, and the result JSON.
@@ -275,6 +295,8 @@ def realign_case(R: int, E: int, L: int, q: int, seed: int):
 ANNOTATED_E = 49998         # phase 8's event count (49,929 annotated introns
 #                             and the discovered events)
 LONG_READ_LEN = 300         # MiSeq v3's 2 x 300 bp (phase 14)
+HUMAN_GROUP_E = (240768, 140930)  # phase 17's event tables as measured,
+#                                   one a group
 # Phase 3's (R, E, L, q): the main path's widths, then wider rows (150-bp
 # reads on one-hot operands; 300 and 1,000 positions on shift codes), the
 # main path's own shape, an event table of a real transcriptome's size,
@@ -283,7 +305,8 @@ LONG_READ_LEN = 300         # MiSeq v3's 2 x 300 bp (phase 14)
 # width past one-hots), 512, phase 14's annotated long-read shape, and
 # rows past the 64-row tile, whose operands stream: 2,048 and 4,096
 # (where the kernel once kept one- and two-warp tiles whole), 4,097 (past
-# the 4,096 its argmin once packed), 8,192 (phase 15's width) and 16,384.
+# the 4,096 its argmin once packed), 8,192 (phase 15's width) and 16,384;
+# last, phase 17's two groups' event tables at its read rows.
 REALIGN_CASES = [
     (16384, 128, 100, 0), (16384, 128, 100, 3), (16384, 128, 25, 0),
     (8192, 128, 150, 0), (8192, 128, 300, 3), (8192, 128, 1000, 0),
@@ -291,10 +314,11 @@ REALIGN_CASES = [
     (65536, 76, 25, 0), (8192, 128, 257, 0), (8192, 128, 512, 3),
     (4096, ANNOTATED_E, LONG_READ_LEN, 0), (1024, 128, 2048, 0),
     (1024, 128, 4096, 3), (1024, 128, 4097, 0), (1024, 128, 8192, 3),
-    (1024, 128, 16384, 0)]
+    (1024, 128, 16384, 0)] + [(4096, E, 100, 0) for E in HUMAN_GROUP_E]
 PLAIN_WORK = 3e12           # R E L^2 above which the plain version holds a
 #                             row subset (its 2 R E 8 L per split)
-PLAIN_ROWS = 256            # rows held and timed there (64 past L = 4,096)
+PLAIN_ROWS = 256            # rows held and timed there (64 past L = 4,096
+#                             or past the annotated E)
 INT8_OPS_PER_S = 1.979e15   # H100 SXM dense int8 tensor-core peak
 BYTES_PER_S = 3.35e12       # H100 SXM HBM3
 
@@ -386,7 +410,8 @@ def phase_kernels():
             # version's R E (L - 1) products and (R, E) int64 tables, held
             # and timed on rows
             rows = np.sort(np.random.default_rng(ci).choice(
-                R, PLAIN_ROWS if L <= 4096 else 64, replace=False))
+                R, PLAIN_ROWS if L <= 4096 and E <= ANNOTATED_E else 64,
+                replace=False))
             err, _ = hold_realign("dense", args + (q, 8), got, rows)
             hold_realign("sparse", args + (q, 8, valid), got_s, rows)
             sel = torch.as_tensor(rows, device="cuda")
@@ -871,11 +896,13 @@ def make_pairs(codes, juncs, seed: int, n_pairs: int, cut: int = 0):
 class StageClock:
     """Seconds and calls per stage: wraps functions (module or class
     attributes) with a timer that synchronizes the card before and after
-    each call."""
+    each call, and notes the running peak of device memory at each call's
+    end (peak_stage)."""
 
     def __init__(self):
         self.seconds = {}
         self.calls = {}
+        self.marks = []         # (stage, running device peak) per call end
         self._undo = []
 
     def wrap(self, owner, name: str, label: str):
@@ -894,9 +921,16 @@ class StageClock:
                 self.seconds[label] = (self.seconds.get(label, 0.0)
                                        + time.perf_counter() - t0)
                 self.calls[label] = self.calls.get(label, 0) + 1
+                self.marks.append((label, torch.cuda.max_memory_allocated()))
 
         setattr(owner, name, timed)
         self._undo.append((owner, name, saved))
+
+    def peak_stage(self, peak: int):
+        """The first stage by whose end the running device peak had
+        reached `peak` (it, or unclocked code just before it, set the
+        peak); None if no clocked stage had."""
+        return next((label for label, p in self.marks if p >= peak), None)
 
     def restore(self):
         for owner, name, saved in reversed(self._undo):
@@ -1792,7 +1826,8 @@ def equivalent_breaks(codes, d: str, a: int, b: int, t: int):
     return out
 
 
-def make_fusion_pairs(codes, juncs, breaks, seed: int, n_pairs: int):
+def make_fusion_pairs(codes, juncs, breaks, seed: int, n_pairs: int,
+                      offsets=None, cross=()):
     """Mate pairs of 2 x READ_LEN bp, inner distance |N(0, 80)|, mate 2
     the reverse complement of the fragment's other end: in 10% of pairs
     (i % 10 == 0) mate 1 crosses a break of `breaks` 30-70 bp in (the
@@ -1800,7 +1835,11 @@ def make_fusion_pairs(codes, juncs, breaks, seed: int, n_pairs: int):
     break lies between the mates (mate 1 on the first partner, mate 2 on
     the second); in 20% (i % 10 in 2, 3) mate 1 crosses one of `juncs`
     with >= 20 bp on each side; the rest are contiguous with one mismatch
-    per mate. Returns (m1, m2, {i: (dir, a, b, t)} of the break reads)."""
+    per mate (with contig `offsets`, none across a contig end), but for
+    2% of all pairs (i % 50 == 4) given `cross` breaks, which go to
+    those, in turn as a read across the break and a pair around it.
+    Returns (m1, m2, {i: (dir, a, b, t)} of the break reads, `cross`'
+    included)."""
     from tophat_tpu_torch.index.fasta import revcomp
 
     r = np.random.default_rng(seed)
@@ -1821,8 +1860,12 @@ def make_fusion_pairs(codes, juncs, breaks, seed: int, n_pairs: int):
     for i in range(n_pairs):
         inner = int(round(abs(r.normal(0, 80))))
         kind = i % 10
-        if kind < 2:
+        if cross and i % 50 == 4:
+            kind = (i // 50) % 2
+            d, a, b = cross[(i // 100) % len(cross)]
+        elif kind < 2:
             d, a, b = breaks[(i // 10) % len(breaks)]
+        if kind < 2:
             if kind == 0:
                 t = int(r.integers(30, 71))
                 m1[i] = fusion_read(codes, d, a, b, t)
@@ -1841,7 +1884,13 @@ def make_fusion_pairs(codes, juncs, breaks, seed: int, n_pairs: int):
             s2 = right + L - t + inner
             m2[i] = revcomp(codes[s2:s2 + L])
         else:
-            s = int(r.integers(0, len(codes) - 3 * L - 400))
+            while True:
+                s = int(r.integers(0, len(codes) - 3 * L - 400))
+                if offsets is None:
+                    break
+                c = int(np.searchsorted(offsets, s, side="right")) - 1
+                if s + 3 * L + 400 <= offsets[c + 1]:
+                    break
             a_, b_ = codes[s:s + L].copy(), codes[s + L + inner:
                                                    s + 2 * L + inner].copy()
             for x in (a_, b_):
@@ -1851,21 +1900,40 @@ def make_fusion_pairs(codes, juncs, breaks, seed: int, n_pairs: int):
     return m1, m2, fused
 
 
-def fusion_recall(out_dir, codes, breaks, fused, n_pairs: int):
+def contig_pos(offsets, names, g: int):
+    """(contig name, 0-based contig-local position) of global position g."""
+    c = int(np.searchsorted(offsets, g, side="right")) - 1
+    return names[c], int(g - offsets[c])
+
+
+def break_key(offsets, names, a: int, b: int):
+    """A break's partners as fusions.out and result.txt name them: (contig,
+    local position) of each, in global order."""
+    return (contig_pos(offsets, names, min(a, b))
+            + contig_pos(offsets, names, max(a, b)))
+
+
+def fusion_recall(out_dir, codes, breaks, fused, n_pairs: int,
+                  offsets=None, names=("chr1",)):
     """(break-read recall %, junction-read recall %, breaks missing from
     fusions.out). A break read counts when its mate-1 record lies at its
-    break (POS and the clipped CIGAR of an equivalent placement): paired
-    records carry no XF:Z tag in either package, and the single-end XF:Z
-    of a table-free FR/RF candidate names another event (ROADMAP Queue 3),
-    so the record's own placement is what is held. A break counts when
-    fusions.out has an equivalent one with its direction."""
+    break (contig, POS and the clipped CIGAR of an equivalent placement):
+    paired records carry no XF:Z tag in either package, and the
+    single-end XF:Z of a table-free FR/RF candidate names another event
+    (ROADMAP Queue 3), so the record's own placement is what is held. A
+    break counts when fusions.out has an equivalent one with its
+    direction, at its contigs and contig-local coordinates. `offsets`
+    and `names` are the FASTA's contigs (default: one, chr1)."""
     L = READ_LEN
+    if offsets is None:
+        offsets = np.array([0, len(codes)], np.int64)
     want = {}
     for i, (d, a, b, t) in fused.items():
-        want[f"p{i}"] = {(a2 - t2 + 1, f"{t2}M{L - t2}S") if d != "rf"
-                         else (b2, f"{t2}S{L - t2}M")
-                         for a2, b2, t2 in equivalent_breaks(codes, d, a, b,
-                                                             t)}
+        want[f"p{i}"] = {
+            contig_pos(offsets, names, a2 - t2 + 1) + (f"{t2}M{L - t2}S",)
+            if d != "rf" else
+            contig_pos(offsets, names, b2) + (f"{t2}S{L - t2}M",)
+            for a2, b2, t2 in equivalent_breaks(codes, d, a, b, t)}
     sam = os.path.join(out_dir, "accepted_hits.sam")
     found = set()
     with open(sam) as f:
@@ -1873,7 +1941,7 @@ def fusion_recall(out_dir, codes, breaks, fused, n_pairs: int):
             if line.startswith("@"):
                 continue
             x = line.split("\t", 6)
-            if int(x[1]) & 0x80 == 0 and (int(x[3]) - 1, x[5]) in \
+            if int(x[1]) & 0x80 == 0 and (x[2], int(x[3]) - 1, x[5]) in \
                     want.get(x[0], ()):
                 found.add(x[0])
     got = n_cigar_reads(sam)
@@ -1884,33 +1952,44 @@ def fusion_recall(out_dir, codes, breaks, fused, n_pairs: int):
     with open(os.path.join(out_dir, "fusions.out")) as f:
         for line in f:
             x = line.split("\t")
-            reported.add((int(x[1]), int(x[2]), x[3]))
+            c1, c2 = x[0].split("-")
+            reported.add((c1, int(x[1]), c2, int(x[2]), x[3]))
     missing = []
     for d, a, b in breaks:
         ts = [t for (d2, a2, b2, t) in fused.values() if (d2, a2, b2) ==
               (d, a, b)]
-        eq = {(min(a2, b2), max(a2, b2), d) for t in ts
+        eq = {break_key(offsets, names, a2, b2) + (d,) for t in ts
               for a2, b2, _ in equivalent_breaks(codes, d, a, b, t)}
         if not eq & reported:
             missing.append((d, a, b))
     return 100.0 * len(found) / len(fused), recall_j, missing
 
 
-def designed_in_result(path, codes, breaks, fused) -> int:
-    """How many designed breaks result.txt reports (any equivalent)."""
+def found_in_result(path, codes, breaks, fused, offsets=None,
+                    names=("chr1",)) -> list:
+    """The designed breaks result.txt reports (any equivalent, at its
+    contigs and contig-local coordinates)."""
+    if offsets is None:
+        offsets = np.array([0, len(codes)], np.int64)
     rows = set()
     with open(path) as f:
         for line in f:
             if not line.startswith("#") and line.strip():
                 x = line.split("\t")
-                rows.add((int(x[3]), int(x[6])))
-    n = 0
+                rows.add((x[2], int(x[3]), x[5], int(x[6])))
+    out = []
     for d, a, b in breaks:
-        eq = {(min(a2, b2), max(a2, b2)) for (d2, a0, b0, t) in
+        eq = {break_key(offsets, names, a2, b2) for (d2, a0, b0, t) in
               fused.values() if (d2, a0, b0) == (d, a, b)
               for a2, b2, _ in equivalent_breaks(codes, d, a, b, t)}
-        n += bool(eq & rows)
-    return n
+        if eq & rows:
+            out.append((d, a, b))
+    return out
+
+
+def designed_in_result(path, codes, breaks, fused) -> int:
+    """How many designed breaks result.txt reports (any equivalent)."""
+    return len(found_in_result(path, codes, breaks, fused))
 
 
 def run_fusion_post(workdir, fa, device: str):
@@ -3357,7 +3436,9 @@ def phase_human(build, hg, grouped=None):
     log(f"human-scale timed run: {wall:.2f} s, {HUMAN_READS / wall:.1f} "
         f"reads/s; {transfers} group loads and swaps in {transfer_s:.3f} s; "
         f"realign launches {launches} (dense, sparse); peak device memory "
-        f"{peak / 2**30:.3f} GiB; host peak RSS {host.bytes / 2**30:.2f} GiB"
+        f"{peak / 2**30:.3f} GiB (reached by the end of "
+        f"{clock.peak_stage(peak)!r}); host peak RSS "
+        f"{host.bytes / 2**30:.2f} GiB"
         + (" (the process's lifetime peak)" if host.lifetime else "")
         + f"; genome axis started: {any(axis)}")
     for k, v in stages.items():
@@ -3416,6 +3497,7 @@ def phase_human(build, hg, grouped=None):
                 launches=launches, realign_calls=calls,
                 path_err=max(check.err, held.err), stages=stages,
                 stage_calls=dict(clock.calls),
+                peak_stage=clock.peak_stage(peak),
                 recall_pct=placed["recall_pct"],
                 designed_introns=len(introns),
                 introns_past_2p31=n_past_introns,
@@ -3971,6 +4053,489 @@ def phase_human_annotated(build, hg):
                        if not k.startswith("missing")}, phase_s=phase_s)
 
 
+# --------------------------------------------------------------- phase 18
+
+HUMAN_FUSION_CHECK_PAIRS = 4096
+HUMAN_FUSION_PAIRS = 16384
+BREAK_MARGIN = 2000         # phase 10's: partners this far from a contig
+#                             end (and here from every planted intron)
+BREAKS_PER_GROUP = 12       # 4 ff, 4 fr, 4 rf; 2 of each between contigs
+BCR_ABL1 = (8, 21)          # chr9 and chr22: BCR-ABL1's contigs on hg19
+
+
+def human_break_sep() -> int:
+    """Least distance of a break's two partners on one contig: phase 10's
+    1 Mb, scaled with the ladder, and past --fusion-min-dist (100,000) so
+    the 1/1,000 rehearsal still calls them fusions."""
+    return max(human_scaled(1_000_000), 101_000)
+
+
+def pick_human_breaks(offsets, introns, groups, seed: int = 101):
+    """Phase 18's designed breaks on the human ladder, (dir, a, b) at
+    global 0-based positions as pick_fusion_breaks gives them. Within each
+    contig group (`groups`: contig ranges), BREAKS_PER_GROUP: 4 ff, 4 fr
+    and 4 rf, of each direction 2 between two contigs of the group and 2
+    within one contig (partners >= human_break_sep() apart); in the last
+    group all on contigs that start past 2^31 but an ff between its first
+    two contigs (chr12-chr13) and an ff within the contig that straddles
+    2^31 (chr13, its partners either side of 2^31; at a smaller
+    HUMAN_PER_MBP, of 2^31 scaled with the ladder). Every
+    partner lies BREAK_MARGIN or more from a contig end and from every
+    planted intron; every other break has its second partner before the
+    first. Then 4 breaks across the groups, which the grouped fusion
+    search cannot see: chr9-chr22 (BCR-ABL1) and 3 drawn at random.
+    Returns (within, cross)."""
+    r = np.random.default_rng(seed)
+    sep = human_break_sep()
+    past = human_scaled(POS_2P31)
+    sizes = np.diff(offsets)
+    planted = {}
+    for c, left, right in introns:
+        planted.setdefault(c, []).append((left, right))
+
+    def draw(c, lo=0, hi=None):
+        lo = max(lo, BREAK_MARGIN)
+        hi = min(int(sizes[c]) if hi is None else hi,
+                 int(sizes[c]) - BREAK_MARGIN)
+        while True:
+            x = int(r.integers(lo, hi))
+            if all(not left - BREAK_MARGIN <= x <= right + BREAK_MARGIN
+                   for left, right in planted.get(c, ())):
+                return int(offsets[c]) + x
+
+    def pair(ca, cb, k: int):
+        cut = past - int(offsets[ca])
+        straddle = ca == cb and 0 < cut < sizes[ca]
+        while True:
+            if straddle:
+                a, b = draw(ca, hi=cut), draw(ca, lo=cut)
+            else:
+                a, b = draw(ca), draw(cb)
+            if ca != cb or abs(a - b) >= sep:
+                break
+        return (a, b) if (a < b) == (k % 2 == 0) else (b, a)
+
+    within = []
+    for gi, cids in enumerate(groups):
+        cids = list(cids)
+        last = gi == len(groups) - 1 and gi > 0
+        pool = [c for c in cids if not last or offsets[c] >= past]
+        roomy = [c for c in pool if sizes[c] - 2 * BREAK_MARGIN > sep]
+        for d in ("ff", "fr", "rf"):
+            for k in range(BREAKS_PER_GROUP // 3):
+                if last and d == "ff" and k == 0:
+                    ca, cb = cids[0], cids[1]
+                elif last and d == "ff" and k == 2:
+                    ca = cb = cids[1]
+                elif k < 2:
+                    ca, cb = (int(x) for x in r.choice(pool, 2,
+                                                       replace=False))
+                else:
+                    ca = cb = int(r.choice(roomy))
+                within.append((d,) + pair(ca, cb, k))
+    cross = [("ff",) + pair(*BCR_ABL1, 0)]
+    for k, d in enumerate(("fr", "rf", "ff")):
+        cross.append((d,) + pair(int(r.choice(list(groups[0]))),
+                                 int(r.choice(list(groups[-1]))), k + 1))
+    return within, cross
+
+
+def human_break_groups(offsets, groups, breaks):
+    """Per break: (group of its first partner, both partners past 2^31)."""
+    group_of = {c: gi for gi, cids in enumerate(groups) for c in cids}
+    out = []
+    for _, a, b in breaks:
+        c = int(np.searchsorted(offsets, a, side="right")) - 1
+        out.append((group_of[c], min(a, b) >= POS_2P31))
+    return out
+
+
+def phase_human_fusion(build, hg):
+    """TopHat-Fusion on the human-scale genome, both of its entry points
+    as its manual gives them: `tophat --fusion-search ...` (FUSION_FLAGS)
+    through the CLI on phase 16's genome and FASTA, 2 contig groups (the
+    default --max-index-bases), whose group caches the build child wrote
+    and which both CLIs find at the FASTA's own prefix (symlinks
+    hs<N>.fa.g<i>.tt.npz -> hs<N>.g<i>.tt.npz: no copy, no build), then
+    tophat-fusion-post on the card from the sample's parent directory.
+    Designed breaks (pick_human_breaks): 12 within each group, 10 of the
+    last group's on contigs past 2^31, half between two contigs of a
+    group; 4 across the groups (chr9-chr22 among them), which grouped
+    fusion search does not see (ROADMAP Queue 3): their count in
+    fusions.out is recorded, not held. Pairs as make_fusion_pairs makes
+    them (10% mate 1 across a within-group break, 10% around one, 20%
+    mate 1 across a planted intron, 2% to the cross-group breaks, the rest
+    contiguous within a contig). A run of 4,096 pairs holds every realign
+    call against its plain version on up to 2,048 of its rows; a timed
+    run of 16,384 pairs records pairs/s, stage seconds (map, segments,
+    candidates, chains and realign, fusion stats, read_fasta, the group
+    load and each transfer), chain seconds per group, group swaps, E per
+    group, every realign call (held after the run the same way), peak
+    device and host memory; fusion-post records its seconds by stage.
+    Fails with other than 2 groups, a group index built by either CLI,
+    under 100% break-read or junction-read recall, a within-group
+    designed break missing from fusions.out at its contigs and
+    contig-local coordinates, no designed break in result.txt, no sparse
+    realign launch or any dense one, or the genome axis started."""
+    import functools
+
+    import torch
+
+    from tophat_tpu_torch.cli import fusion_post
+    from tophat_tpu_torch.cli import main as cli_mod
+    from tophat_tpu_torch.index.fasta import Genome
+    from tophat_tpu_torch.index.fm import FMIndex
+    from tophat_tpu_torch.index.grouped import (MAX_GROUP_BASES,
+                                                contig_group_ranges)
+    from tophat_tpu_torch.ops import events
+    from tophat_tpu_torch.parallel import auto
+    from tophat_tpu_torch.pipeline import fusion_stats
+    from tophat_tpu_torch.pipeline import grouped as grouped_mod
+    from tophat_tpu_torch.pipeline import juncs as juncs_mod
+    from tophat_tpu_torch.pipeline import paired as paired_mod
+    from tophat_tpu_torch.pipeline import run as run_mod
+
+    t_phase = time.time()
+    codes, offsets, names, introns = hg
+    fa, prefix, logf, _ = human_paths()
+    rc = build.wait()
+    if rc != 0:
+        fail(f"human-scale build child exited {rc}")
+    max_bases = HUMAN_MAX_INDEX_BASES or MAX_GROUP_BASES
+    groups = contig_group_ranges(Genome(codes=codes, offsets=offsets,
+                                        names=names), max_bases)
+    if len(groups) != 2:
+        fail(f"human-scale fusion: {len(groups)} contig groups, not 2")
+    for i in range(len(groups)):
+        link, target = f"{fa}.g{i}.tt.npz", f"{prefix}.g{i}.tt.npz"
+        if not os.path.exists(target):
+            fail(f"human-scale fusion: the build child left no {target}")
+        if os.path.lexists(link):
+            os.remove(link)
+        os.symlink(os.path.basename(target), link)
+
+    t0 = time.time()
+    breaks, cross = pick_human_breaks(offsets, introns, groups)
+    where = human_break_groups(offsets, groups, breaks)
+    planted = [(int(offsets[c]) + a, int(offsets[c]) + b)
+               for c, a, b in introns]
+    reads = {}
+    for tag, seed, n in (("check", 111, HUMAN_FUSION_CHECK_PAIRS),
+                         ("steady", 112, HUMAN_FUSION_PAIRS)):
+        m1, m2, fused = make_fusion_pairs(codes, planted, breaks, seed, n,
+                                          offsets=offsets, cross=cross)
+        fqs = [os.path.join(HUMAN_DIR, f"fusion_{tag}_{k}.fq")
+               for k in (1, 2)]
+        write_fastq(fqs[0], m1, "p")
+        write_fastq(fqs[1], m2, "p")
+        inside = {i: v for i, v in fused.items() if v[:3] in breaks}
+        reads[tag] = (fqs, inside, {i: v for i, v in fused.items()
+                                    if v[:3] in cross})
+    n_between = sum(int(np.searchsorted(offsets, a, side="right"))
+                    != int(np.searchsorted(offsets, b, side="right"))
+                    for _, a, b in breaks)
+    log(f"human-scale fusion inputs: {len(breaks)} within-group breaks "
+        f"({[sum(g == gi for g, _ in where) for gi in range(2)]} a group, "
+        f"{sum(p for _, p in where)} past 2^31, {n_between} between two "
+        f"contigs), {len(cross)} across the groups; "
+        f"{HUMAN_FUSION_CHECK_PAIRS} + {HUMAN_FUSION_PAIRS} pairs "
+        f"({time.time() - t0:.1f} s)")
+    cap = (["--max-index-bases", str(HUMAN_MAX_INDEX_BASES)]
+           if HUMAN_MAX_INDEX_BASES else [])
+    argv = lambda out, fqs: ["-o", out] + FUSION_FLAGS + cap + [fa] + fqs
+
+    to = FMIndex.to
+    axis, runs, n_events, transfers = [], [], [], []
+
+    def to_seen(self, device):
+        axis.append(auto.genome_sharded())
+        t = time.perf_counter()
+        out = to(self, device)
+        if out.device.type == "cuda":
+            torch.cuda.synchronize()
+            transfers.append(time.perf_counter() - t)
+        return out
+
+    build_fm = cli_mod.build_grouped_fm
+
+    def build_seen(*a, **k):
+        msgs, say = [], k.get("log")
+        k["log"] = lambda m: (msgs.append(m), say and say(m))
+        gfm = build_fm(*a, **k)
+        runs.append((gfm.n_groups, msgs))
+        return gfm
+
+    finalize = grouped_mod.GroupedMapper.finalize_events
+
+    def finalize_counted(self, known_events=None):
+        ev = finalize(self, known_events)
+        n_events.append((len(ev["left"]),
+                         [len(e["left"]) for e in self.group_events]))
+        return ev
+
+    sizes = [int(offsets[g.stop] - offsets[g.start]) for g in groups]
+    group_now = [0]
+    chain_s = [0.0] * len(groups)
+    cands = grouped_mod.candidates_for_mate
+
+    def cands_in_group(fm, *a, **k):
+        group_now[0] = sizes.index(fm.n)
+        return cands(fm, *a, **k)
+
+    chain_fns = {n: getattr(run_mod, n)
+                 for n in ("chain_stitch", "cross_strand_chains")}
+
+    def chain_timed(fn):
+        def timed(*a, **k):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            try:
+                return fn(*a, **k)
+            finally:
+                torch.cuda.synchronize()
+                chain_s[group_now[0]] += time.perf_counter() - t
+        return timed
+
+    def tally(found):
+        """Count designed breaks: in all, per group, and with both
+        partners past 2^31."""
+        got = set(found)
+        return dict(n=len(got), per_group=[
+            sum(b in got and g == gi for b, (g, _) in zip(breaks, where))
+            for gi in range(len(groups))], past_2p31=sum(
+            b in got and p for b, (_, p) in zip(breaks, where)))
+
+    def placed(out, tag):
+        fqs, inside, across = reads[tag]
+        n = HUMAN_FUSION_CHECK_PAIRS if tag == "check" else \
+            HUMAN_FUSION_PAIRS
+        rb, rj, missing = fusion_recall(out, codes, breaks, inside, n,
+                                        offsets, names)
+        _, _, cross_missing = fusion_recall(out, codes, cross, across, n,
+                                            offsets, names)
+        found = [b for b in breaks if b not in missing]
+        return dict(recall_break_reads_pct=rb, recall_junction_pct=rj,
+                    missing=missing, fusions_out=tally(found),
+                    cross_found=len(cross) - len(cross_missing),
+                    fusions_out_lines=sum(1 for _ in open(os.path.join(
+                        out, "fusions.out"))))
+
+    FMIndex.to = to_seen
+    cli_mod.build_grouped_fm = build_seen
+    grouped_mod.GroupedMapper.finalize_events = finalize_counted
+    grouped_mod.candidates_for_mate = cands_in_group
+    for n, fn in chain_fns.items():
+        setattr(run_mod, n, chain_timed(fn))
+    if HUMAN_MAX_INDEX_BASES:   # fusion-post has no --max-index-bases
+        build_kmer_map = fusion_post.build_kmer_map
+        fusion_post.build_kmer_map = functools.partial(
+            build_kmer_map, max_bases=HUMAN_MAX_INDEX_BASES)
+    try:
+        check = PathCheck(max_rows=HUMAN_HOLD_ROWS)
+        out_check = os.path.join(HUMAN_DIR, "fusion_check", "tophat_check")
+        t0 = time.time()
+        with RealignHooks(events, check):
+            cli_main_checked(cli_mod.main, argv(out_check,
+                                                reads["check"][0]))
+        check_s = time.time() - t0
+        log(f"human-scale fusion check run: {check_s:.1f} s; realign exact "
+            f"in {len(check.shapes)} calls: " + ", ".join(check.shapes))
+        checked = placed(out_check, "check")
+
+        clock = StageClock()
+        clock.wrap(cli_mod, "read_fasta", "read_fasta")
+        clock.wrap(cli_mod, "build_grouped_fm",
+                   "group index load (2 cached groups)")
+        clock.wrap(FMIndex, "to", "group loads and swaps (FMIndex.to)")
+        clock.wrap(grouped_mod, "align_reads_adaptive",
+                   "full-read align (per group)")
+        clock.wrap(grouped_mod, "_spliced_mate",
+                   "segments + stitch (per group)")
+        clock.wrap(grouped_mod, "discover_events",
+                   "discovery (junctions, indels, FF fusions)")
+        clock.wrap(juncs_mod, "build_fusion_windows",
+                   "  of which FF fusion windows + scan")
+        clock.wrap(juncs_mod, "scan_fusion_windows",
+                   "  of which FF fusion windows + scan")
+        clock.wrap(grouped_mod, "candidates_for_mate",
+                   "candidates (per group)")
+        clock.wrap(run_mod, "realign_events_sparse",
+                   "  of which realign, sparse")
+        clock.wrap(run_mod, "find_fr_fusions",
+                   "  of which FR/RF scan + realign_fr_events")
+        clock.wrap(run_mod, "segment_event_hits",
+                   "  of which segment event hits (sparse realign, records)")
+        clock.wrap(run_mod, "chain_stitch",
+                   "  of which chain stitch + cross-strand chains")
+        clock.wrap(run_mod, "cross_strand_chains",
+                   "  of which chain stitch + cross-strand chains")
+        clock.wrap(paired_mod, "accumulate_event_stats", "stats + filter")
+        clock.wrap(paired_mod, "filter_junctions", "stats + filter")
+        clock.wrap(paired_mod, "build_fusion_table",
+                   "fusion stats (fusions.out)")
+        clock.wrap(fusion_stats.FusionTable, "write",
+                   "fusion stats (fusions.out)")
+        kept, calls = [], []
+        keep = keep_calls(kept)
+
+        def on_timed(kind, args, got):
+            calls.append(realign_call_shape(kind, args))
+            keep(kind, args, got)
+
+        work = os.path.join(HUMAN_DIR, "fusion")
+        out = os.path.join(work, "tophat_human")
+        del n_events[:], transfers[:]
+        chain_s[:] = [0.0] * len(groups)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        realign_launches(reset=True)
+        t0 = time.time()
+        try:
+            with RealignHooks(events, on_timed), HostPeak() as host:
+                cli_main_checked(cli_mod.main, argv(out,
+                                                    reads["steady"][0]))
+            torch.cuda.synchronize()
+            wall = time.time() - t0
+            launches = realign_launches()
+        finally:
+            clock.restore()
+        peak = torch.cuda.max_memory_allocated()
+        run_transfers = list(transfers)
+        timed = placed(out, "steady")
+
+        post = StageClock()
+        post.wrap(fusion_post, "read_fasta", "read_fasta")
+        post.wrap(fusion_post, "build_kmer_map", "kmer map")
+        post.wrap(cli_mod, "build_grouped_fm",
+                  "  of which group index load (2 cached groups)")
+        post.wrap(FMIndex, "to", "  of which group transfers (FMIndex.to)")
+        post.wrap(fusion_post, "_align_kmers",
+                  "  of which kmer alignment (align_reads)")
+        post.wrap(fusion_post, "filter_fusions", "filter")
+        post.wrap(fusion_post, "read_dist", "read distributions")
+        for name in ("score_fusions", "cluster_fusions", "write_report"):
+            post.wrap(fusion_post, name, "score, cluster, report")
+        del transfers[:]
+        torch.cuda.reset_peak_memory_stats()
+        try:
+            with HostPeak() as post_host:
+                post_s = run_fusion_post(work, fa, "cuda")
+        finally:
+            post.restore()
+        post_peak = torch.cuda.max_memory_allocated()
+    finally:
+        FMIndex.to = to
+        cli_mod.build_grouped_fm = build_fm
+        grouped_mod.GroupedMapper.finalize_events = finalize
+        grouped_mod.candidates_for_mate = cands
+        for n, fn in chain_fns.items():
+            setattr(run_mod, n, fn)
+        if HUMAN_MAX_INDEX_BASES:
+            fusion_post.build_kmer_map = build_kmer_map
+
+    for k, (n_groups, msgs) in zip(("check run", "timed run",
+                                    "fusion-post"), runs):
+        if n_groups != 2:
+            fail(f"human-scale fusion {k}: {n_groups} contig groups, not 2")
+        if sum("reusing FM index" in m for m in msgs) != n_groups:
+            fail(f"human-scale fusion {k} built a group index instead of "
+                 f"reusing the build child's: {msgs}")
+    if len(runs) != 3:
+        fail(f"human-scale fusion: {len(runs)} group index loads, not 3 "
+             "(check run, timed run, fusion-post)")
+    stages = dict(clock.seconds)
+    top = sum(v for k, v in stages.items() if not k.startswith(" "))
+    stages["rest (FASTQ parse, prep, selection, pair grading, output)"] = \
+        wall - top
+    post_stages = dict(post.seconds)
+    post_top = sum(v for k, v in post_stages.items()
+                   if not k.startswith(" "))
+    post_stages["rest (sample scan, fusions.out parse)"] = post_s - post_top
+    E, group_E = n_events[-1] if n_events else (0, [])
+    res_found = found_in_result(os.path.join(
+        work, "tophatfusion_out", "result.txt"), codes, breaks,
+        reads["steady"][1], offsets, names)
+    result = tally(res_found)
+    log(f"human-scale fusion timed run: {wall:.2f} s, "
+        f"{HUMAN_FUSION_PAIRS / wall:.1f} pairs/s; E={E} (per group "
+        f"{group_E}); {len(run_transfers)} group transfers "
+        f"({', '.join(f'{x:.3f}' for x in run_transfers)} s); realign "
+        f"launches {launches} (dense, sparse); peak device memory "
+        f"{peak / 2**30:.3f} GiB (reached by the end of "
+        f"{clock.peak_stage(peak)!r}); host peak RSS "
+        f"{host.bytes / 2**30:.2f} GiB"
+        + (" (the process's lifetime peak)" if host.lifetime else "")
+        + f"; chain searches per group {[round(x, 3) for x in chain_s]} s; "
+        f"genome axis started: {any(axis)}")
+    for k, v in stages.items():
+        log(f"  stage {k}: {v:.3f} s" + calls_note(clock.calls.get(k)))
+    log("  realign calls: " + ", ".join(calls))
+    held = PathCheck(max_rows=HUMAN_HOLD_ROWS)
+    t0 = time.time()
+    for kind, args, got in kept:
+        held(kind, args, got)
+    log(f"human-scale fusion timed run: realign exact in "
+        f"{len(held.shapes)} calls ({time.time() - t0:.1f} s)")
+    del kept
+    log(f"human-scale fusion-post: {post_s:.1f} s; peak device memory "
+        f"{post_peak / 2**30:.3f} GiB (reached by the end of "
+        f"{post.peak_stage(post_peak)!r}), host peak RSS "
+        f"{post_host.bytes / 2**30:.2f} GiB; {len(transfers)} group "
+        f"transfers; designed breaks in result.txt {result['n']} of "
+        f"{len(breaks)} (per group {result['per_group']}, "
+        f"{result['past_2p31']} past 2^31)")
+    for k, v in post_stages.items():
+        log(f"  fusion-post stage {k}: {v:.3f} s"
+            + calls_note(post.calls.get(k)))
+    for tag, p in (("check", checked), ("timed", timed)):
+        log(f"human-scale fusion {tag} run: break-read recall "
+            f"{p['recall_break_reads_pct']:.2f}%, junction-read recall "
+            f"{p['recall_junction_pct']:.2f}%; designed breaks in "
+            f"fusions.out {p['fusions_out']['n']} of {len(breaks)} (per "
+            f"group {p['fusions_out']['per_group']}, "
+            f"{p['fusions_out']['past_2p31']} past 2^31); cross-group "
+            f"breaks found {p['cross_found']} of {len(cross)}; "
+            f"{p['fusions_out_lines']} fusions.out lines")
+        if min(p["recall_break_reads_pct"], p["recall_junction_pct"]) < 100:
+            fail(f"human-scale fusion {tag} run: recall "
+                 f"{p['recall_break_reads_pct']:.2f}% (break reads), "
+                 f"{p['recall_junction_pct']:.2f}% (junction reads) < 100%")
+        if p["missing"]:
+            fail(f"human-scale fusion {tag} run: designed breaks missing "
+                 f"from fusions.out: {p['missing']}")
+    if not result["n"]:
+        fail("human-scale fusion-post: result.txt holds no designed break")
+    if launches[0] or not launches[1]:
+        fail(f"the human-scale fusion run launched the realign kernel's "
+             f"entries {launches} (dense, sparse) times; it must take the "
+             "sparse entry only")
+    if any(axis):
+        fail("the human-scale fusion run started the genome axis on one "
+             "card")
+    phase_s = time.time() - t_phase
+    log(f"human scale, fusion: phase 18 took {phase_s:.1f} s")
+    return dict(
+        breaks=len(breaks), breaks_past_2p31=sum(p for _, p in where),
+        breaks_between_contigs=n_between, cross_group_breaks=len(cross),
+        wall_s=wall, pairs_per_s=HUMAN_FUSION_PAIRS / wall,
+        check_run_s=check_s, events=E, group_events=group_E,
+        group_transfer_s=run_transfers, peak_device_bytes=peak,
+        peak_stage=clock.peak_stage(peak),
+        host_peak_rss_bytes=host.bytes, host_peak_lifetime=host.lifetime,
+        genome_axis_started=any(axis), launches=launches,
+        realign_calls=calls, path_err=max(check.err, held.err),
+        stages=stages, stage_calls=dict(clock.calls),
+        chain_s_per_group=chain_s,
+        check={k: v for k, v in checked.items() if k != "missing"},
+        timed={k: v for k, v in timed.items() if k != "missing"},
+        post_s=post_s, post_stages=post_stages,
+        post_stage_calls=dict(post.calls),
+        post_group_transfers=len(transfers),
+        post_peak_device_bytes=post_peak,
+        post_host_peak_rss_bytes=post_host.bytes, result=result,
+        phase_s=phase_s)
+
+
 def main():
     try:
         import torch
@@ -4021,10 +4586,11 @@ def main():
     hg = human_genome()
     human = phase_human(human_build_child, hg, grouped)
     human_annotated = phase_human_annotated(human_build_child, hg)
+    fusion_human = phase_human_fusion(human_build_child, hg)
     del hg
     path_phases = (spliced, paired, annotated, bowtie2, fusion, fusion_gtf,
                    grouped, mesh, long_reads, long_single, human,
-                   human_annotated)
+                   human_annotated, fusion_human)
     log(f"smoke phases done in {time.time() - t_start:.1f} s")
 
     print(json.dumps({
@@ -4039,7 +4605,7 @@ def main():
         "fusion_gtf": fusion_gtf, "grouped": grouped, "mesh": mesh,
         "long_reads": long_reads, "long_single": long_single,
         "human_scale": human, "human_annotated": human_annotated,
-        "seconds": time.time() - t_start}),
+        "fusion_human": fusion_human, "seconds": time.time() - t_start}),
         flush=True)
     main_case = next(k for k in kernels if (k["R"], k["E"], k["L"], k["q"])
                      == (8192, 69, 100, 0))     # the main path's shape

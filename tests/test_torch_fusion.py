@@ -493,3 +493,34 @@ def test_fusion_runs_identical(tmp_path, mode, chunk):
     assert len((b / "deletions.bed").read_text().splitlines()) >= 2
     if mode.startswith("paired"):
         assert any(int(ln.split("\t")[5]) > 0 for ln in fus)   # pair_count
+
+
+def test_chain_across_two_fusions_ranks_below_one_fusion():
+    """A mate-1 read explained with no mismatch both as one fr fusion and
+    as a chain through a chance ff fusion and back across an fr fusion
+    (chip_smoke.py phase 18 met 38 such reads of one break on the 3.1 Gbp
+    genome): the JAX package scores both alike, so both are kept and the
+    pair grading takes the chain by candidate order. The port ranks a
+    chain across two fusions below a one-fusion alignment, so the fr
+    fusion alone is selected; a chain across one fusion keeps its rank."""
+    from tophat_tpu.pipeline.report import Candidate as JCandidate
+    from tophat_tpu.pipeline.report import select_best as jselect
+    from tophat_tpu_torch.pipeline.report import Candidate, select_best
+
+    fus = dict(read=4, pos=500887, strand=0, mm=0, kind=3, ev=-1, t=66,
+               fdir="fr", fpos2=300001)
+    chain = dict(read=4, pos=500887, strand=0, mm=0, kind=-2, ev=-1, t=0,
+                 chain_ops=(("M", 59), ("EV", 1, 3, 0), ("M", 16),
+                            ("FUS", 299992, "fr")), chain_events=(1,))
+    one = dict(chain, chain_ops=(("M", 59), ("EV", 1, 3, 0), ("M", 41)))
+    jc = [JCandidate(**chain), JCandidate(**fus)]
+    assert jc[0].score == jc[1].score
+    assert [c.kind for c in jselect(jc, 20, np.random.default_rng(1))] == \
+        [-2, 3]
+    tc = [Candidate(**chain), Candidate(**fus)]
+    assert tc[0].score < tc[1].score
+    assert [c.kind for c in select_best(tc, 20, np.random.default_rng(1))] \
+        == [3]
+    assert Candidate(**one).score == Candidate(**fus).score == \
+        JCandidate(**one).score
+    assert Candidate(**dict(chain, mm=1)).score < tc[0].score

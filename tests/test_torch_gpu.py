@@ -529,6 +529,42 @@ def test_grouped_run_on_card_matches_cpu(cuda, tmp_path):
 
 
 @pytest.mark.gpu
+def test_grouped_kmer_map_on_card_matches_cpu(cuda, tmp_path, monkeypatch):
+    """The contig-group fixture's paired fusion run (two groups) and
+    tophat-fusion-post over it, whose kmer map runs over the run's group
+    indexes one group on the device at a time, on the card and on the
+    CPU: identical fusion_seq.map, potential_fusion.txt and result.txt;
+    on the card every group's kmers were aligned there."""
+    import functools
+
+    from test_torch_grouped import CLI_CASES, MAX_BASES, write_fixture
+    from tophat_tpu_torch.cli import fusion_post
+    from tophat_tpu_torch.cli.main import main
+
+    fa, fq1, fq2, _ = write_fixture(tmp_path)
+    monkeypatch.setattr(fusion_post, "build_kmer_map", functools.partial(
+        fusion_post.build_kmer_map, max_bases=MAX_BASES))
+    align = fusion_post._align_kmers
+    seen = []
+    monkeypatch.setattr(fusion_post, "_align_kmers", lambda fm, *a: (
+        seen.append(fm.device.type), align(fm, *a))[1])
+    for dev in ("cpu", "cuda"):
+        assert main(["-o", str(tmp_path / dev / "tophat_s1"), "--device",
+                     dev, "--max-index-bases", str(MAX_BASES)]
+                    + CLI_CASES["paired_fusion"] + [fa, fq1, fq2]) == 0
+        monkeypatch.chdir(tmp_path / dev)
+        assert fusion_post.main(["--device", dev, "--no-filter-by-annotation",
+                                 "--skip-blast", "--num-fusion-reads", "1",
+                                 "--num-fusion-pairs", "0", fa]) == 0
+    assert seen == ["cpu", "cpu", "cuda", "cuda"]
+    for f in ("fusion_seq.map", "potential_fusion.txt", "result.txt"):
+        assert (tmp_path / "cpu" / "tophatfusion_out" / f).read_bytes() == \
+            (tmp_path / "cuda" / "tophatfusion_out" / f).read_bytes(), f
+    assert (tmp_path / "cuda" / "tophatfusion_out" /
+            "fusion_seq.map").read_text().count(":") == 2
+
+
+@pytest.mark.gpu
 def test_chain_segment_hits_on_card_match_dense_plain(cuda):
     """The chain path's segment hits from the realign kernel's sparse entry
     on the card equal the ok entries of the dense plain version's tables

@@ -734,3 +734,70 @@ def test_human_annotated_design_matches_jax(tmp_path, monkeypatch):
         == 100.0
     assert got["planted_crossed"] == 48 and got["missing_planted"] == []
     assert got["missing_annotated_past_2p31"] == []
+
+
+def test_kmer_map_rebase_past_2p31(tmp_path, monkeypatch):
+    """Fusion-post's kmer map on the human ladder (chr13 straddles 2^31,
+    chr14-chrY start past it; the default group cap makes 2 groups at
+    global bases 0 and 1,950,000,000): each group's int32 local
+    placements are rebased by the group's base at int64 and written at
+    their contig names and contig-local coordinates, group 0's first,
+    up to the 100-placement cap. The group indexes and the aligner are
+    stubbed (the ladder's codes are a zero-stride view): what is held is
+    the rebase, the order and the cap."""
+    import types
+
+    from test_torch_fusion_post import _fusions_out
+    from tophat_tpu_torch.cli import fusion_post
+    from tophat_tpu_torch.index.fasta import Genome
+    from tophat_tpu_torch.index.grouped import (GroupedFM,
+                                                contig_group_ranges,
+                                                sub_genome)
+
+    g = _ladder(Genome)
+    off = [int(x) for x in g.offsets]
+    ranges = contig_group_ranges(g)
+    fake = types.SimpleNamespace(to=lambda device: fake)
+    gfm = GroupedFM(fms=[fake, fake],
+                    sub_genomes=[sub_genome(g, r) for r in ranges],
+                    bases=np.array([off[r.start] for r in ranges], np.int64))
+    assert gfm.bases.tolist() == [0, 1_950_000_000]
+    kmers = ["A" * 23, "C" * 23, "G" * 23, "T" * 23]
+    # global placements of each kmer, group by group
+    want = {
+        kmers[0]: [[off[10] + 5, off[0]], [(1 << 31) + 7, off[13] + 1]],
+        kmers[1]: [[], [off[23] + 9, off[12] + 3, g.n - 23]],
+        kmers[2]: [[off[1] + j for j in range(64)],
+                   [off[20] + j for j in range(64)]],
+        kmers[3]: [[], []]}
+
+    def placements(fm, sub, ks):
+        gi = [s.n for s in gfm.sub_genomes].index(sub.n)
+        pos = np.zeros((len(ks), 64), np.int32)
+        valid = np.zeros((len(ks), 64), bool)
+        for i, s in enumerate(ks):
+            ps = [p - int(gfm.bases[gi]) for p in want[s][gi]]
+            pos[i, :len(ps)] = ps
+            valid[i, :len(ps)] = True
+        return pos, valid
+
+    monkeypatch.setattr(fusion_post, "group_indexes",
+                        lambda *a, **k: gfm)
+    monkeypatch.setattr(fusion_post, "_align_kmers", placements)
+    _fusions_out(str(tmp_path / "tophat_s" / "fusions.out"), kmers)
+    kmap = fusion_post.build_kmer_map(g, ["s"], str(tmp_path),
+                                      cwd=str(tmp_path), device="cpu")
+
+    def where(p):
+        c = max(i for i in range(24) if off[i] <= p)
+        return (g.names[c], p - off[c])
+
+    assert kmap == {s: [where(p) for p in (want[s][0] + want[s][1])[:100]]
+                    for s in kmers[:3]}
+    assert kmap[kmers[0]][2:] == [("chr13", (1 << 31) + 7 - off[12]),
+                                  ("chr14", 1)]
+    assert kmap[kmers[1]][-1] == ("chr24", off[24] - off[23] - 23)
+    assert [c for c, _ in kmap[kmers[2]]] == ["chr2"] * 64 + ["chr21"] * 36
+    lines = (tmp_path / "fusion_seq.map").read_text().splitlines()
+    assert lines[1] == kmers[1] + "\t" + ",".join(
+        f"{c}:{p}" for c, p in kmap[kmers[1]])

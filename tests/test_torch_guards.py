@@ -355,3 +355,43 @@ def test_cli_leaves_no_mesh_active(tmp_path, monkeypatch, outcome):
         assert cli.main(argv) == 0
         assert "r0" in (tmp_path / "out" / "accepted_hits.sam").read_text()
     assert seen == [2] and auto.active() is None
+
+
+def test_fusion_post_group_load_propagates_device_errors(tmp_path,
+                                                         monkeypatch):
+    """Fusion-post's kmer map over contig groups loads the CLI's group
+    caches beside the FASTA with the same guard: a CUDA error while the
+    tables load (here an out-of-memory) reaches the caller instead of a
+    silent rebuild."""
+    from test_torch_fusion_post import _fusions_out
+    from tophat_tpu_torch.cli import fusion_post
+    from tophat_tpu_torch.index import grouped
+    from tophat_tpu_torch.index.fm import FMIndex
+
+    genome, _ = _two_contigs()
+    fa = tmp_path / "g.fa"
+    fa.write_text("".join(
+        f">{name}\n" + "".join("ACGT"[c] for c in genome.codes[a:b]) + "\n"
+        for name, a, b in zip(genome.names, genome.offsets,
+                              genome.offsets[1:])))
+    seq = "".join("ACGT"[c] for c in genome.codes[1500:1546])
+    _fusions_out(str(tmp_path / "tophat_s" / "fusions.out"),
+                 [seq[:23], seq[23:]])
+    kmap = fusion_post.build_kmer_map(genome, ["s"], str(tmp_path),
+                                      cwd=str(tmp_path), device="cpu",
+                                      genome_path=str(fa), max_bases=1000)
+    assert kmap[seq[:23]] == [("d", 500)]
+    assert os.path.exists(f"{fa}.g1.tt.npz")
+
+    def oom(path, device="cuda"):
+        raise torch.cuda.OutOfMemoryError("CUDA out of memory")
+
+    monkeypatch.setattr(FMIndex, "load", staticmethod(oom))
+    built = []
+    monkeypatch.setattr(grouped, "build_fm_index",
+                        lambda *a, **k: built.append(1))
+    with pytest.raises(torch.cuda.OutOfMemoryError):
+        fusion_post.build_kmer_map(genome, ["s"], str(tmp_path),
+                                   cwd=str(tmp_path), device="cpu",
+                                   genome_path=str(fa), max_bases=1000)
+    assert not built

@@ -1,6 +1,7 @@
 # Copy of tophat_tpu/cli/fusion_post.py (host code), imports rewritten;
 # the kmer map runs on a torch device with a seed budget that keeps every
-# placement (_align_kmers).
+# placement (_align_kmers), over the CLI's contig-group indexes on a
+# genome past the int32 cap (build_kmer_map).
 """tophat-fusion-post equivalent: filter, annotate, score and report the
 fusion candidates of one or more fusion-search runs.
 
@@ -22,7 +23,10 @@ accepted_hits.sam|bam); writes `tophatfusion_out/` with
 
 Differences from the reference, by design:
   * kmer mapping uses the repo's FM index (no bowtie subprocess), with
-    every placement kept at any genome size (_align_kmers).
+    every placement kept at any genome size (_align_kmers); past
+    MAX_GROUP_BASES (a human genome) over the run's contig-group indexes,
+    where one index over the whole genome would overflow int32
+    (build_kmer_map).
   * the blastn re-check stage (do_blast :1037) runs only when both
     `blastn` is on PATH and the reference's `blast/` database directory
     exists next to the run (same probe the stage implicitly requires);
@@ -52,8 +56,10 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from tophat_tpu_torch.cli.main import group_indexes
 from tophat_tpu_torch.index.fasta import encode_seq, read_fasta
 from tophat_tpu_torch.index.fm import build_fm_index
+from tophat_tpu_torch.index.grouped import MAX_GROUP_BASES
 from tophat_tpu_torch.io.bam import read_bam
 from tophat_tpu_torch.ops.align import align_reads, pad_reads, seed_widths
 from tophat_tpu_torch.utils.device import resolve_device
@@ -163,8 +169,39 @@ def _align_kmers(fm, genome, kmers):
     return np.concatenate(pos), np.concatenate(valid)
 
 
-def build_kmer_map(genome, samples, out_dir, cwd=".",
-                   device="cuda") -> Dict[str, list]:
+def _group_placements(gfm, kmers, device):
+    """(pos, valid) of every placement of each 23-mer over contig-group
+    indexes, one group's index on the device at a time: each group's
+    columns in turn, in group order, its positions rebased by the group's
+    base to int64 global coordinates."""
+    device = torch.device(device)
+    pos, valid = [], []
+    for g in range(gfm.n_groups):
+        fm = gfm.fms[g].to(device)
+        p, v = _align_kmers(fm, gfm.sub_genomes[g], kmers)
+        del fm      # the next group arrives only once this one is gone
+        if device.type == "cuda":
+            torch.cuda.empty_cache()
+        pos.append(p.astype(np.int64) + int(gfm.bases[g]))
+        valid.append(v)
+    return np.concatenate(pos, axis=1), np.concatenate(valid, axis=1)
+
+
+def build_kmer_map(genome, samples, out_dir, cwd=".", device="cuda",
+                   genome_path=None, max_bases=MAX_GROUP_BASES,
+                   log=None) -> Dict[str, list]:
+    """fusion_seq.fa / fusion_seq.map: the 23-mers flanking each fusion of
+    the samples and their placements with <= 2 mismatches, at most 100 a
+    kmer (bowtie -v 2 -m 100 over the run's genome index, :279-343).
+
+    A genome of at most `max_bases` is mapped with one FM index over the
+    whole genome, a kmer's placements in align_reads' order (the JAX
+    package's call). A longer one, which no int32 index can hold, is
+    mapped over the contig-group indexes the CLI uses (cli.main's
+    group_indexes with the genome argument `genome_path`: the caches a
+    run left beside the FASTA are reused). A kmer's placements are then
+    kept in group order, and within a group in that group's align_reads
+    order, up to the 100-placement cap."""
     seqs = {}
     for s in samples:
         path = os.path.join(cwd, f"tophat_{s}", "fusions.out")
@@ -182,8 +219,12 @@ def build_kmer_map(genome, samples, out_dir, cwd=".",
 
     kmap: Dict[str, list] = {}
     if kmers:
-        fm = build_fm_index(genome, device=device)
-        pos, valid = _align_kmers(fm, genome, kmers)
+        if genome.n > max_bases:
+            gfm = group_indexes(genome, genome_path, max_bases, log=log)
+            pos, valid = _group_placements(gfm, kmers, device)
+        else:
+            fm = build_fm_index(genome, device=device)
+            pos, valid = _align_kmers(fm, genome, kmers)
         for i, s in enumerate(kmers):
             hits = []
             for c in np.nonzero(valid[i])[0]:
@@ -1024,7 +1065,9 @@ def main(argv=None):
     if not args.skip_fusion_kmer:
         print("[fusion-post] mapping 23-mers around fusion breakpoints",
               file=sys.stderr)
-        kmap = build_kmer_map(genome, samples, out_dir, device=device)
+        kmap = build_kmer_map(
+            genome, samples, out_dir, device=device, genome_path=args.genome,
+            log=lambda m: print(f"[fusion-post] {m}", file=sys.stderr))
     else:
         kmap = {}
         mpath = os.path.join(out_dir, "fusion_seq.map")

@@ -344,6 +344,23 @@ def _index_design_point(big: bool):
     return kk, sr
 
 
+def group_indexes(genome, index: str, max_bases: int, tt_index=None,
+                  log=None):
+    """The contig-group FM indexes of a genome past `max_bases`, as both
+    CLIs take them: cached under `tt_index`, else beside the genome FASTA
+    where its directory is writable (so tophat-fusion-post, which takes
+    the run's genome argument, reuses the caches a run left), built at
+    the index design point."""
+    cache_prefix = tt_index
+    if cache_prefix is None:
+        cand = resolve_genome_path(index)
+        cache_prefix = cand if os.access(os.path.dirname(cand) or ".",
+                                         os.W_OK) else None
+    kk, sr = _index_design_point(genome.n > (1 << 28))
+    return build_grouped_fm(genome, max_bases=max_bases, kmer_k=kk,
+                            sa_rate=sr, cache_prefix=cache_prefix, log=log)
+
+
 def _color_records(files, qual_csv, params):
     """(name, primer, colors, qual) records of colorspace reads files:
     .csfasta (with an optional _QV.qual file each) or colorspace FASTQ."""
@@ -483,15 +500,8 @@ def _run(args, params, device, resume, logger):
     gfm = None
     fm = None
     if genome.n > max_index_bases:
-        cache_prefix = args.tt_index
-        if cache_prefix is None:
-            cand = resolve_genome_path(args.index)
-            cache_prefix = cand if os.access(os.path.dirname(cand) or ".",
-                                             os.W_OK) else None
-        kk, sr = _index_design_point(genome.n > (1 << 28))
-        gfm = build_grouped_fm(genome, max_bases=max_index_bases,
-                               kmer_k=kk, sa_rate=sr,
-                               cache_prefix=cache_prefix, log=logger.log)
+        gfm = group_indexes(genome, args.index, max_index_bases,
+                            tt_index=args.tt_index, log=logger.log)
         logger.log(f"genome partitioned into {gfm.n_groups} contig groups")
     elif args.tt_index:
         path = args.tt_index if args.tt_index.endswith(".npz") \

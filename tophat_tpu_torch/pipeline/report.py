@@ -1,4 +1,6 @@
-# Copy of tophat_tpu/pipeline/report.py (host code), imports rewritten.
+# Copy of tophat_tpu/pipeline/report.py (host code), imports rewritten;
+# a chain across two or more fusions ranks below a one-fusion alignment
+# (Candidate.score).
 """Reporting stage: junction filtering, best-alignment selection, output
 emission — the tophat_reports equivalent (reference:
 src/tophat_reports.cpp:2655 driver; src/junctions.cpp:305 filter_junctions).
@@ -85,7 +87,11 @@ class Candidate:
         prefers contiguous over gapped/spliced alignments — matches the gold
         outputs where 24M/NM:3 beats 5M2D19M/NM:3 (v1.1.4 ordering; the
         2.1.2 bowtie2-score ranking tophat_reports.cpp:86 orders these the
-        other way). Fusions rank below same-edit spliced alignments."""
+        other way). Fusions rank below same-edit spliced alignments, and a
+        chain across two or more fusions below both (TopHat's hit carries
+        one fusion partner; the JAX package ranks it as a one-fusion
+        alignment, so a chance chimera ties the true fusion and wins the
+        tie by candidate order)."""
         if self.kind == -1:
             pen = 0
         elif self.kind == KIND_FUSION or (
@@ -94,6 +100,10 @@ class Candidate:
             pen = 2
         else:
             pen = 1
+        if self.kind == -2 and sum(
+                op[0] == "FUS" or (op[0] == "EV" and op[2] == KIND_FUSION)
+                for op in self.chain_ops) > 1:
+            pen = 3
         return -(self.edit_dist * 4) - pen
 
     def cigar(self, read_len: int) -> List[Tuple[str, int]]:
