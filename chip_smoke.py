@@ -124,11 +124,11 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      contig groups, chr1-11 and chr12-24, k = 13, sa_rate 4). A child
      process started before phase 2 (chip_smoke.py --human-build) writes
      the FASTA and builds the group indexes under the CLI's cache prefix
-     while phases 2-15 run; the phase waits for it, then a run of 4,096
-     reads holds every realign call against its plain version on up to
-     2,048 of its rows and a timed run of 16,384 reads records reads/s,
-     stage seconds, group loads and swaps, each group's FMIndex bytes on
-     the card, peak device and host memory and every realign call; fails
+     while phases 2-15 run; the phase waits for it, then a timed run of
+     16,384 reads records reads/s, stage seconds, group loads and swaps,
+     each group's FMIndex bytes on the card, peak device and host memory
+     and every realign call, each held after the run against its plain
+     version on up to 2,048 of its rows; fails
      with other than 2 groups, under 100% junction-read recall, with a
      designed intron missing from junctions.bed at its contig-local
      coordinates, a contiguous read not at its contig and POS, no read on
@@ -161,20 +161,48 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      group caches. 24 designed breaks within the groups (12 a group, 10
      of the last group's past 2^31, half between two contigs) and 4
      across them (chr9-chr22 among them; no package finds those, and
-     their count is only recorded); pairs of phase 10's design. A run of
-     4,096 pairs holds every realign call against its plain version on
-     up to 2,048 of its rows; a timed run of 16,384 pairs records
-     pairs/s, stage seconds, chain seconds per group, group transfers, E
-     per group, every realign call, peak device and host memory, then
-     fusion-post's seconds by stage. Fails with other than 2 groups, a
+     their count is only recorded); pairs of phase 10's design. A timed
+     run of 16,384 pairs records pairs/s, stage seconds, chain seconds per
+     group, group transfers, E per group, every realign call (each held
+     after the run against its plain version on up to 2,048 of its rows),
+     peak device and host memory, then fusion-post's seconds by stage. It
+     runs right after phase 16, beside the build child's phase-17 inputs.
+     Fails with other than 2 groups, a
      group index built by either CLI, under 100% break-read or
      junction-read recall, a within-group designed break missing from
      fusions.out at its contig-local coordinates, no designed break in
      result.txt, no sparse realign launch or any dense one, or the
      genome axis started
-Phases run in the order 1-10, 12, 11, 13, 14, 15, 16, 17, 18. Launches
-in the kernels line are summed over phases 4, 6, 8, 9, 10, 11, 12, 13,
-14, 15, 16, 17 and 18 (each counted from 0 just before its timed run),
+ 19. the JAX package's own benchmark design point (bench.py): one index
+     over a 2^30-base random genome (seed 7) with a k = 14 seed table and
+     a full SA, built on the host by the port's build_fm_index in a
+     process the phase-16 build child starts once its groups are built
+     (chip_smoke.py --bench-build; it also writes the genome's FASTA,
+     picks bench.py's 64 natural GT..AG introns and writes (b)'s reads).
+     (b) the single-end CLI (--no-coverage-search --tt-index) on the FASTA
+     and that index, 8,192 reads (25% across an intron); its FMIndex.load
+     is the phase's one load, and (a) and (c) run on the index it put on
+     the card. (a) bench.py's unspliced run: 25 batches of 16,384 x 100 bp
+     through align_reads_adaptive with its arguments (narrow 6, wide 32,
+     resolve_cap 1, uniform_len 100, defer=True), one warm batch and 24
+     dispatched back to back under torch.cuda.set_sync_debug_mode("error")
+     with one final sync (the in-program tier); then the exact call
+     (truncated rows read back and re-run) and the narrow tier alone on
+     the same batches; (c) bench.py's spliced run through run_pipeline on
+     the resident index (32,768 reads, --no-coverage-search): one warm and
+     two timed runs, stage seconds, E, every realign call, peak device and
+     host memory. Fails if the index is not that design point, under 99%
+     of the warm batch aligned, on a host sync in the deferred loop, if a
+     deferred row differs from the exact call without being flagged
+     truncated (or the checksums differ with no row past the wide
+     budget), if the CLI builds an index or does not reuse the built one,
+     under 100% junction-read recall in (b) or (c), with no sparse
+     realign launch or any dense one, or if a realign call of (b) or (c)
+     disagrees with its plain version on up to 2,048 of its rows
+Phases run in the order 1-10, 12, 11, 13, 14, 15, 16, 18, 17, 19.
+Launches in the kernels line are summed over phases 4, 6, 8, 9, 10, 11,
+12, 13, 14, 15, 16, 17, 18 and 19 (each counted from 0 just before its
+timed run; in phase 19 the faster timed run of (c) and the run of (b)),
 max_abs_err over every check.
 Standard output ends with four lines: the measured numbers (JSON), the
 kernels (JSON), the nvidia-smi name/power line, and the result JSON.
@@ -807,10 +835,28 @@ def phase_small_reference(codes):
 
 # ---------------------------------------------------------------- phase 5
 
+def unspliced_batch(codes, seed: int, batch: int = BATCH):
+    """bench.py's make_batch: `batch` reads of READ_LEN drawn uniformly,
+    two substitutions each, half of them reverse-complemented. Returns
+    numpy (reads_f, reads_r, lengths)."""
+    from tophat_tpu_torch.index.fasta import revcomp
+
+    r = np.random.default_rng(seed)
+    starts = r.integers(0, len(codes) - READ_LEN, batch)
+    reads = codes[starts[:, None] + np.arange(READ_LEN)].copy()
+    for _ in range(2):
+        p = r.integers(0, READ_LEN, batch)
+        reads[np.arange(batch), p] = (
+            reads[np.arange(batch), p] + r.integers(1, 4, batch)) % 4
+    flip = r.random(batch) < 0.5
+    rf = np.where(flip[:, None], revcomp(reads), reads).astype(np.int8)
+    rr = revcomp(rf).copy().astype(np.int8)
+    return rf, rr, np.full(batch, READ_LEN, np.int32)
+
+
 def phase_unspliced(index_path, codes):
     import torch
 
-    from tophat_tpu_torch.index.fasta import revcomp
     from tophat_tpu_torch.index.fm import FMIndex
     from tophat_tpu_torch.ops.align import align_reads_adaptive, kmer_fast_ok
 
@@ -818,22 +864,9 @@ def phase_unspliced(index_path, codes):
     fm = FMIndex.load(index_path, device=dev)
     offsets = torch.tensor([0, fm.n], device=dev)
     fast = kmer_fast_ok(fm, READ_LEN, 2)
-
-    def make_batch(seed):
-        r = np.random.default_rng(seed)
-        starts = r.integers(0, GENOME_N - READ_LEN, BATCH)
-        reads = codes[starts[:, None] + np.arange(READ_LEN)].copy()
-        for _ in range(2):
-            p = r.integers(0, READ_LEN, BATCH)
-            reads[np.arange(BATCH), p] = (
-                reads[np.arange(BATCH), p] + r.integers(1, 4, BATCH)) % 4
-        flip = r.random(BATCH) < 0.5
-        rf = np.where(flip[:, None], revcomp(reads), reads).astype(np.int8)
-        rr = revcomp(rf).copy().astype(np.int8)
-        return tuple(torch.as_tensor(x, device=dev) for x in
-                     (rf, rr, np.full(BATCH, READ_LEN, np.int32)))
-
-    batches = [make_batch(100 + i) for i in range(UNSPLICED_ITERS + 1)]
+    batches = [tuple(torch.as_tensor(x, device=dev)
+                     for x in unspliced_batch(codes, 100 + i))
+               for i in range(UNSPLICED_ITERS + 1)]
     run = lambda b: align_reads_adaptive(
         fm, b[0], b[1], b[2], offsets, max_mismatches=2, max_alignments=8,
         kmer_fast=fast, narrow_hits=6, wide_hits=32, resolve_cap=1)
@@ -3011,7 +3044,6 @@ HUMAN_MAX_INDEX_BASES = 0   # --max-index-bases; 0: the CLI's default (2
 #                             groups here; 1,950,000 cuts the 1/1,000 one)
 HUMAN_SEED = 31
 HUMAN_INTRONS_PER_CONTIG = 2  # GT..AG, 100-5,000 bp: 22 on chr14-chr24
-HUMAN_CHECK_READS = 4096
 HUMAN_READS = 16384
 HUMAN_HOLD_ROWS = 2048      # rows of each realign call held
 HUMAN_DIR = os.path.join(CACHE, "human")
@@ -3145,20 +3177,23 @@ def start_human_build():
     interpreter, not a fork of this process, which holds CUDA): it writes
     the genome's FASTA and builds the group indexes under the CLI's cache
     prefix, then phase 17's annotation and transcriptome index,
-    overlapping phases 2-16. Returns the Popen; the child and its build
-    workers (one process group) are killed if the smoke exits first."""
+    overlapping phases 2-16, and starts phase 19's index build once the
+    groups are done. Returns the Popen; the child, its build workers and
+    phase 19's index build (one process group) are killed if the smoke exits
+    first."""
     import atexit
     import signal
 
     fa, prefix, logf, rec = human_paths()
     os.makedirs(HUMAN_DIR, exist_ok=True)
-    for path in (rec, human_annotation_paths()[2]):
+    for path in (rec, human_annotation_paths()[2], bench_paths()[3]):
         if os.path.exists(path):
             os.remove(path)
     with open(logf, "w") as f:
         child = subprocess.Popen(
             [sys.executable, os.path.abspath(__file__), "--human-build",
-             str(HUMAN_PER_MBP), str(HUMAN_MAX_INDEX_BASES)],
+             str(HUMAN_PER_MBP), str(HUMAN_MAX_INDEX_BASES), str(BENCH_N),
+             str(BENCH_KMER_K)],
             stdout=f, stderr=subprocess.STDOUT, cwd=REPO,
             start_new_session=True)
 
@@ -3171,13 +3206,16 @@ def start_human_build():
 
 
 def human_build():
-    """The build child (chip_smoke.py --human-build PER_MBP MAX_BASES):
-    phase 16's FASTA (reused when its size matches), then the port's
-    build_grouped_fm as the CLI calls it (its --max-index-bases and index
-    design point), under the prefix the CLI gets as --tt-index (cached
-    groups are reused). Writes its seconds and peak host memory as JSON
-    (phase 16 starts on it), then builds phase 17's inputs
-    (human_annotation_build)."""
+    """The build child (chip_smoke.py --human-build PER_MBP MAX_BASES
+    BENCH_N BENCH_KMER_K): phase 16's FASTA (reused when its size
+    matches), then the port's build_grouped_fm as the CLI calls it (its
+    --max-index-bases and index design point), under the prefix the CLI
+    gets as --tt-index (cached groups are reused). Writes its seconds and
+    peak host memory as JSON (phase 16 starts on it). Then it starts phase
+    19's index build in a process of its own (never beside the group
+    builds, whose workers take most of the host's memory), builds phase
+    17's inputs (human_annotation_build) beside it, and exits with the
+    index build's code once that ends."""
     import resource
 
     sys.path.insert(0, REPO)
@@ -3218,7 +3256,10 @@ def human_build():
                 resource.RUSAGE_CHILDREN).ru_maxrss), f)
     os.replace(rec + ".tmp", rec)
     del gfm
+    bench = start_bench_build()
     human_annotation_build(codes, offsets, names, introns)
+    del codes
+    sys.exit(bench.wait())
 
 
 class HostPeak:
@@ -3274,13 +3315,13 @@ def phase_human(build, hg, grouped=None):
     (--no-coverage-search --tt-index, the default --max-index-bases: 2
     groups, chr1-11 and chr12-24, k = 13, sa_rate 4), on the group
     indexes the build child wrote (the phase starts once their record is
-    written; hg is human_genome()'s tuple). A run of 4,096 reads holds every
-    realign call against its plain version on up to 2,048 of its rows;
-    then a timed run of 16,384 reads records reads/s, stage seconds, group
-    swaps and their seconds, each group's FMIndex bytes on the card (with
-    phase 11's projection when `grouped` is given), peak device and host
-    memory, whether the genome axis started and every realign call's R,
-    E, L and q, its calls held after it the same way. Fails with other
+    written; hg is human_genome()'s tuple). A timed run of 16,384 reads
+    records reads/s, stage seconds, group swaps and their seconds, each
+    group's FMIndex bytes on the card (with phase 11's projection when
+    `grouped` is given), peak device and host memory, whether the genome
+    axis started and every realign call's R, E, L and q; its calls are
+    held after it against their plain version on up to 2,048 of their
+    rows. Fails with other
     than 2 groups, under 100% junction-read recall, with a designed
     intron missing from junctions.bed at its contig-local coordinates, a
     contiguous read not at its designed contig and POS, no read placed on
@@ -3316,17 +3357,13 @@ def phase_human(build, hg, grouped=None):
 
     t0 = time.time()
     codes, offsets, names, introns = hg
-    fqs, truths = {}, {}
-    for tag, seed, n in (("check", 81, HUMAN_CHECK_READS),
-                         ("steady", 82, HUMAN_READS)):
-        seqs, truths[tag] = human_reads(codes, offsets, introns, seed, n)
-        fqs[tag] = os.path.join(HUMAN_DIR, f"reads_{tag}.fq")
-        write_fastq(fqs[tag], seqs)
+    seqs, truth = human_reads(codes, offsets, introns, 82, HUMAN_READS)
+    fq = os.path.join(HUMAN_DIR, "reads_steady.fq")
+    write_fastq(fq, seqs)
     n_past_introns = sum(int(offsets[c] >= POS_2P31) for c, _, _ in introns)
     log(f"human-scale inputs: {int(offsets[-1])} bases, {len(names)} "
         f"contigs, {len(introns)} designed introns ({n_past_introns} on "
-        f"contigs past 2^31); {HUMAN_CHECK_READS} + {HUMAN_READS} reads "
-        f"({time.time() - t0:.1f} s)")
+        f"contigs past 2^31); {HUMAN_READS} reads ({time.time() - t0:.1f} s)")
     argv = lambda out, fq: (
         ["-o", out, "--no-coverage-search", "--tt-index", prefix]
         + (["--max-index-bases", str(HUMAN_MAX_INDEX_BASES)]
@@ -3358,23 +3395,6 @@ def phase_human(build, hg, grouped=None):
 
     cli_mod.build_grouped_fm = build_seen
     try:
-        check = PathCheck(max_rows=HUMAN_HOLD_ROWS)
-        out_check = os.path.join(HUMAN_DIR, "out_check")
-        t0 = time.time()
-        with RealignHooks(events, check):
-            cli_main_checked(cli_mod.main, argv(out_check, fqs["check"]))
-        check_s = time.time() - t0
-        log(f"human-scale check run: {check_s:.1f} s; realign exact in "
-            f"{len(check.shapes)} calls: " + ", ".join(check.shapes))
-        n_groups, msgs = runs[-1]
-        if n_groups != 2:
-            fail(f"human-scale run: {n_groups} contig groups, not 2")
-        if sum("reusing FM index" in m for m in msgs) != n_groups:
-            fail("the human-scale CLI run did not reuse the child's group "
-                 f"indexes: {msgs}")
-        checked = human_placement(out_check, names, offsets, introns,
-                                  truths["check"])
-
         clock = StageClock()
         clock.wrap(cli_mod, "read_fasta", "read_fasta")
         clock.wrap(cli_mod, "build_grouped_fm",
@@ -3408,7 +3428,7 @@ def phase_human(build, hg, grouped=None):
         t0 = time.time()
         try:
             with RealignHooks(events, on_timed), HostPeak() as host:
-                cli_main_checked(cli_mod.main, argv(out, fqs["steady"]))
+                cli_main_checked(cli_mod.main, argv(out, fq))
             torch.cuda.synchronize()
             wall = time.time() - t0
             launches = realign_launches()
@@ -3418,10 +3438,16 @@ def phase_human(build, hg, grouped=None):
     finally:
         FMIndex.to = to
         cli_mod.build_grouped_fm = build_fm
+    n_groups, msgs = runs[-1]
+    if n_groups != 2:
+        fail(f"human-scale run: {n_groups} contig groups, not 2")
+    if sum("reusing FM index" in m for m in msgs) != n_groups:
+        fail("the human-scale CLI run did not reuse the child's group "
+             f"indexes: {msgs}")
     stages = dict(clock.seconds)
     top = sum(v for k, v in stages.items() if not k.startswith(" "))
     stages["rest (FASTQ parse, prep, selection)"] = wall - top
-    placed = human_placement(out, names, offsets, introns, truths["steady"])
+    placed = human_placement(out, names, offsets, introns, truth)
     transfers = clock.calls.get("group loads and swaps (FMIndex.to)", 0)
     transfer_s = clock.seconds.get("group loads and swaps (FMIndex.to)", 0.0)
     groups = {}
@@ -3457,27 +3483,26 @@ def phase_human(build, hg, grouped=None):
     log(f"human-scale timed run: realign exact in {len(held.shapes)} calls "
         f"({time.time() - t0:.1f} s)")
     del kept
-    for tag, p in (("check", checked), ("timed", placed)):
-        log(f"human-scale {tag} run: junction-read recall "
-            f"{p['recall_pct']:.2f}%; designed introns found "
-            f"{len(introns) - len(p['missing_introns'])}/{len(introns)}; "
-            f"contiguous reads at their contig and POS "
-            f"{p['n_contiguous'] - len(p['misplaced'])}/{p['n_contiguous']}; "
-            f"{p['records_past_2p31']} records on contigs past 2^31 (largest "
-            f"global position {p['max_global_pos']})")
-        if p["recall_pct"] < 100.0:
-            fail(f"human-scale {tag} run: junction-read recall "
-                 f"{p['recall_pct']:.2f}% < 100%")
-        if p["missing_introns"]:
-            fail(f"human-scale {tag} run: designed introns missing from "
-                 f"junctions.bed: {p['missing_introns'][:8]}")
-        if p["misplaced"]:
-            fail(f"human-scale {tag} run: {len(p['misplaced'])} contiguous "
-                 f"reads not at their designed contig and POS, e.g. "
-                 f"{p['misplaced'][:8]}")
-        if not p["records_past_2p31"]:
-            fail(f"human-scale {tag} run: no read placed on a contig past "
-                 "2^31")
+    p = placed
+    log(f"human-scale timed run: junction-read recall "
+        f"{p['recall_pct']:.2f}%; designed introns found "
+        f"{len(introns) - len(p['missing_introns'])}/{len(introns)}; "
+        f"contiguous reads at their contig and POS "
+        f"{p['n_contiguous'] - len(p['misplaced'])}/{p['n_contiguous']}; "
+        f"{p['records_past_2p31']} records on contigs past 2^31 (largest "
+        f"global position {p['max_global_pos']})")
+    if p["recall_pct"] < 100.0:
+        fail(f"human-scale timed run: junction-read recall "
+             f"{p['recall_pct']:.2f}% < 100%")
+    if p["missing_introns"]:
+        fail(f"human-scale timed run: designed introns missing from "
+             f"junctions.bed: {p['missing_introns'][:8]}")
+    if p["misplaced"]:
+        fail(f"human-scale timed run: {len(p['misplaced'])} contiguous "
+             f"reads not at their designed contig and POS, e.g. "
+             f"{p['misplaced'][:8]}")
+    if not p["records_past_2p31"]:
+        fail("human-scale timed run: no read placed on a contig past 2^31")
     if launches[0] or not launches[1]:
         fail(f"the human-scale run launched the realign kernel's entries "
              f"{launches} (dense, sparse) times; it must take the sparse "
@@ -3489,13 +3514,13 @@ def phase_human(build, hg, grouped=None):
     return dict(genome_bases=int(offsets[-1]), n_contigs=len(names),
                 n_groups=built["n_groups"], build=built, build_wait_s=wait_s,
                 wall_s=wall, reads_per_s=HUMAN_READS / wall,
-                check_run_s=check_s, group_transfers=transfers,
+                group_transfers=transfers,
                 group_transfer_s=transfer_s, groups=groups,
                 peak_device_bytes=peak, host_peak_rss_bytes=host.bytes,
                 host_peak_lifetime=host.lifetime,
                 genome_axis_started=any(axis),
                 launches=launches, realign_calls=calls,
-                path_err=max(check.err, held.err), stages=stages,
+                path_err=held.err, stages=stages,
                 stage_calls=dict(clock.calls),
                 peak_stage=clock.peak_stage(peak),
                 recall_pct=placed["recall_pct"],
@@ -3802,11 +3827,11 @@ def phase_human_annotated(build, hg):
     codes, offsets, names, introns = hg
     fa, prefix, logf, _ = human_paths()
     gtf, tprefix, arec = human_annotation_paths()
-    rc = build.wait()
+    rc = wait_for_record(build, arec)
     wait_s = time.time() - t_phase
     with open(logf) as f:
         tail = f.read()[-3000:]
-    if rc != 0 or not os.path.exists(arec):
+    if rc not in (None, 0) or not os.path.exists(arec):
         fail(f"human-scale annotation build exited {rc}:\n{tail}")
     with open(arec) as f:
         built = json.load(f)
@@ -4055,7 +4080,6 @@ def phase_human_annotated(build, hg):
 
 # --------------------------------------------------------------- phase 18
 
-HUMAN_FUSION_CHECK_PAIRS = 4096
 HUMAN_FUSION_PAIRS = 16384
 BREAK_MARGIN = 2000         # phase 10's: partners this far from a contig
 #                             end (and here from every planted intron)
@@ -4165,13 +4189,14 @@ def phase_human_fusion(build, hg):
     fusions.out is recorded, not held. Pairs as make_fusion_pairs makes
     them (10% mate 1 across a within-group break, 10% around one, 20%
     mate 1 across a planted intron, 2% to the cross-group breaks, the rest
-    contiguous within a contig). A run of 4,096 pairs holds every realign
-    call against its plain version on up to 2,048 of its rows; a timed
-    run of 16,384 pairs records pairs/s, stage seconds (map, segments,
-    candidates, chains and realign, fusion stats, read_fasta, the group
-    load and each transfer), chain seconds per group, group swaps, E per
-    group, every realign call (held after the run the same way), peak
-    device and host memory; fusion-post records its seconds by stage.
+    contiguous within a contig). A timed run of 16,384 pairs records
+    pairs/s, stage seconds (map, segments, candidates, chains and
+    realign, fusion stats, read_fasta, the group load and each transfer),
+    chain seconds per group, group swaps, E per group, every realign call
+    (held after the run against its plain version on up to 2,048 of its
+    rows), peak device and host memory; fusion-post records its seconds
+    by stage. It runs once phase 16 has seen the group indexes, beside
+    the build child's phase-17 inputs.
     Fails with other than 2 groups, a group index built by either CLI,
     under 100% break-read or junction-read recall, a within-group
     designed break missing from fusions.out at its contigs and
@@ -4198,8 +4223,8 @@ def phase_human_fusion(build, hg):
     t_phase = time.time()
     codes, offsets, names, introns = hg
     fa, prefix, logf, _ = human_paths()
-    rc = build.wait()
-    if rc != 0:
+    rc = build.poll()
+    if rc not in (None, 0):
         fail(f"human-scale build child exited {rc}")
     max_bases = HUMAN_MAX_INDEX_BASES or MAX_GROUP_BASES
     groups = contig_group_ranges(Genome(codes=codes, offsets=offsets,
@@ -4219,27 +4244,22 @@ def phase_human_fusion(build, hg):
     where = human_break_groups(offsets, groups, breaks)
     planted = [(int(offsets[c]) + a, int(offsets[c]) + b)
                for c, a, b in introns]
-    reads = {}
-    for tag, seed, n in (("check", 111, HUMAN_FUSION_CHECK_PAIRS),
-                         ("steady", 112, HUMAN_FUSION_PAIRS)):
-        m1, m2, fused = make_fusion_pairs(codes, planted, breaks, seed, n,
-                                          offsets=offsets, cross=cross)
-        fqs = [os.path.join(HUMAN_DIR, f"fusion_{tag}_{k}.fq")
-               for k in (1, 2)]
-        write_fastq(fqs[0], m1, "p")
-        write_fastq(fqs[1], m2, "p")
-        inside = {i: v for i, v in fused.items() if v[:3] in breaks}
-        reads[tag] = (fqs, inside, {i: v for i, v in fused.items()
-                                    if v[:3] in cross})
+    m1, m2, fused = make_fusion_pairs(codes, planted, breaks, 112,
+                                      HUMAN_FUSION_PAIRS, offsets=offsets,
+                                      cross=cross)
+    fqs = [os.path.join(HUMAN_DIR, f"fusion_steady_{k}.fq") for k in (1, 2)]
+    write_fastq(fqs[0], m1, "p")
+    write_fastq(fqs[1], m2, "p")
+    inside = {i: v for i, v in fused.items() if v[:3] in breaks}
+    across = {i: v for i, v in fused.items() if v[:3] in cross}
     n_between = sum(int(np.searchsorted(offsets, a, side="right"))
                     != int(np.searchsorted(offsets, b, side="right"))
                     for _, a, b in breaks)
     log(f"human-scale fusion inputs: {len(breaks)} within-group breaks "
         f"({[sum(g == gi for g, _ in where) for gi in range(2)]} a group, "
         f"{sum(p for _, p in where)} past 2^31, {n_between} between two "
-        f"contigs), {len(cross)} across the groups; "
-        f"{HUMAN_FUSION_CHECK_PAIRS} + {HUMAN_FUSION_PAIRS} pairs "
-        f"({time.time() - t0:.1f} s)")
+        f"contigs), {len(cross)} across the groups; {HUMAN_FUSION_PAIRS} "
+        f"pairs ({time.time() - t0:.1f} s)")
     cap = (["--max-index-bases", str(HUMAN_MAX_INDEX_BASES)]
            if HUMAN_MAX_INDEX_BASES else [])
     argv = lambda out, fqs: ["-o", out] + FUSION_FLAGS + cap + [fa] + fqs
@@ -4305,10 +4325,8 @@ def phase_human_fusion(build, hg):
             for gi in range(len(groups))], past_2p31=sum(
             b in got and p for b, (_, p) in zip(breaks, where)))
 
-    def placed(out, tag):
-        fqs, inside, across = reads[tag]
-        n = HUMAN_FUSION_CHECK_PAIRS if tag == "check" else \
-            HUMAN_FUSION_PAIRS
+    def placed(out):
+        n = HUMAN_FUSION_PAIRS
         rb, rj, missing = fusion_recall(out, codes, breaks, inside, n,
                                         offsets, names)
         _, _, cross_missing = fusion_recall(out, codes, cross, across, n,
@@ -4331,17 +4349,6 @@ def phase_human_fusion(build, hg):
         fusion_post.build_kmer_map = functools.partial(
             build_kmer_map, max_bases=HUMAN_MAX_INDEX_BASES)
     try:
-        check = PathCheck(max_rows=HUMAN_HOLD_ROWS)
-        out_check = os.path.join(HUMAN_DIR, "fusion_check", "tophat_check")
-        t0 = time.time()
-        with RealignHooks(events, check):
-            cli_main_checked(cli_mod.main, argv(out_check,
-                                                reads["check"][0]))
-        check_s = time.time() - t0
-        log(f"human-scale fusion check run: {check_s:.1f} s; realign exact "
-            f"in {len(check.shapes)} calls: " + ", ".join(check.shapes))
-        checked = placed(out_check, "check")
-
         clock = StageClock()
         clock.wrap(cli_mod, "read_fasta", "read_fasta")
         clock.wrap(cli_mod, "build_grouped_fm",
@@ -4384,16 +4391,13 @@ def phase_human_fusion(build, hg):
 
         work = os.path.join(HUMAN_DIR, "fusion")
         out = os.path.join(work, "tophat_human")
-        del n_events[:], transfers[:]
-        chain_s[:] = [0.0] * len(groups)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         realign_launches(reset=True)
         t0 = time.time()
         try:
             with RealignHooks(events, on_timed), HostPeak() as host:
-                cli_main_checked(cli_mod.main, argv(out,
-                                                    reads["steady"][0]))
+                cli_main_checked(cli_mod.main, argv(out, fqs))
             torch.cuda.synchronize()
             wall = time.time() - t0
             launches = realign_launches()
@@ -4401,7 +4405,7 @@ def phase_human_fusion(build, hg):
             clock.restore()
         peak = torch.cuda.max_memory_allocated()
         run_transfers = list(transfers)
-        timed = placed(out, "steady")
+        timed = placed(out)
 
         post = StageClock()
         post.wrap(fusion_post, "read_fasta", "read_fasta")
@@ -4433,16 +4437,15 @@ def phase_human_fusion(build, hg):
         if HUMAN_MAX_INDEX_BASES:
             fusion_post.build_kmer_map = build_kmer_map
 
-    for k, (n_groups, msgs) in zip(("check run", "timed run",
-                                    "fusion-post"), runs):
+    for k, (n_groups, msgs) in zip(("timed run", "fusion-post"), runs):
         if n_groups != 2:
             fail(f"human-scale fusion {k}: {n_groups} contig groups, not 2")
         if sum("reusing FM index" in m for m in msgs) != n_groups:
             fail(f"human-scale fusion {k} built a group index instead of "
                  f"reusing the build child's: {msgs}")
-    if len(runs) != 3:
-        fail(f"human-scale fusion: {len(runs)} group index loads, not 3 "
-             "(check run, timed run, fusion-post)")
+    if len(runs) != 2:
+        fail(f"human-scale fusion: {len(runs)} group index loads, not 2 "
+             "(timed run, fusion-post)")
     stages = dict(clock.seconds)
     top = sum(v for k, v in stages.items() if not k.startswith(" "))
     stages["rest (FASTQ parse, prep, selection, pair grading, output)"] = \
@@ -4454,7 +4457,7 @@ def phase_human_fusion(build, hg):
     E, group_E = n_events[-1] if n_events else (0, [])
     res_found = found_in_result(os.path.join(
         work, "tophatfusion_out", "result.txt"), codes, breaks,
-        reads["steady"][1], offsets, names)
+        inside, offsets, names)
     result = tally(res_found)
     log(f"human-scale fusion timed run: {wall:.2f} s, "
         f"{HUMAN_FUSION_PAIRS / wall:.1f} pairs/s; E={E} (per group "
@@ -4487,22 +4490,22 @@ def phase_human_fusion(build, hg):
     for k, v in post_stages.items():
         log(f"  fusion-post stage {k}: {v:.3f} s"
             + calls_note(post.calls.get(k)))
-    for tag, p in (("check", checked), ("timed", timed)):
-        log(f"human-scale fusion {tag} run: break-read recall "
-            f"{p['recall_break_reads_pct']:.2f}%, junction-read recall "
-            f"{p['recall_junction_pct']:.2f}%; designed breaks in "
-            f"fusions.out {p['fusions_out']['n']} of {len(breaks)} (per "
-            f"group {p['fusions_out']['per_group']}, "
-            f"{p['fusions_out']['past_2p31']} past 2^31); cross-group "
-            f"breaks found {p['cross_found']} of {len(cross)}; "
-            f"{p['fusions_out_lines']} fusions.out lines")
-        if min(p["recall_break_reads_pct"], p["recall_junction_pct"]) < 100:
-            fail(f"human-scale fusion {tag} run: recall "
-                 f"{p['recall_break_reads_pct']:.2f}% (break reads), "
-                 f"{p['recall_junction_pct']:.2f}% (junction reads) < 100%")
-        if p["missing"]:
-            fail(f"human-scale fusion {tag} run: designed breaks missing "
-                 f"from fusions.out: {p['missing']}")
+    p = timed
+    log(f"human-scale fusion timed run: break-read recall "
+        f"{p['recall_break_reads_pct']:.2f}%, junction-read recall "
+        f"{p['recall_junction_pct']:.2f}%; designed breaks in "
+        f"fusions.out {p['fusions_out']['n']} of {len(breaks)} (per "
+        f"group {p['fusions_out']['per_group']}, "
+        f"{p['fusions_out']['past_2p31']} past 2^31); cross-group "
+        f"breaks found {p['cross_found']} of {len(cross)}; "
+        f"{p['fusions_out_lines']} fusions.out lines")
+    if min(p["recall_break_reads_pct"], p["recall_junction_pct"]) < 100:
+        fail(f"human-scale fusion timed run: recall "
+             f"{p['recall_break_reads_pct']:.2f}% (break reads), "
+             f"{p['recall_junction_pct']:.2f}% (junction reads) < 100%")
+    if p["missing"]:
+        fail(f"human-scale fusion timed run: designed breaks missing "
+             f"from fusions.out: {p['missing']}")
     if not result["n"]:
         fail("human-scale fusion-post: result.txt holds no designed break")
     if launches[0] or not launches[1]:
@@ -4518,15 +4521,14 @@ def phase_human_fusion(build, hg):
         breaks=len(breaks), breaks_past_2p31=sum(p for _, p in where),
         breaks_between_contigs=n_between, cross_group_breaks=len(cross),
         wall_s=wall, pairs_per_s=HUMAN_FUSION_PAIRS / wall,
-        check_run_s=check_s, events=E, group_events=group_E,
+        events=E, group_events=group_E,
         group_transfer_s=run_transfers, peak_device_bytes=peak,
         peak_stage=clock.peak_stage(peak),
         host_peak_rss_bytes=host.bytes, host_peak_lifetime=host.lifetime,
         genome_axis_started=any(axis), launches=launches,
-        realign_calls=calls, path_err=max(check.err, held.err),
+        realign_calls=calls, path_err=held.err,
         stages=stages, stage_calls=dict(clock.calls),
         chain_s_per_group=chain_s,
-        check={k: v for k, v in checked.items() if k != "missing"},
         timed={k: v for k, v in timed.items() if k != "missing"},
         post_s=post_s, post_stages=post_stages,
         post_stage_calls=dict(post.calls),
@@ -4534,6 +4536,500 @@ def phase_human_fusion(build, hg):
         post_peak_device_bytes=post_peak,
         post_host_peak_rss_bytes=post_host.bytes, result=result,
         phase_s=phase_s)
+
+
+# --------------------------------------------------------------- phase 19
+
+# bench.py's design point: a 1 Gbp genome (2^30 bases, seed 7) with a
+# k = 14 seed table and a full SA in one index (2^22 and k = 10 rehearse
+# it at 1/256)
+BENCH_N = 1 << 30
+BENCH_KMER_K = 14
+BENCH_SA_RATE = 0
+BENCH_SEED = 7
+BENCH_ITERS = 24            # timed batches, dispatched back to back
+BENCH_CLI_READS = 8192      # (b): the first reads of (c)'s timed set
+BENCH_SPLICED_READS = 32768
+BENCH_HOLD_ROWS = 2048      # rows of each realign call held
+BENCH_DIR = os.path.join(CACHE, "bench")
+BENCH_ALIGN = dict(max_mismatches=2, max_alignments=8, narrow_hits=6,
+                   wide_hits=32, resolve_cap=1, uniform_len=READ_LEN)
+
+
+def bench_paths():
+    """(FASTA, --tt-index prefix, the index build's log, its record)."""
+    tag = f"g{BENCH_N}_s{BENCH_SEED}_k{BENCH_KMER_K}_r{BENCH_SA_RATE}"
+    return tuple(os.path.join(BENCH_DIR, tag + x) for x in
+                 (".fa", "", ".build.log", ".build.json"))
+
+
+def bench_genome(n: int = 0):
+    """bench.py's genome: n (default BENCH_N) random codes of seed
+    BENCH_SEED. Drawn in chunks: the same stream as bench.py's one int64
+    draw, without its 8 bytes a base."""
+    n = n or BENCH_N
+    rng = np.random.default_rng(BENCH_SEED)
+    codes = np.empty(n, np.int8)
+    step = 1 << 24
+    for a in range(0, n, step):
+        codes[a:a + step] = rng.integers(0, 4, min(step, n - a))
+    return codes
+
+
+def bench_records(codes, juncs, seed: int, n_reads: int):
+    """bench.py's spliced reads (make_reads: 25% across one of `juncs`) as
+    the (name, sequence, quality) records batch_reads takes."""
+    from tophat_tpu_torch.index.fasta import decode_seq
+
+    return [(f"r{i}", decode_seq(x), b"I" * len(x))
+            for i, x in enumerate(make_reads(codes, juncs, seed, n_reads))]
+
+
+def start_bench_build():
+    """Start phase 19's index build (chip_smoke.py --bench-build) in a
+    fresh interpreter in this process's group. Returns the Popen."""
+    logf = bench_paths()[2]
+    os.makedirs(BENCH_DIR, exist_ok=True)
+    with open(logf, "w") as f:
+        return subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--bench-build",
+             str(BENCH_N), str(BENCH_KMER_K)],
+            stdout=f, stderr=subprocess.STDOUT, cwd=REPO)
+
+
+def bench_build():
+    """Phase 19's index build (chip_smoke.py --bench-build N K): the
+    genome's FASTA (one contig, chr1; reused when its size matches), then
+    the port's build_fm_index at the design point on the host, saved
+    where the CLI's --tt-index finds it (reused when its design matches),
+    then bench.py's 64 junctions and (b)'s FASTQ: the first
+    BENCH_CLI_READS of (c)'s timed reads. Writes its seconds, the file's
+    bytes, the junctions and its peak host memory as JSON (phase 19
+    starts on it)."""
+    sys.path.insert(0, REPO)
+    from tophat_tpu_torch.index.fm import build_fm_index
+
+    fa, prefix, _, rec = bench_paths()
+    index = prefix + ".tt.npz"
+    with HostPeak() as host:
+        t0 = time.time()
+        codes = bench_genome()
+        synth_s = time.time() - t0
+        t0 = time.time()
+        fresh_fasta = not (os.path.exists(fa) and os.path.getsize(fa)
+                           == fasta_bytes(np.array([0, len(codes)])))
+        if fresh_fasta:
+            write_fasta(fa + ".tmp", codes)
+            os.replace(fa + ".tmp", fa)
+        fasta_s = time.time() - t0
+        reused = False
+        if os.path.exists(index):
+            with np.load(index) as z:
+                reused = ((int(z["n"]), int(z["kmer_k"]), int(z["sa_rate"]))
+                          == (len(codes), BENCH_KMER_K, BENCH_SA_RATE))
+        build_s = save_s = 0.0
+        if not reused:
+            t0 = time.time()
+            fm = build_fm_index(codes, kmer_k=BENCH_KMER_K,
+                                sa_rate=BENCH_SA_RATE, device="cpu")
+            build_s = time.time() - t0
+            t0 = time.time()
+            fm.save(prefix + ".tt.tmp.npz")
+            os.replace(prefix + ".tt.tmp.npz", index)
+            save_s = time.time() - t0
+            del fm
+        t0 = time.time()
+        juncs = pick_junctions(codes)
+        write_fastq(prefix + ".cli.fq",
+                    make_reads(codes, juncs, 6, BENCH_CLI_READS))
+        reads_s = time.time() - t0
+    with open(rec + ".tmp", "w") as f:
+        json.dump(dict(
+            synth_s=synth_s, fasta_s=fasta_s, fresh_fasta=fresh_fasta,
+            reused=reused, build_s=build_s, save_s=save_s, reads_s=reads_s,
+            n=len(codes), kmer_k=BENCH_KMER_K, sa_rate=BENCH_SA_RATE,
+            file_bytes=os.path.getsize(index), juncs=juncs,
+            peak_rss_bytes=host.bytes, peak_lifetime=host.lifetime), f)
+    os.replace(rec + ".tmp", rec)
+
+
+def bench_unspliced(fm, codes):
+    """Phase 19 (a): bench.py's unspliced run on the resident index.
+    BENCH_ITERS + 1 batches of BATCH x READ_LEN on the card; one warm
+    batch, then the timed ones dispatched back to back under
+    torch.cuda.set_sync_debug_mode("error") with one final synchronize
+    (the in-program tier, its fixed wide pass included); then, on the
+    same batches, the exact call (the truncated rows read back once and
+    re-run) and the narrow tier alone with its truncated rows counted on
+    the host (which rows passed the wide budget)."""
+    import torch
+
+    from tophat_tpu_torch.ops.align import (align_reads, align_reads_adaptive,
+                                            kmer_fast_ok)
+
+    dev = fm.device
+    fast = kmer_fast_ok(fm, READ_LEN, 2)
+    if not fast:
+        fail("phase 19: the design point's index does not take the k-mer "
+             "seed path at 100 bp")
+    offsets = torch.tensor([0, fm.n], device=dev)
+    t0 = time.time()
+    batches = [tuple(torch.as_tensor(x, device=dev)
+                     for x in unspliced_batch(codes, 100 + i))
+               for i in range(BENCH_ITERS + 1)]
+    gen_s = time.time() - t0
+    run = lambda b, defer: align_reads_adaptive(
+        fm, *b, offsets, kmer_fast=fast, defer=defer, **BENCH_ALIGN)
+    warm = run(batches[0], True)
+    aligned = int((warm.n_hits > 0).sum())
+    if aligned < 0.99 * BATCH:
+        fail(f"phase 19: only {aligned}/{BATCH} reads of the warm batch "
+             "aligned")
+    run(batches[0], False)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        t0 = time.perf_counter()
+        deferred = [run(b, True) for b in batches[1:]]
+        dispatch_s = time.perf_counter() - t0
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    defer_s = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    exact = [run(b, False) for b in batches[1:]]
+    torch.cuda.synchronize()
+    exact_s = time.perf_counter() - t0
+
+    narrow = dict(BENCH_ALIGN, hits_per_seed=BENCH_ALIGN["narrow_hits"])
+    for k in ("narrow_hits", "wide_hits"):
+        del narrow[k]
+    truncated = []
+    t0 = time.perf_counter()
+    for b in batches[1:]:
+        al = align_reads(fm, *b, offsets, kmer_fast=fast, **narrow)
+        truncated.append(int(al.truncated.sum()))
+    torch.cuda.synchronize()
+    narrow_s = time.perf_counter() - t0
+
+    budget = max(BATCH // 8, 8)
+    overflow = sum(max(0, t - budget) for t in truncated)
+    chk_d = sum(int(o.n_hits.sum()) for o in deferred)
+    chk_e = sum(int(o.n_hits.sum()) for o in exact)
+    differ = still = 0
+    for d, e in zip(deferred, exact):
+        same = torch.ones_like(d.truncated)
+        for f in ("pos", "strand", "mm", "valid"):
+            same &= (getattr(d, f) == getattr(e, f)).all(1)
+        same &= (d.n_hits == e.n_hits) & (d.truncated == e.truncated)
+        differ += int((~same).sum())
+        if bool((~same & ~d.truncated).any()):
+            fail("phase 19: a deferred row that is not truncated differs "
+                 "from the exact call")
+        still += int(d.truncated.sum())
+    out = dict(
+        batches=BENCH_ITERS, batch=BATCH, warm_aligned=aligned,
+        deferred_reads_per_s=BENCH_ITERS * BATCH / defer_s,
+        exact_reads_per_s=BENCH_ITERS * BATCH / exact_s,
+        narrow_sync_reads_per_s=BENCH_ITERS * BATCH / narrow_s,
+        deferred_s=defer_s, deferred_dispatch_s=dispatch_s,
+        exact_s=exact_s, narrow_sync_s=narrow_s,
+        checksum_deferred=chk_d, checksum_exact=chk_e,
+        narrow_truncated_rows=truncated, wide_budget=budget,
+        overflow_rows=overflow, rows_differing=differ,
+        deferred_truncated_rows=still, batch_gen_s=gen_s)
+    log(f"phase 19 (a) unspliced, {BENCH_ITERS} batches of {BATCH} x "
+        f"{READ_LEN} bp, no host sync in the deferred loop: deferred "
+        f"{out['deferred_reads_per_s']:.1f} reads/s ({defer_s:.4f} s, "
+        f"{dispatch_s:.4f} s of it to dispatch), exact "
+        f"{out['exact_reads_per_s']:.1f} ({exact_s:.4f} s), the narrow tier "
+        f"alone with its count read back {out['narrow_sync_reads_per_s']:.1f} "
+        f"({narrow_s:.4f} s); warm batch {aligned}/{BATCH} aligned; "
+        f"checksum {chk_d} deferred, {chk_e} exact; narrow-tier truncated "
+        f"rows {sum(truncated)} (at most {max(truncated)} a batch, budget "
+        f"{budget}), {overflow} past the budget, {differ} rows differing")
+    if overflow:
+        log(f"phase 19 (a): {overflow} rows overflowed the wide budget; "
+            f"{differ} deferred rows differ from the exact call, all "
+            "flagged truncated")
+    elif chk_d != chk_e or differ:
+        fail(f"phase 19: the deferred checksum {chk_d} is not the exact "
+             f"call's {chk_e} though no row overflowed the budget")
+    return out
+
+
+def bench_spliced_pipeline(fm, codes, juncs):
+    """Phase 19 (c): bench.py's spliced run through run_pipeline on the
+    resident index: one warm run, then two timed runs of
+    BENCH_SPLICED_READS reads (the faster kept), each with stage seconds,
+    E, its realign calls, realign launches and peak device and host
+    memory; the first timed run's realign calls are held after it."""
+    import tempfile
+
+    import torch
+
+    from tophat_tpu_torch.index.fasta import Genome
+    from tophat_tpu_torch.io.fastq import batch_reads
+    from tophat_tpu_torch.ops import events
+    from tophat_tpu_torch.pipeline import run as run_mod
+    from tophat_tpu_torch.pipeline.params import Params
+
+    t0 = time.time()
+    genome = Genome(codes=codes, offsets=np.array([0, len(codes)]),
+                    names=["chr1"])
+    warm_batch = batch_reads(bench_records(codes, juncs, 5,
+                                           BENCH_SPLICED_READS))
+    steady = batch_reads(bench_records(codes, juncs, 6, BENCH_SPLICED_READS))
+    gen_s = time.time() - t0
+    params = Params(coverage_search=False)
+    quiet = lambda *a: None
+    root = tempfile.mkdtemp(prefix="bench_spliced_", dir=BENCH_DIR)
+    run_mod.run_pipeline(genome, warm_batch, params,
+                         os.path.join(root, "warm"), fm=fm, log=quiet,
+                         device=fm.device)
+    runs = []
+    for trial in range(2):
+        clock = StageClock()
+        clock.wrap(run_mod, "_align_mate", "full-read align (prep, align, "
+                   "transfer)")
+        clock.wrap(run_mod, "align_reads_adaptive",
+                   "  of which align_reads_adaptive")
+        clock.wrap(run_mod, "_spliced_mate", "segments + stitch")
+        clock.wrap(run_mod, "discover_events", "discovery")
+        clock.wrap(run_mod, "candidates_for_mate",
+                   "candidates (realign, collect, chains)")
+        clock.wrap(run_mod, "realign_events_sparse",
+                   "  of which realign, sparse")
+        clock.wrap(run_mod, "default_chains", "  of which default chains")
+        clock.wrap(run_mod, "accumulate_event_stats", "stats + filter")
+        clock.wrap(run_mod, "filter_junctions", "stats + filter")
+        clock.wrap(run_mod, "_select", "selection")
+        clock.wrap(run_mod, "write_outputs", "output")
+        kept, calls = [], []
+        keep = keep_calls(kept)
+
+        def on_call(kind, args, got):
+            calls.append(realign_call_shape(kind, args))
+            if trial == 0:
+                keep(kind, args, got)
+
+        out = os.path.join(root, f"steady{trial}")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        realign_launches(reset=True)
+        t0 = time.time()
+        try:
+            with RealignHooks(events, on_call), HostPeak() as host:
+                res = run_mod.run_pipeline(genome, steady, params, out,
+                                           fm=fm, log=quiet,
+                                           device=fm.device)
+            torch.cuda.synchronize()
+            wall = time.time() - t0
+            launches = realign_launches()
+        finally:
+            clock.restore()
+        peak = torch.cuda.max_memory_allocated()
+        stages = dict(clock.seconds)
+        top = sum(v for k, v in stages.items() if not k.startswith(" "))
+        stages["rest (prep of the batch, merges)"] = wall - top
+        recall = junction_recall(os.path.join(out, "accepted_hits.sam"),
+                                 BENCH_SPLICED_READS)
+        runs.append(dict(
+            wall_s=wall, reads_per_s=BENCH_SPLICED_READS / wall,
+            recall_pct=recall, events=len(res["events"]["left"]),
+            launches=launches, realign_calls=calls, stages=stages,
+            stage_calls=dict(clock.calls), peak_device_bytes=peak,
+            peak_stage=clock.peak_stage(peak),
+            host_peak_rss_bytes=host.bytes,
+            host_peak_lifetime=host.lifetime))
+        del res
+        if trial == 0:
+            held = PathCheck(max_rows=BENCH_HOLD_ROWS)
+            for kind, args, got in kept:
+                held(kind, args, got)
+            del kept
+    best = min(runs, key=lambda r: r["wall_s"])
+    for i, r in enumerate(runs):
+        log(f"phase 19 (c) run_pipeline, timed run {i}: {r['wall_s']:.3f} "
+            f"s, {r['reads_per_s']:.1f} reads/s; junction-read recall "
+            f"{r['recall_pct']:.2f}%; E={r['events']}; realign launches "
+            f"{r['launches']} (dense, sparse): " + ", ".join(
+                r["realign_calls"])
+            + f"; peak device memory {r['peak_device_bytes'] / 2**30:.3f} "
+            f"GiB (reached by the end of {r['peak_stage']!r}); host peak "
+            f"RSS {r['host_peak_rss_bytes'] / 2**30:.2f} GiB"
+            + (" (the process's lifetime peak)" if r["host_peak_lifetime"]
+               else ""))
+        for k, v in r["stages"].items():
+            log(f"  stage {k}: {v:.3f} s"
+                + calls_note(r["stage_calls"].get(k)))
+        if r["recall_pct"] < 100.0:
+            fail(f"phase 19 (c): junction-read recall "
+                 f"{r['recall_pct']:.2f}% < 100%")
+        if r["launches"][0] or not r["launches"][1]:
+            fail(f"phase 19 (c) launched the realign kernel's entries "
+                 f"{r['launches']} (dense, sparse) times; it must take the "
+                 "sparse entry only")
+    log(f"phase 19 (c): realign exact in {len(held.shapes)} calls: "
+        + ", ".join(held.shapes))
+    return dict(best, runs=runs, read_gen_s=gen_s, path_err=held.err)
+
+
+def bench_cli():
+    """Phase 19 (b): the single-end CLI (--no-coverage-search --tt-index)
+    on the design point's FASTA and the index build's index and FASTQ: it must
+    reuse the index and build none; every realign call is held against
+    its plain version on up to BENCH_HOLD_ROWS of its rows after the run.
+    Returns (its record, the index its FMIndex.load put on the card, which
+    (a) and (c) then use: one load for the phase)."""
+    import torch
+
+    from tophat_tpu_torch.cli import main as cli_mod
+    from tophat_tpu_torch.index.fm import FMIndex
+    from tophat_tpu_torch.ops import events
+
+    fa, prefix, _, _ = bench_paths()
+    fq = prefix + ".cli.fq"
+    out = os.path.join(BENCH_DIR, "out_cli")
+    builds, loaded = [], []
+    build_fm = cli_mod.build_fm_index
+    saved_load = FMIndex.__dict__["load"]
+    load = FMIndex.load
+
+    def build_seen(*a, **k):
+        builds.append(1)
+        return build_fm(*a, **k)
+
+    def load_kept(*a, **k):
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        fm = load(*a, **k)
+        torch.cuda.synchronize()
+        loaded.append((fm, time.perf_counter() - t0,
+                       torch.cuda.memory_allocated() - before))
+        return fm
+
+    clock = StageClock()
+    clock.wrap(cli_mod, "read_fasta", "read_fasta")
+    kept, calls = [], []
+    keep = keep_calls(kept)
+
+    def on_call(kind, args, got):
+        calls.append(realign_call_shape(kind, args))
+        keep(kind, args, got)
+
+    cli_mod.build_fm_index = build_seen
+    FMIndex.load = load_kept
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    realign_launches(reset=True)
+    t0 = time.time()
+    try:
+        with RealignHooks(events, on_call), HostPeak() as host:
+            cli_main_checked(cli_mod.main, ["-o", out, "--no-coverage-search",
+                                            "--tt-index", prefix, fa, fq])
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        launches = realign_launches()
+    finally:
+        cli_mod.build_fm_index = build_fm
+        FMIndex.load = saved_load
+        clock.restore()
+    peak = torch.cuda.max_memory_allocated()
+    with open(os.path.join(out, "logs", "tophat.log")) as f:
+        reused = "genome FM index: reusing" in f.read()
+    if builds or not reused or len(loaded) != 1:
+        fail(f"phase 19 (b): the CLI built {len(builds)} index(es), loaded "
+             f"{len(loaded)} and {'reused' if reused else 'did not reuse'} "
+             f"{prefix}.tt.npz")
+    fm, load_s, on_card = loaded[0]
+    held = PathCheck(max_rows=BENCH_HOLD_ROWS)
+    for kind, args, got in kept:
+        held(kind, args, got)
+    del kept
+    recall = junction_recall(os.path.join(out, "accepted_hits.sam"),
+                             BENCH_CLI_READS)
+    read_s = clock.seconds.get("read_fasta", 0.0)
+    log(f"phase 19 (b) CLI: {wall:.2f} s, {BENCH_CLI_READS / wall:.1f} "
+        f"reads/s (read_fasta {read_s:.3f} s, FMIndex.load {load_s:.3f} s); "
+        f"index reused, none built; junction-read recall {recall:.2f}%; "
+        f"realign launches {launches} (dense, sparse); peak device memory "
+        f"{peak / 2**30:.3f} GiB, host peak RSS {host.bytes / 2**30:.2f} GiB"
+        + (" (the process's lifetime peak)" if host.lifetime else "")
+        + f"; realign exact in {len(held.shapes)} calls: "
+        + ", ".join(held.shapes))
+    if recall < 100.0:
+        fail(f"phase 19 (b): junction-read recall {recall:.2f}% < 100%")
+    if launches[0] or not launches[1]:
+        fail(f"phase 19 (b) launched the realign kernel's entries "
+             f"{launches} (dense, sparse) times; it must take the sparse "
+             "entry only")
+    return dict(wall_s=wall, reads_per_s=BENCH_CLI_READS / wall,
+                recall_pct=recall, read_fasta_s=read_s, load_s=load_s,
+                index_bytes_on_card=on_card, launches=launches,
+                realign_calls=calls, peak_device_bytes=peak,
+                host_peak_rss_bytes=host.bytes,
+                host_peak_lifetime=host.lifetime, path_err=held.err), fm
+
+
+def phase_bench(build):
+    """bench.py's design point on the card: one index over a 2^30-base
+    genome (seed 7) with a k = 14 seed table and a full SA, built on the
+    host by the port's build_fm_index in a process of its own
+    (bench_build, started by the human build child once its groups are
+    built). (b) the CLI loads it; (a) and (c) then run on that index,
+    which is the one copy on the card."""
+    import torch
+
+    t_phase = time.time()
+    fa, prefix, logf, rec = bench_paths()
+    rc = wait_for_record(build, rec)
+    wait_s = time.time() - t_phase
+    with open(logf) as f:
+        tail = f.read()[-3000:]
+    if rc not in (None, 0) or not os.path.exists(rec):
+        fail(f"phase 19's index build exited {rc}:\n{tail}")
+    with open(rec) as f:
+        built = json.load(f)
+    fasta = "written" if built["fresh_fasta"] else "reused"
+    log(f"phase 19 index build: genome {built['synth_s']:.1f} s, FASTA "
+        f"{built['fasta_s']:.1f} s ({fasta}), "
+        + ("index reused from .smoke_cache/" if built["reused"] else
+           f"index built in {built['build_s']:.1f} s and saved in "
+           f"{built['save_s']:.1f} s")
+        + f" ({built['file_bytes'] / 1e9:.3f} GB on disk), junctions and "
+        f"reads {built['reads_s']:.1f} s; peak host memory "
+        f"{built['peak_rss_bytes'] / 2**30:.2f} GiB"
+        + (" (lifetime)" if built["peak_lifetime"] else "")
+        + f"; phase 19 waited {wait_s:.1f} s for it")
+
+    cli, fm = bench_cli()
+    tables = fm_table_bytes(fm)
+    design = (fm.n, fm.kmer_k, fm.sa_rate, fm.sa.numel())
+    log(f"phase 19 index: n={fm.n}, k={fm.kmer_k}, sa_rate={fm.sa_rate}, "
+        f"SA of {fm.sa.numel()} rows; {cli['index_bytes_on_card'] / 2**30:.3f}"
+        f" GiB on the card (tables {sum(tables.values()) / 2**30:.3f} GiB: "
+        + ", ".join(f"{k} {v / 2**30:.3f}" for k, v in tables.items()
+                    if v >= 2**26) + ")")
+    if design != (BENCH_N, BENCH_KMER_K, BENCH_SA_RATE, BENCH_N + 1):
+        fail(f"phase 19: the index is (n, k, sa_rate, SA rows) {design}, not "
+             f"the design point {(BENCH_N, BENCH_KMER_K, BENCH_SA_RATE)}")
+    codes = fm.genome_host
+    juncs = [tuple(j) for j in built["juncs"]]
+    unspliced = bench_unspliced(fm, codes)
+    spliced = bench_spliced_pipeline(fm, codes, juncs)
+    del fm
+    phase_s = time.time() - t_phase
+    log(f"phase 19 took {phase_s:.1f} s")
+    return dict(
+        build={k: v for k, v in built.items() if k != "juncs"},
+        build_wait_s=wait_s, index_table_bytes=tables,
+        junctions=len(juncs), cli=cli, unspliced=unspliced, spliced=spliced,
+        launches=tuple(a + b for a, b in zip(spliced["launches"],
+                                             cli["launches"])),
+        path_err=max(spliced["path_err"], cli["path_err"]), phase_s=phase_s)
 
 
 def main():
@@ -4585,12 +5081,13 @@ def main():
                                     spliced["index"])
     hg = human_genome()
     human = phase_human(human_build_child, hg, grouped)
-    human_annotated = phase_human_annotated(human_build_child, hg)
     fusion_human = phase_human_fusion(human_build_child, hg)
+    human_annotated = phase_human_annotated(human_build_child, hg)
     del hg
+    bench = phase_bench(human_build_child)
     path_phases = (spliced, paired, annotated, bowtie2, fusion, fusion_gtf,
                    grouped, mesh, long_reads, long_single, human,
-                   human_annotated, fusion_human)
+                   human_annotated, fusion_human, bench)
     log(f"smoke phases done in {time.time() - t_start:.1f} s")
 
     print(json.dumps({
@@ -4605,7 +5102,8 @@ def main():
         "fusion_gtf": fusion_gtf, "grouped": grouped, "mesh": mesh,
         "long_reads": long_reads, "long_single": long_single,
         "human_scale": human, "human_annotated": human_annotated,
-        "fusion_human": fusion_human, "seconds": time.time() - t_start}),
+        "fusion_human": fusion_human, "bench_design_point": bench,
+        "seconds": time.time() - t_start}),
         flush=True)
     main_case = next(k for k in kernels if (k["R"], k["E"], k["L"], k["q"])
                      == (8192, 69, 100, 0))     # the main path's shape
@@ -4628,7 +5126,11 @@ def main():
 
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--human-build"]:
-        HUMAN_PER_MBP, HUMAN_MAX_INDEX_BASES = map(int, sys.argv[2:4])
+        (HUMAN_PER_MBP, HUMAN_MAX_INDEX_BASES, BENCH_N,
+         BENCH_KMER_K) = map(int, sys.argv[2:6])
         human_build()
+    elif sys.argv[1:2] == ["--bench-build"]:
+        BENCH_N, BENCH_KMER_K = map(int, sys.argv[2:4])
+        bench_build()
     else:
         main()

@@ -1,7 +1,9 @@
 """Unspliced aligner parity: the packed mismatch count (dual and plain
 genome pack, with and without the N mask), align_reads_adaptive (every
-Alignments field, both tiers and the over-budget rows), align_forward_rows
-and the host transfer, against the JAX package — exact equality."""
+Alignments field, both tiers and the over-budget rows; the in-program
+wide tier with wide_budget, defer and uniform_len, and no host sync in
+the deferred call), align_forward_rows and the host transfer, against the
+JAX package — exact equality."""
 
 import numpy as np
 import pytest
@@ -121,6 +123,151 @@ def test_align_reads_adaptive_matches(kmer_k, variable):
         if a.ndim == 2:
             a, b = np.where(ht.valid, a, 0), np.where(want.valid, b, 0)
         np.testing.assert_array_equal(a, b, err_msg=f)
+
+
+def _repeat_genome(seed=29, n=20000):
+    """Random genome with an N run, a 150-bp block repeated 12 times (its
+    reads truncate the narrow tier and resolve in the wide one) and
+    another repeated 40 times (they truncate both)."""
+    rng = np.random.default_rng(seed)
+    c = rng.integers(0, 4, n).astype(np.int8)
+    c[5000:5030] = 4
+    for base, copies in ((6000, 12), (9000, 40)):
+        block = rng.integers(0, 4, 150).astype(np.int8)
+        for k in range(copies):
+            c[base + 200 * k:base + 200 * k + 150] = block
+    return c
+
+
+def _repeat_batch(codes, B=96, L=60, seed=31):
+    """B reads of L bp: a quarter from the 12-copy block, an eighth from
+    the 40-copy one (more truncated rows than any wide budget here), the
+    rest anywhere; up to 2 substitutions, odd rows reverse-complemented."""
+    from tophat_tpu.ops.align import pad_reads
+
+    rng = np.random.default_rng(seed)
+    seqs = []
+    for b in range(B):
+        if b % 4 == 0:
+            s = 6000 + 200 * int(rng.integers(0, 12))
+        elif b % 8 == 1:
+            s = 9000 + 200 * int(rng.integers(0, 40))
+        if b % 4 == 0 or b % 8 == 1:
+            s += int(rng.integers(0, 90))
+        else:
+            s = int(rng.integers(0, len(codes) - L))
+        seq = codes[s:s + L].copy()
+        for _ in range(int(rng.integers(0, 3))):
+            p = int(rng.integers(0, L))
+            seq[p] = (seq[p] + 1) % 4
+        if b % 2:
+            seq = seq[::-1]
+            seq = np.where(seq < 4, 3 - seq, 4).astype(np.int8)
+        seqs.append(seq)
+    return pad_reads(seqs, max_len=L)
+
+
+@pytest.mark.parametrize("wide_budget", [0, 8], ids=["budget-default",
+                                                     "budget-8"])
+@pytest.mark.parametrize("uniform", [False, True], ids=["any-len",
+                                                        "uniform-len"])
+@pytest.mark.parametrize("defer", [False, True], ids=["exact", "defer"])
+def test_adaptive_in_program_tier_matches(defer, uniform, wide_budget):
+    """The in-program wide tier (no mesh, resolve_cap set) against JAX's
+    _align_adaptive_jit path: every field equal, truncated included, on a
+    batch whose truncated rows overflow the wide budget (default
+    max(B // 8, 8) = 12, or 8). Deferred, the overflow rows come back as
+    the narrow tier left them, flagged truncated; exact, they are re-run
+    and the result equals the exact call's."""
+    from tophat_tpu.index.fm import build_fm_index
+    from tophat_tpu.ops.align import align_reads_adaptive as jalign
+    from tophat_tpu_torch.index.fm import FMIndex
+    from tophat_tpu_torch.ops.align import (align_reads_adaptive,
+                                            kmer_fast_ok)
+
+    codes = _repeat_genome()
+    jfm = build_fm_index(codes, kmer_k=6)
+    fm = FMIndex.from_numpy(jfm, device="cpu")
+    L = 60
+    rf, rr, lens = _repeat_batch(codes, L=L)
+    offsets = np.array([0, 12000, len(codes)], np.int32)  # two contigs
+    assert kmer_fast_ok(fm, L, 2)
+    kw = dict(max_mismatches=2, max_alignments=64, kmer_fast=True,
+              narrow_hits=8, wide_hits=32, resolve_cap=1,
+              uniform_len=L if uniform else 0, wide_budget=wide_budget)
+    want = jalign(jfm, rf, rr, lens, offsets, defer=defer, **kw)
+    got = align_reads_adaptive(fm, rf, rr, lens, offsets, defer=defer, **kw)
+    for f in FIELDS:
+        np.testing.assert_array_equal(getattr(got, f).numpy(),
+                                      np.asarray(getattr(want, f)),
+                                      err_msg=f)
+    exact = align_reads_adaptive(fm, rf, rr, lens, offsets,
+                                 **dict(kw, uniform_len=0, wide_budget=0))
+    differ = ~(got.n_hits == exact.n_hits) | (got.truncated
+                                               != exact.truncated)
+    if defer:           # the overflow rows: still truncated, narrow hits
+        assert differ.sum() > 0 and bool(got.truncated[differ].all())
+    else:
+        assert not differ.any()
+    assert (exact.n_hits == 12).sum() >= 12     # resolved by the wide tier
+    assert ((exact.n_hits > 0) & ~exact.truncated).sum() > 48
+
+
+def test_deferred_adaptive_makes_no_host_sync(monkeypatch):
+    """align_reads_adaptive(defer=True) on device tensors reads nothing
+    back: with every host read-back patched to raise (torch.nonzero,
+    Tensor.item/.cpu/.tolist/.numpy, bool/int/float of a tensor, and a
+    boolean-mask index, which counts its rows on the host) the deferred
+    call runs, while the exact call raises at its re-run of the overflow
+    rows."""
+    import torch
+
+    from tophat_tpu.index.fm import build_fm_index
+    from tophat_tpu_torch.index.fm import FMIndex
+    from tophat_tpu_torch.ops.align import align_reads_adaptive
+
+    codes = _repeat_genome()
+    fm = FMIndex.from_numpy(build_fm_index(codes, kmer_k=6), device="cpu")
+    L = 60
+    args = [torch.as_tensor(x) for x in _repeat_batch(codes, L=L)]
+    offsets = torch.tensor([0, 12000, len(codes)])
+    kw = dict(max_mismatches=2, max_alignments=8, kmer_fast=True,
+              narrow_hits=6, wide_hits=32, resolve_cap=1, uniform_len=L)
+    want = align_reads_adaptive(fm, *args, offsets, defer=True, **kw)
+
+    def sync(*a, **k):
+        raise AssertionError("host sync")
+
+    def masked(index):
+        items = index if isinstance(index, tuple) else (index,)
+        return any(torch.is_tensor(i) and i.dtype == torch.bool
+                   for i in items)
+
+    get, put = torch.Tensor.__getitem__, torch.Tensor.__setitem__
+
+    def getitem(self, index):
+        if masked(index):
+            sync()
+        return get(self, index)
+
+    def setitem(self, index, value):
+        if masked(index):
+            sync()
+        return put(self, index, value)
+
+    monkeypatch.setattr(torch, "nonzero", sync)
+    for name in ("nonzero", "item", "cpu", "tolist", "numpy", "__bool__",
+                 "__int__", "__float__"):
+        monkeypatch.setattr(torch.Tensor, name, sync)
+    monkeypatch.setattr(torch.Tensor, "__getitem__", getitem)
+    monkeypatch.setattr(torch.Tensor, "__setitem__", setitem)
+    got = align_reads_adaptive(fm, *args, offsets, defer=True, **kw)
+    with pytest.raises(AssertionError, match="host sync"):
+        align_reads_adaptive(fm, *args, offsets, defer=False, **kw)
+    monkeypatch.undo()
+    for f in FIELDS:
+        assert torch.equal(getattr(got, f), getattr(want, f)), f
+    assert bool(got.truncated.any())
 
 
 def test_align_forward_rows_matches():

@@ -380,9 +380,9 @@ def test_kmer_map_keeps_placements_of_both_groups(tmp_path):
 def test_human_fusion_design_matches_jax(tmp_path, monkeypatch):
     """chip_smoke.py's phase 18 at 1/1,000 of its ladder (3,093,000 bases,
     24 contigs): its designed breaks (12 within each of the 2 groups,
-    half between two contigs; 4 across the groups) and its check run's
-    4,096 pairs through both packages' CLIs with TopHat-Fusion's flags,
-    --max-index-bases cutting at chr12 as the default cuts the full
+    half between two contigs; 4 across the groups) and 4,096 pairs of its
+    design (seed 111) through both packages' CLIs with TopHat-Fusion's
+    flags, --max-index-bases cutting at chr12 as the default cuts the full
     ladder: identical files, the phase's checks pass on them, and no
     cross-group break is found (the reference's limit). Then the port's
     fusion-post over the run's 2 group indexes against its fusion-post
@@ -415,7 +415,7 @@ def test_human_fusion_design_matches_jax(tmp_path, monkeypatch):
     breaks, cross = cs.pick_human_breaks(offsets, introns, groups)
     planted = [(int(offsets[c]) + a, int(offsets[c]) + b)
                for c, a, b in introns]
-    n = cs.HUMAN_FUSION_CHECK_PAIRS
+    n = 4096
     m1, m2, fused = cs.make_fusion_pairs(codes, planted, breaks, 111, n,
                                          offsets=offsets, cross=cross)
     fa = str(tmp_path / "hs.fa")

@@ -763,3 +763,57 @@ def test_paired_cli_on_card_mesh_matches_one_device(cuda, tmp_path,
               "deletions.bed", "align_summary.txt"):
         assert (tmp_path / "one" / f).read_bytes() == \
             (tmp_path / "mesh" / f).read_bytes(), f
+
+
+@pytest.mark.gpu
+def test_deferred_adaptive_on_card_matches_cpu(cuda):
+    """align_reads_adaptive with bench.py's arguments (narrow 6, wide 32,
+    resolve_cap 1, uniform_len, defer) on a 2^21-base genome with a k = 10
+    seed table and repeat families whose truncated rows overflow the wide
+    budget: the deferred call on the card makes no host sync (it runs
+    under set_sync_debug_mode("error")) and equals the CPU's deferred
+    call field for field; the exact calls agree too."""
+    from tophat_tpu_torch.index.fm import build_fm_index
+    from tophat_tpu_torch.ops.align import align_reads_adaptive, pad_reads
+
+    rng = np.random.default_rng(41)
+    n, L, B = 1 << 21, 100, 4096
+    codes = rng.integers(0, 4, n).astype(np.int8)
+    for base, copies in ((100_000, 12), (400_000, 40)):
+        block = rng.integers(0, 4, 300).astype(np.int8)
+        for k in range(copies):
+            codes[base + 400 * k:base + 400 * k + 300] = block
+    seqs = []
+    for b in range(B):
+        if b % 4 == 0:              # 1,024 repeat rows: budget 512
+            base, copies = ((100_000, 12), (400_000, 40))[b % 8 // 4]
+            s = base + 400 * int(rng.integers(0, copies)) + int(
+                rng.integers(0, 200))
+        else:
+            s = int(rng.integers(0, n - L))
+        seq = codes[s:s + L].copy()
+        for _ in range(2):
+            p = int(rng.integers(0, L))
+            seq[p] = (seq[p] + int(rng.integers(1, 4))) % 4
+        seqs.append(seq if b % 2 else (3 - seq[::-1]).astype(np.int8))
+    host = [torch.as_tensor(x) for x in pad_reads(seqs)]
+    fm_cpu = build_fm_index(codes, kmer_k=10, device="cpu")
+    fm = fm_cpu.to(cuda)
+    kw = dict(max_mismatches=2, max_alignments=8, kmer_fast=True,
+              narrow_hits=6, wide_hits=32, resolve_cap=1, uniform_len=L)
+    offs = torch.tensor([0, n])
+    dev_args = [x.to(cuda) for x in host] + [offs.to(cuda)]
+    fields = ("pos", "strand", "mm", "valid", "n_hits", "truncated")
+    for defer in (True, False):
+        want = align_reads_adaptive(fm_cpu, *host, offs, defer=defer, **kw)
+        torch.cuda.synchronize()
+        if defer:
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            got = align_reads_adaptive(fm, *dev_args, defer=defer, **kw)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        for f in fields:
+            assert torch.equal(getattr(got, f).cpu(), getattr(want, f)), f
+        if defer:
+            assert int(got.truncated.sum()) > 0

@@ -144,7 +144,9 @@ class FMIndex:
             genome_host=np.asarray(fm_np.genome).astype(np.int8))
 
     def save(self, path: str) -> None:
-        tables = {k: getattr(self, k).cpu().numpy().astype(dt)
+        # copy=False: a host index's tables go out as they are (a 2^30-base
+        # index's 4 GiB SA is not copied); uint32 words narrow from int64
+        tables = {k: getattr(self, k).cpu().numpy().astype(dt, copy=False)
                   for k, dt in TABLES.items()}
         np.savez(path, **tables, primary=np.int32(self.primary), n=self.n,
                  kmer_k=self.kmer_k, sa_rate=self.sa_rate, has_n=self.has_n,

@@ -77,10 +77,26 @@ def _piece_queries(reads, lengths, num_pieces: int, piece_len: int):
     return torch.where(ok, q, -1), s, plen
 
 
-def _fast_seed_intervals(fm, reads, lengths, P: int, span: int):
+def _key_window(reads, end: int, k: int):
+    """(B, k) codes at columns end-1, end-2, ..., end-k of every row, the
+    k-mer window of a piece ending at `end`: a reversed column slice, or
+    clamped columns where the window leaves the row."""
+    L = reads.shape[1]
+    if k <= end <= L:
+        return reads[:, end - k:end].flip(1)
+    cols = (end - 1 - torch.arange(k, device=reads.device)).clamp(0, L - 1)
+    return reads[:, cols]
+
+
+def _fast_seed_intervals(fm, reads, lengths, P: int, span: int,
+                         uniform_len: int = 0):
     """SA intervals for the last `span` characters of each of the P
     pigeonhole pieces, via the k-mer table. Requires span >= k and every
     piece length >= span (kmer_fast_ok).
+
+    uniform_len: the read length when every row has it. The piece
+    boundaries are then Python ints, and the key bases come from column
+    slices instead of a row-wise gather.
 
     Returns (lo, hi, cand_base): (B, P) interval bounds and the candidate
     read-start offset base (piece_end - span)."""
@@ -88,25 +104,37 @@ def _fast_seed_intervals(fm, reads, lengths, P: int, span: int):
     B, L = reads.shape
     dev = reads.device
     j = torch.arange(1, P + 1, device=dev)
-    e = (j[None, :] * lengths[:, None]) // P           # piece ends (B, P)
-    s = ((j - 1)[None, :] * lengths[:, None]) // P
     t_off = torch.arange(k, device=dev)
-    cols = e[:, :, None] - 1 - t_off[None, None, :]     # (B, P, k)
-    x = torch.gather(reads.long(), 1,
-                     cols.clamp(0, L - 1).reshape(B, P * k)).reshape(B, P, k)
-    pw = 4 ** torch.arange(k, device=dev)
+    if uniform_len:
+        ends = [(jj * uniform_len) // P for jj in range(1, P + 1)]
+        e = ((j * uniform_len) // P)[None, :]
+        s = (((j - 1) * uniform_len) // P)[None, :]
+        x = torch.stack([_key_window(reads, ee, k) for ee in ends],
+                        dim=1).long()                   # (B, P, k)
+        cols = e[:, :, None] - 1 - t_off[None, None, :]
+    else:
+        e = (j[None, :] * lengths[:, None]) // P       # piece ends (B, P)
+        s = ((j - 1)[None, :] * lengths[:, None]) // P
+        cols = e[:, :, None] - 1 - t_off[None, None, :]  # (B, P, k)
+        x = torch.gather(reads.long(), 1, cols.clamp(0, L - 1).reshape(
+            B, P * k)).reshape(B, P, k)
+    pw = 4 ** t_off
     key_e = (x.clamp(0, 3) * pw).sum(dim=2)
     kok = ((x >= 0) & (x <= 3) & (cols >= 0)).all(dim=2)
     ok = kok & (e - s >= span) & (e >= span)
-    lo = torch.where(ok, fm.kmer_lo.long()[key_e], 0)
-    hi = torch.where(ok, fm.kmer_hi.long()[key_e], 0)
+    lo = torch.where(ok, fm.kmer_lo[key_e].long(), 0)
+    hi = torch.where(ok, fm.kmer_hi[key_e].long(), 0)
     if span > k:
         # extend the table interval by the span-k characters preceding the
         # k-mer window (backward search continues leftward)
         C = fm.C.long()
         b_idx = torch.arange(B, device=dev)[:, None]
         for t in range(span - k):
-            c = reads[b_idx, (e - k - 1 - t).clamp(0, L - 1)].long()
+            if uniform_len:
+                c = torch.stack([reads[:, min(max(ee - k - 1 - t, 0), L - 1)]
+                                 for ee in ends], dim=1).long()
+            else:
+                c = reads[b_idx, (e - k - 1 - t).clamp(0, L - 1)].long()
             is_n = c > 3
             do = (c >= 0) & ~is_n & (lo < hi)
             cc = c.clamp(0, 3)
@@ -114,7 +142,7 @@ def _fast_seed_intervals(fm, reads, lengths, P: int, span: int):
             nhi = torch.where(do, C[cc] + rank(fm, cc, hi), hi)
             hi = torch.where(is_n, nlo, nhi)
             lo = nlo
-    return lo, hi, e - span
+    return lo, hi, (e - span).expand(B, P)
 
 
 def seed_span(fm, max_mismatches: int, read_len: int):
@@ -141,14 +169,16 @@ def kmer_fast_ok(fm, min_read_len: int, max_mismatches: int) -> bool:
 
 def _flat_compact(valid, K: int, vals):
     """Keep the first K valid lanes of flat `valid` in lane order. Returns
-    (keep mask, slot of each lane (K for dropped), compacted values)."""
+    (keep mask, slot of each lane (K for dropped), compacted values). Every
+    lane is scattered, the dropped ones onto the spare slot K: a boolean
+    mask index would read its count back to the host."""
     csum = torch.cumsum(valid.long(), 0)
     keep = valid & (csum <= K)
     slot = torch.where(keep, csum - 1, K)
     outs = []
     for v in vals:
         o = torch.zeros(K + 1, dtype=v.dtype, device=v.device)
-        o[slot[keep]] = v[keep]
+        o[slot] = v
         outs.append(o[:K])
     return keep, slot, outs
 
@@ -165,7 +195,8 @@ def _first_occurrence(cand):
 
 def _align_one_strand(fm, reads, lengths, max_mismatches: int,
                       hits_per_seed: int, verify_slots: int = 32,
-                      kmer_fast: bool = False, resolve_cap: int = 0):
+                      kmer_fast: bool = False, resolve_cap: int = 0,
+                      uniform_len: int = 0):
     """All placements of `reads` on the forward text with <= max_mismatches.
 
     Returns (cand_pos, cand_mm, cand_valid, truncated) with the candidate
@@ -177,7 +208,8 @@ def _align_one_strand(fm, reads, lengths, max_mismatches: int,
 
     if kmer_fast:
         span = seed_span(fm, max_mismatches, L)
-        lo, hi, cand_base = _fast_seed_intervals(fm, reads, lengths, P, span)
+        lo, hi, cand_base = _fast_seed_intervals(fm, reads, lengths, P, span,
+                                                 uniform_len=uniform_len)
     else:
         span = piece_len
         q, piece_start, plen = _piece_queries(reads, lengths, P, piece_len)
@@ -243,7 +275,7 @@ def _align_one_strand(fm, reads, lengths, max_mismatches: int,
 def _align_batch_core(fm, reads_f, reads_r, lengths, offsets, *,
                       max_mismatches: int, hits_per_seed: int,
                       max_alignments: int, kmer_fast: bool,
-                      resolve_cap: int) -> Alignments:
+                      resolve_cap: int, uniform_len: int = 0) -> Alignments:
     """Align a batch on both strands in one stacked pass; reads_r must be
     revcomp(reads_f) with the same per-read lengths (both LEFT-aligned,
     padded with -1). Placements crossing a contig boundary are rejected."""
@@ -252,7 +284,8 @@ def _align_batch_core(fm, reads_f, reads_r, lengths, offsets, *,
     len2 = torch.cat([lengths, lengths], dim=0)
     p2, m2, v2, t2 = _align_one_strand(fm, reads2, len2, max_mismatches,
                                        hits_per_seed, kmer_fast=kmer_fast,
-                                       resolve_cap=resolve_cap)
+                                       resolve_cap=resolve_cap,
+                                       uniform_len=uniform_len)
     pos = torch.cat([p2[:B0], p2[B0:]], dim=1)
     mm = torch.cat([m2[:B0], m2[B0:]], dim=1)
     valid = torch.cat([v2[:B0], v2[B0:]], dim=1)
@@ -297,7 +330,7 @@ def _align_local(fm, reads_f, reads_r, lengths, offsets, **kw):
 def align_reads(fm, reads_f, reads_r, lengths, offsets, *,
                 max_mismatches: int = 2, hits_per_seed: int = 32,
                 max_alignments: int = 64, kmer_fast: bool = False,
-                resolve_cap: int = 0) -> Alignments:
+                resolve_cap: int = 0, uniform_len: int = 0) -> Alignments:
     """Both-strand alignment of a batch (see _align_batch_core). With an
     active mesh (parallel/auto.py) the rows shard over its reads axis,
     each shard aligned on its device against the index placed there, or
@@ -305,7 +338,7 @@ def align_reads(fm, reads_f, reads_r, lengths, offsets, *,
     has a genome axis for `fm`."""
     kw = dict(max_mismatches=max_mismatches, hits_per_seed=hits_per_seed,
               max_alignments=max_alignments, kmer_fast=kmer_fast,
-              resolve_cap=resolve_cap)
+              resolve_cap=resolve_cap, uniform_len=uniform_len)
     return auto.by_rows(
         lambda dev, *r: _align_local(auto.replicated(fm, dev), *r, offsets,
                                      **kw),
@@ -343,10 +376,13 @@ def align_forward_rows(fm, reads, lengths, offsets, *, max_mismatches: int,
                                                 **kw))
 
 
+FIELDS = ("pos", "strand", "mm", "valid", "n_hits", "truncated")
+
+
 def _adaptive(align, fm, reads_f, reads_r, lengths, offsets, *,
               narrow_hits: int, wide_hits: int, resolve_cap: int, **kw):
     """The two tiers through `align` (one device's, or the range-sharded
-    index's align_reads)."""
+    index's align_reads), the truncated rows read back and re-run."""
     reads_f, reads_r, lengths, offsets = _as_device(
         fm, reads_f, reads_r, lengths, offsets)
     al = align(fm, reads_f, reads_r, lengths, offsets,
@@ -356,26 +392,84 @@ def _adaptive(align, fm, reads_f, reads_r, lengths, offsets, *,
         return al
     wide = align(fm, reads_f[idx], reads_r[idx], lengths[idx], offsets,
                  hits_per_seed=wide_hits, resolve_cap=0, **kw)
-    for f in ("pos", "strand", "mm", "valid", "n_hits", "truncated"):
+    for f in FIELDS:
         getattr(al, f)[idx] = getattr(wide, f).to(al.pos.device)
     return al
+
+
+def _adaptive_in_program(fm, reads_f, reads_r, lengths, offsets, *,
+                         narrow_hits: int, wide_hits: int, resolve_cap: int,
+                         uniform_len: int, wide_budget: int, **kw):
+    """Both tiers with no host sync between them: the narrow pass over
+    the batch, then the wide pass over a fixed wide_budget rows, the
+    first truncated rows by cumsum slot, gathered, searched at wide_hits
+    uncompacted and scattered back. Torch has no lax.cond, so the wide
+    pass runs on every batch; its unused slots hold a row of Ns (it finds
+    nothing), which an extra row B takes on the scatter and is sliced
+    off. Truncated rows past the budget keep truncated=True."""
+    dev = reads_f.device
+    B, L = reads_f.shape
+    RW = wide_budget
+    al = _align_batch_core(fm, reads_f, reads_r, lengths, offsets,
+                           hits_per_seed=narrow_hits, resolve_cap=resolve_cap,
+                           uniform_len=uniform_len, **kw)
+    csum = torch.cumsum(al.truncated.long(), 0)
+    sel = al.truncated & (csum <= RW)
+    idx = torch.full((RW + 1,), B, dtype=torch.long, device=dev)
+    idx[torch.where(sel, csum - 1, RW)] = torch.arange(B, device=dev)
+    idx = idx[:RW]
+    extra = lambda a, fill: torch.cat([a, a.new_full((1,) + a.shape[1:],
+                                                     fill)])
+    wide = _align_batch_core(fm, extra(reads_f, 4)[idx],
+                             extra(reads_r, 4)[idx],
+                             extra(lengths, uniform_len or L)[idx], offsets,
+                             hits_per_seed=wide_hits, resolve_cap=0,
+                             uniform_len=uniform_len, **kw)
+    out = {}
+    for f in FIELDS:
+        dst = extra(getattr(al, f), 0)
+        dst[idx] = getattr(wide, f)
+        out[f] = dst[:B]
+    return Alignments(**out)
 
 
 def align_reads_adaptive(fm, reads_f, reads_r, lengths, offsets, *,
                          max_mismatches: int = 2, max_alignments: int = 64,
                          kmer_fast: bool = False, narrow_hits: int = 8,
-                         wide_hits: int = 32,
-                         resolve_cap: int = 1) -> Alignments:
+                         wide_hits: int = 32, resolve_cap: int = 1,
+                         uniform_len: int = 0, wide_budget: int = 0,
+                         defer: bool = False) -> Alignments:
     """Two-tier alignment: a narrow seed-hit budget + compacted SA walk for
     the batch, then an uncompacted wide re-run of only the rows whose seeds
     truncated or whose lanes overflowed the cap. Equals align_reads with
     hits_per_seed=wide_hits on every truncated read, at close to
-    narrow-budget cost. The result stays on the device. With an active
-    mesh each reads shard runs both tiers on its device; against a
-    range-sharded index both tiers search the sub-indexes."""
+    narrow-budget cost. The result stays on the device. uniform_len: the
+    read length when every row has it (the seed search slices instead of
+    gathering).
+
+    defer=True, with no mesh and resolve_cap set: both tiers run with no
+    host sync (_adaptive_in_program), the wide pass over up to
+    `wide_budget` truncated rows (default max(B // 8, 8)), and the caller
+    gets the device result as it stands (truncated rows past the budget
+    keep truncated=True), so batches dispatch back to back with one final
+    sync. Otherwise the truncated rows are read back once and all re-run:
+    exact, as JAX's in-program tier plus its host re-run is, and cheaper
+    on the card than the fixed wide pass, which a read-back would follow
+    anyway (PERF.md §6).
+
+    With an active mesh each reads shard runs both tiers on its device;
+    against a range-sharded index both tiers search the sub-indexes."""
     kw = dict(max_mismatches=max_mismatches, max_alignments=max_alignments,
               kmer_fast=kmer_fast, narrow_hits=narrow_hits,
-              wide_hits=wide_hits, resolve_cap=resolve_cap)
+              wide_hits=wide_hits, resolve_cap=resolve_cap,
+              uniform_len=uniform_len)
+    B = reads_f.shape[0]
+    if defer and auto.active() is None and resolve_cap and B:
+        reads_f, reads_r, lengths, offsets = _as_device(
+            fm, reads_f, reads_r, lengths, offsets)
+        return _adaptive_in_program(
+            fm, reads_f, reads_r, lengths.long(), offsets,
+            wide_budget=wide_budget or max(B // 8, 8), **kw)
     return auto.by_rows(
         lambda dev, *r: _adaptive(_align_local, auto.replicated(fm, dev), *r,
                                   offsets, **kw),

@@ -163,8 +163,8 @@ def _variant_intervals(fm, rows, lengths, h, seg_ok, *, K: int, nsw: int,
     offv = torch.cat(off_v, dim=1)
     okv = torch.cat(ok_v, dim=1)
     kc = keyv.clamp(0, fm.kmer_lo.shape[0] - 1)
-    lo = torch.where(okv, fm.kmer_lo.long()[kc], 0)
-    hi = torch.where(okv, fm.kmer_hi.long()[kc], 0)
+    lo = torch.where(okv, fm.kmer_lo[kc].long(), 0)
+    hi = torch.where(okv, fm.kmer_hi[kc].long(), 0)
     return lo, hi, offv, band_short
 
 

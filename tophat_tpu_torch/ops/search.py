@@ -34,8 +34,8 @@ def backward_search(fm, queries):
         seedable = ((lastk >= 0) & (lastk <= 3)).all(dim=1)
         pw = 4 ** torch.arange(k - 1, -1, -1, device=dev)
         v = (lastk.clamp(0, 3) * pw[None, :]).sum(dim=1)
-        lo = torch.where(seedable, fm.kmer_lo.long()[v], 0)
-        hi = torch.where(seedable, fm.kmer_hi.long()[v], m)
+        lo = torch.where(seedable, fm.kmer_lo[v].long(), 0)
+        hi = torch.where(seedable, fm.kmer_hi[v].long(), m)
         skip = torch.where(seedable, k, 0)
         # even when L == k the loop below must still run: rows that cannot
         # seed (padding or an N in the k-char window) consume their chars

@@ -81,8 +81,8 @@ def _local(subs, starts, j: int, dev, *arrays):
 def sharded_align(mesh, subs, starts, owned_width: int, offsets, reads_f,
                   reads_r, lengths, *, max_mismatches: int = 2,
                   hits_per_seed: int = 16, max_alignments: int = 16,
-                  kmer_fast: bool = False, resolve_cap: int = 0
-                  ) -> Alignments:
+                  kmer_fast: bool = False, resolve_cap: int = 0,
+                  uniform_len: int = 0) -> Alignments:
     """Both-strand alignment of every reads shard against every genome
     shard's sub-index, merged as JAX's make_sharded_align: each shard's
     owned hits (pos < owned_width, rebased, inside one real contig) of its
@@ -102,7 +102,8 @@ def sharded_align(mesh, subs, starts, owned_width: int, offsets, reads_f,
                                    hits_per_seed=hits_per_seed,
                                    max_alignments=max_alignments,
                                    kmer_fast=kmer_fast,
-                                   resolve_cap=resolve_cap)
+                                   resolve_cap=resolve_cap,
+                                   uniform_len=uniform_len)
             gpos = al.pos.long() + start
             owned = (al.valid & (al.pos < owned_width)
                      & same_contig(offsets, gpos, ln_j[:, None]))

@@ -190,6 +190,7 @@ class GroupedMapper:
             log(f"transcriptome map: {int(has_t.sum())} reads placed")
 
         min_len = int(lengths.min()) if len(lengths) else 0
+        max_len = int(lengths.max()) if len(lengths) else 0
         alns = []
         total = np.zeros(batch.size, np.int64)
         for g in range(G):
@@ -202,7 +203,8 @@ class GroupedMapper:
                 kmer_fast=kmer_fast_ok(fm, min_len,
                                        params.read_mismatches),
                 narrow_hits=min(8, params.hits_per_seed),
-                wide_hits=params.hits_per_seed))
+                wide_hits=params.hits_per_seed,
+                uniform_len=min_len if min_len == max_len else 0))
             del fm      # the next group arrives only once this one is gone
             alns.append(al)
             total += al.n_hits

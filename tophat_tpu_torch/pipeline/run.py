@@ -170,13 +170,15 @@ def _align_mate(fm, offsets, batch: ReadBatch, params: Params, log,
         return m, np.zeros(B, bool), reads_f, reads_r, lengths
 
     min_len = int(lengths.min()) if len(lengths) else 0
+    max_len = int(lengths.max()) if len(lengths) else 0
     aln = align_reads_adaptive(
         fm, reads_f, reads_r, lengths, offsets,
         max_mismatches=params.read_mismatches,
         max_alignments=params.max_alignments,
         kmer_fast=kmer_fast_ok(fm, min_len, params.read_mismatches),
         narrow_hits=min(8, params.hits_per_seed),
-        wide_hits=params.hits_per_seed)
+        wide_hits=params.hits_per_seed,
+        uniform_len=min_len if min_len == max_len else 0)
     aln = transfer_alignments(aln)          # device -> host boundary
     if params.prefilter_multihits:
         # -M/--prefilter-multihits: reads with more than max_multihits

@@ -100,6 +100,7 @@ def map_reads_transcriptome(tix: TranscriptomeIndex, genome: Genome,
     if tix.n == 0 or len(lengths) == 0:
         return {}
     min_len = int(np.min(lengths))
+    max_len = int(np.max(lengths))
     al = transfer_alignments(align_reads_adaptive(
         tix.fm, reads_f, reads_r, np.asarray(lengths, np.int32),
         tix.tgenome.offsets.astype(np.int32),
@@ -107,7 +108,8 @@ def map_reads_transcriptome(tix: TranscriptomeIndex, genome: Genome,
         max_alignments=params.max_alignments,
         kmer_fast=kmer_fast_ok(tix.fm, min_len, params.read_mismatches),
         narrow_hits=min(8, params.hits_per_seed),
-        wide_hits=params.hits_per_seed))
+        wide_hits=params.hits_per_seed,
+        uniform_len=min_len if min_len == max_len else 0))
     name2id = genome.name_to_id()
     toffs = tix.tgenome.offsets
 
