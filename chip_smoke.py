@@ -486,14 +486,16 @@ def phase_kernels():
 
 
 def realign_launches(reset: bool = False):
-    """(dense, sparse) launch counts of the realign kernel's two entries;
-    reset=True sets both to 0 first."""
-    from tophat_tpu_torch.ops.realign_kernel import (realign_group,
-                                                     realign_group_sparse)
+    """(dense, sparse) launch counts of the realign kernel's two entries,
+    from the port's tracer counters (relaunches included); reset=True
+    clears the tracer first."""
+    from tophat_tpu_torch.utils import trace
 
     if reset:
-        realign_group.launches = realign_group_sparse.launches = 0
-    return realign_group.launches, realign_group_sparse.launches
+        trace.reset()
+    c = trace.snapshot()["counters"]
+    dense = c.get("realign.dense_launches", 0)
+    return dense, c.get("realign.launches", 0) - dense
 
 
 class RealignHooks:

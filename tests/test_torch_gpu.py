@@ -20,6 +20,16 @@ def cuda():
     return torch.device("cuda")
 
 
+def _launches():
+    """(dense, sparse) launches of the realign kernel so far, relaunches
+    included, from the port's tracer counters."""
+    from tophat_tpu_torch.utils import trace
+
+    c = trace.snapshot()["counters"]
+    dense = c.get("realign.dense_launches", 0)
+    return dense, c.get("realign.launches", 0) - dense
+
+
 def _realign_inputs(dev, L, q, R=2000, E=70, seed=11):
     """Reads planted across events (with mismatches and Ns, some over
     genome Ns; a quarter at splits past 4,095 where the row has them),
@@ -83,11 +93,11 @@ def test_realign_kernel_matches_plain(cuda, L, q, E):
                                                      realign_plain)
 
     args = _realign_inputs(cuda, L, q, E=E)
-    before = realign_group.launches
+    before = _launches()[0]
     got = realign_group(*args, q, 8)
     ref = realign_plain(*args, q, 8)
     torch.cuda.synchronize()
-    assert realign_group.launches == before + 1
+    assert _launches()[0] == before + 1
     for a, b in zip(got, ref):
         assert torch.equal(a, b)
     assert int(ref[2].sum()) > (1000 if E > 1 else 0)
@@ -115,13 +125,17 @@ def test_realign_sparse_matches_packed_dense(cuda, monkeypatch, L, q, E,
     valid = torch.as_tensor(np.random.default_rng(3).random(E) < 0.8,
                             device=cuda)
     valid[0] = True
-    d0, s0 = realign_group.launches, realign_group_sparse.launches
+    from tophat_tpu_torch.utils import trace
+
+    relaunches = lambda: trace.snapshot()["counters"].get(
+        "realign.relaunches", 0)
+    (d0, s0), r0 = _launches(), relaunches()
     bt, mm, ok = realign_group(*args, q, max_mm)
     want = pack_sparse(bt, mm, ok & valid[None, :])
     got = realign_group_sparse(*args, q, max_mm, valid)
     torch.cuda.synchronize()
-    assert realign_group.launches == d0 + 1
-    assert realign_group_sparse.launches == s0 + (2 if max_mm > 100 else 1)
+    assert _launches() == (d0 + 1, s0 + (2 if max_mm > 100 else 1))
+    assert relaunches() == r0 + (1 if max_mm > 100 else 0)
     assert got.dtype == torch.int32 and torch.equal(got, want)
     assert want.shape[1] > 0
 
@@ -285,7 +299,6 @@ def _workload(n, seed=5, L=76):
 def test_pipeline_on_card_matches_cpu(cuda, tmp_path, n):
     from tophat_tpu_torch.index.fasta import Genome
     from tophat_tpu_torch.io.fastq import batch_reads
-    from tophat_tpu_torch.ops.realign_kernel import realign_group_sparse
     from tophat_tpu_torch.pipeline.params import Params
     from tophat_tpu_torch.pipeline.run import run_pipeline
 
@@ -295,8 +308,8 @@ def test_pipeline_on_card_matches_cpu(cuda, tmp_path, n):
         run_pipeline(genome, batch_reads(recs), Params(coverage_search=False),
                      str(tmp_path / dev), log=lambda *a: None, device=dev)
         if dev == "cpu":
-            before = realign_group_sparse.launches
-    assert realign_group_sparse.launches > before
+            before = _launches()[1]
+    assert _launches()[1] > before
     for f in ("accepted_hits.sam", "junctions.bed", "insertions.bed",
               "deletions.bed"):
         assert (tmp_path / "cpu" / f).read_bytes() == \
@@ -381,7 +394,6 @@ def test_paired_default_mode_on_card_matches_cpu(cuda, tmp_path):
     from test_torch_paired import _pairs  # numpy only at import time
     from tophat_tpu_torch.index.fasta import Genome
     from tophat_tpu_torch.io.fastq import batch_reads
-    from tophat_tpu_torch.ops.realign_kernel import realign_group_sparse
     from tophat_tpu_torch.pipeline.paired import \
         run_pipeline_paired_streaming
     from tophat_tpu_torch.pipeline.params import Params
@@ -393,13 +405,13 @@ def test_paired_default_mode_on_card_matches_cpu(cuda, tmp_path):
              "insertions.bed", "deletions.bed", "align_summary.txt")
     for dev in ("cpu", "cuda"):
         if dev == "cuda":
-            before = realign_group_sparse.launches
+            before = _launches()[1]
         chunks = ((batch_reads(r1[s:s + 24]), batch_reads(r2[s:s + 24]))
                   for s in range(0, len(r1), 24))
         run_pipeline_paired_streaming(genome, chunks, Params(),
                                       str(tmp_path / dev),
                                       log=lambda *a: None, device=dev)
-    assert realign_group_sparse.launches > before
+    assert _launches()[1] > before
     for f in files:
         assert (tmp_path / "cpu" / f).read_bytes() == \
             (tmp_path / "cuda" / f).read_bytes(), f
@@ -517,12 +529,11 @@ def test_grouped_run_on_card_matches_cpu(cuda, tmp_path):
     time), paired in TopHat's default mode, on the card and on the CPU:
     identical files; the sparse realign kernel ran on the card."""
     from test_torch_grouped import OUTPUTS, run_library
-    from tophat_tpu_torch.ops.realign_kernel import realign_group_sparse
 
     run_library("torch", tmp_path / "cpu", "paired", device="cpu")
-    before = realign_group_sparse.launches
+    before = _launches()[1]
     run_library("torch", tmp_path / "cuda", "paired", device="cuda")
-    assert realign_group_sparse.launches > before
+    assert _launches()[1] > before
     for f in OUTPUTS + ("align_summary.txt", "unmapped.bam"):
         assert (tmp_path / "cpu" / f).read_bytes() == \
             (tmp_path / "cuda" / f).read_bytes(), f
@@ -570,16 +581,15 @@ def test_chain_segment_hits_on_card_match_dense_plain(cuda):
     on the card equal the ok entries of the dense plain version's tables
     on the CPU, and so do the chains built from them."""
     from test_torch_grouped import _chain_inputs, dense_segment_hits
-    from tophat_tpu_torch.ops.realign_kernel import realign_group_sparse
     from tophat_tpu_torch.pipeline import chains
     from tophat_tpu_torch.pipeline.params import Params
 
     fm, gs, tables, events = _chain_inputs(1)
     params = Params()
     card = fm.to(cuda)
-    before = realign_group_sparse.launches
+    before = _launches()[1]
     got = chains.segment_event_hits(card, gs, events, params)
-    assert realign_group_sparse.launches > before
+    assert _launches()[1] > before
     want = dense_segment_hits(fm, gs, events, params)
     for a, b in zip(got[0], want[0]):
         assert np.array_equal(a, b)
@@ -631,7 +641,6 @@ def test_mesh_on_card_matches_one_device(cuda, monkeypatch):
     from tophat_tpu_torch.ops import events
     from tophat_tpu_torch.ops.align import align_reads_adaptive, pad_reads
     from tophat_tpu_torch.ops.beam import beam_align_rows
-    from tophat_tpu_torch.ops.realign_kernel import realign_group_sparse
     from tophat_tpu_torch.parallel import auto
     from tophat_tpu_torch.parallel.mesh import make_mesh
 
@@ -662,10 +671,10 @@ def test_mesh_on_card_matches_one_device(cuda, monkeypatch):
     try:
         auto.activate(make_mesh(4, 1, [cuda] * 4))
         got = run()
-        before = realign_group_sparse.launches
+        before = _launches()[1]
         got_r = (events.realign_events(g, reads, lengths, ev, 2),
                  events.realign_events_sparse(g, reads, lengths, ev, 2))
-        assert realign_group_sparse.launches == before + 4 * groups
+        assert _launches()[1] == before + 4 * groups
         monkeypatch.setenv("TOPHAT_TPU_GENOME_SHARDS", "2")
         auto.configure_genome_axis(fm, genome, 100)
         assert auto.genome_sharded(fm)

@@ -221,13 +221,15 @@ def test_realign_wrapper_takes_plain_only_for_cpu_tensors(monkeypatch):
     """On the CPU the wrapper runs the plain version and counts no launch;
     a CUDA-typed request never reaches the plain version."""
     from tophat_tpu_torch.ops import realign_kernel as rk
+    from tophat_tpu_torch.utils import trace
 
     reads = torch.full((4, 10), 1, dtype=torch.int8)
     lengths = torch.full((4,), 10, dtype=torch.int32)
     flank = torch.full((3, 10), 1, dtype=torch.int8)
-    before = rk.realign_group.launches
+    launches = lambda: trace.snapshot()["counters"].get("realign.launches", 0)
+    before = launches()
     bt, mm, ok = rk.realign_group(reads, lengths, flank, flank, 0, 2)
-    assert rk.realign_group.launches == before
+    assert launches() == before
     assert ok.all() and (mm == 0).all() and (bt == 1).all()
     monkeypatch.setattr(rk, "realign_plain", None)
     with pytest.raises(ValueError, match="CUDA"):

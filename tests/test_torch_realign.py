@@ -241,10 +241,15 @@ def test_realign_event_wrappers_match_jax(monkeypatch, R, E):
     q-group. (83, 37): R no multiple of 16, E no multiple of 8."""
     from tophat_tpu.ops.events import realign_events as jax_dense
     from tophat_tpu.ops.events import realign_events_sparse as jax_sparse
+    from tophat_tpu.parallel import auto as jax_auto
     from tophat_tpu_torch.ops import events
     from tophat_tpu_torch.ops.events import (realign_events,
                                              realign_events_sparse)
 
+    # one-device references: a JAX mesh that an earlier JAX CLI run in this
+    # process left active would take the JAX mesh path's conv formulation
+    monkeypatch.setattr(jax_auto, "_MESH", None)
+    monkeypatch.setattr(jax_auto, "_GSHARD", None)
     sparse_calls = []
     entry = events.realign_group_sparse
     monkeypatch.setattr(events, "realign_group_sparse", lambda *a: (

@@ -21,6 +21,7 @@ from __future__ import annotations
 
 import argparse
 import itertools
+import json
 import os
 import shutil
 import sys
@@ -48,6 +49,7 @@ from tophat_tpu_torch.pipeline.run import (iter_read_batches, load_reads,
                                            resolve_device,
                                            run_pipeline_streaming)
 from tophat_tpu_torch.pipeline.transcriptome import build_transcriptome_index
+from tophat_tpu_torch.utils import trace
 from tophat_tpu_torch.utils.log import StageLogger, get_resume_stage
 
 
@@ -262,6 +264,11 @@ def build_parser() -> argparse.ArgumentParser:
                    help="per-index base cap; genomes larger than this "
                         "split into contig groups with one FM index each "
                         "(default: the int32-safe ~2.0 Gbp limit)")
+    p.add_argument("--trace", action="store_true",
+                   help="time the pipeline's stages (wall, self and CPU "
+                        "seconds) and count its host syncs, realign "
+                        "launches, events, rows and records into "
+                        "logs/trace.json")
     return p
 
 
@@ -483,10 +490,19 @@ def main(argv=None, resume=False):
     # a mesh over every visible card (parallel/auto.py); it must not leak
     # into the next in-process run
     auto.auto_activate(device, log=logger.log)
+    if args.trace:
+        trace.reset()
+        trace.enable()
     try:
         return _run(args, params, device, resume, logger)
     finally:
         auto.deactivate()
+        if args.trace:
+            trace.disable()
+            snap = trace.snapshot()
+            del snap["records"]
+            with open(os.path.join(logger.logs_dir, "trace.json"), "w") as f:
+                json.dump(snap, f, indent=1)
 
 
 def _run(args, params, device, resume, logger):

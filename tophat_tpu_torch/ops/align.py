@@ -25,6 +25,7 @@ from tophat_tpu_torch.ops.search import backward_search, resolve_sa
 from tophat_tpu_torch.ops.verify import (count_mismatches_packed, pack_reads,
                                          same_contig)
 from tophat_tpu_torch.parallel import auto
+from tophat_tpu_torch.utils import trace
 
 NEG = 2 ** 30   # sentinel candidate offset for invalid seed lanes
 
@@ -388,6 +389,7 @@ def _adaptive(align, fm, reads_f, reads_r, lengths, offsets, *,
     al = align(fm, reads_f, reads_r, lengths, offsets,
                hits_per_seed=narrow_hits, resolve_cap=resolve_cap, **kw)
     idx = torch.nonzero(al.truncated).reshape(-1)
+    trace.note_sync(8)                # nonzero reads its count back
     if idx.numel() == 0:
         return al
     wide = align(fm, reads_f[idx], reads_r[idx], lengths[idx], offsets,
@@ -505,8 +507,8 @@ def transfer_alignments(al: Alignments, cap: int | None = None
     B, M = al.pos.shape
     if cap is None:
         cap = max(4 * B, 64)
-    n_hits = al.n_hits.cpu().numpy()
-    truncated = al.truncated.cpu().numpy()
+    n_hits = trace.to_host(al.n_hits)
+    truncated = trace.to_host(al.truncated)
     if B == 0:
         return Alignments(pos=np.zeros((0, M), np.int32),
                           strand=np.zeros((0, M), np.int8),
@@ -514,14 +516,15 @@ def transfer_alignments(al: Alignments, cap: int | None = None
                           valid=np.zeros((0, M), bool),
                           n_hits=n_hits, truncated=truncated)
     read, pos, strand, mm, n, ovf = pack_alignments(al, cap)
-    if bool(ovf):   # rare: heavy-multihit batch — take the full tables
-        return Alignments(pos=al.pos.cpu().numpy(),
-                          strand=al.strand.cpu().numpy(),
-                          mm=al.mm.cpu().numpy(),
-                          valid=al.valid.cpu().numpy(),
+    if bool(trace.to_host(ovf)):
+        # rare: heavy-multihit batch — take the full tables
+        return Alignments(pos=trace.to_host(al.pos),
+                          strand=trace.to_host(al.strand),
+                          mm=trace.to_host(al.mm),
+                          valid=trace.to_host(al.valid),
                           n_hits=n_hits, truncated=truncated)
-    k = int(n)
-    read = read[:k].cpu().numpy()
+    k = int(trace.to_host(n))
+    read = trace.to_host(read[:k])
     pos_t = np.zeros((B, M), np.int32)
     strand_t = np.zeros((B, M), np.int8)
     mm_t = np.zeros((B, M), np.int8)
@@ -529,9 +532,9 @@ def transfer_alignments(al: Alignments, cap: int | None = None
     if k:
         first = np.searchsorted(read, read, side="left")
         slot = np.arange(k) - first
-        pos_t[read, slot] = pos[:k].cpu().numpy()
-        strand_t[read, slot] = strand[:k].cpu().numpy()
-        mm_t[read, slot] = mm[:k].cpu().numpy()
+        pos_t[read, slot] = trace.to_host(pos[:k])
+        strand_t[read, slot] = trace.to_host(strand[:k])
+        mm_t[read, slot] = trace.to_host(mm[:k])
         valid_t[read, slot] = True
     return Alignments(pos=pos_t, strand=strand_t, mm=mm_t, valid=valid_t,
                       n_hits=n_hits, truncated=truncated)

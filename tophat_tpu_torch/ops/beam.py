@@ -21,6 +21,7 @@ from tophat_tpu_torch.ops.search import backward_search, resolve_sa
 from tophat_tpu_torch.ops.verify import (count_mismatches_packed, pack_reads,
                                          same_contig)
 from tophat_tpu_torch.parallel import auto
+from tophat_tpu_torch.utils import trace
 
 MIN_BEAM_LEN = 10   # shortest row the half-split handles sensibly
 
@@ -32,10 +33,13 @@ def _compact(valid, K, vals):
     csum = torch.cumsum(valid.long(), 0)
     keep = valid & (csum <= K)
     slot = (csum - 1)[keep]
+    # each boolean-mask index reads its count back
+    trace.note_sync(8)
     outs = []
     for v, fill in vals:
         o = torch.full((K,), fill, dtype=v.dtype, device=v.device)
         o[slot] = v[keep]
+        trace.note_sync(8)
         outs.append(o)
     return outs, valid & ~keep
 
@@ -62,6 +66,8 @@ def _pack_rows(seg, pos, mm, B: int, max_hits: int):
     pos_t[row_i, col_i] = s_pos[ok].int()
     mm_t[row_i, col_i] = s_mm[ok].to(torch.int8)
     val_t[row_i, col_i] = True
+    for _ in range(4):      # each boolean-mask index above reads its count
+        trace.note_sync(8)
     n_hits = torch.zeros(B, dtype=torch.int32, device=dev)
     n_hits.index_add_(0, s_seg.clamp(0, B - 1), keep.int())
     return pos_t, mm_t, val_t, n_hits

@@ -25,6 +25,7 @@ from tophat_tpu_torch.ops.realign_kernel import (BIG, prepare_targets,
                                                  realign_group_sparse)
 from tophat_tpu_torch.ops.splice import KIND_INSERTION
 from tophat_tpu_torch.parallel import auto
+from tophat_tpu_torch.utils import trace
 
 MAX_INS = 8  # inserted-sequence slot width
 
@@ -73,10 +74,10 @@ def _sparse(args, q: int, max_mm: int, valid):
             parts.append(torch.cat([rows[None, keep], rec[1:, keep]]))
         return torch.cat(parts, dim=1)
 
-    return auto.by_rows(
+    return trace.to_host(auto.by_rows(
         lambda dev, r, n: realign_group_sparse(
             r, n, flank_l.to(dev), comb.to(dev), q, max_mm, valid.to(dev)),
-        reads, lens, merge=merge).cpu().numpy()
+        reads, lens, merge=merge))
 
 
 def realign_events(genome, readsg, lengths, events, max_mm: int):
@@ -93,13 +94,14 @@ def realign_events(genome, readsg, lengths, events, max_mm: int):
         return best_t, mm, ok
     for idx, q, args in _groups(genome, readsg, lengths, events):
         bt, m, o = _dense(args, q, max_mm)
-        best_t[:, idx] = bt.cpu().numpy()
-        mm[:, idx] = m.cpu().numpy()
-        ok[:, idx] = o.cpu().numpy()
+        best_t[:, idx] = trace.to_host(bt)
+        mm[:, idx] = trace.to_host(m)
+        ok[:, idx] = trace.to_host(o)
     ok &= np.asarray(events["valid"]).astype(bool)[None, :]
     return best_t, mm, ok
 
 
+@trace.span("realign", sync=True)
 def realign_events_sparse(genome, readsg, lengths, events, max_mm: int):
     """Flat-result realignment for the production candidate path: returns
     (rows, evs, best_t, mm) numpy arrays of the passing (row, event) pairs
@@ -111,6 +113,7 @@ def realign_events_sparse(genome, readsg, lengths, events, max_mm: int):
     z = np.zeros(0, np.int32)
     if E == 0 or R == 0:
         return z, z.copy(), z.copy(), z.copy()
+    trace.count("realign.rows", R)
     valid = np.asarray(events["valid"]).astype(bool)
     acc = ([], [], [], [])
     for idx, q, args in _groups(genome, readsg, lengths, events):

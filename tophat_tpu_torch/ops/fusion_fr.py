@@ -35,6 +35,7 @@ import torch
 import torch.nn.functional as F
 
 from tophat_tpu_torch.ops.splice import BIG, first_argmin
+from tophat_tpu_torch.utils import trace
 
 FR_MM = 2
 FR_PAIR_CAP = 16384   # anchor pairs kept per batch (the JAX package's cap)
@@ -68,11 +69,13 @@ def build_fr_pairs(seg_pos, seg_valid, cuts, lengths, cap: int):
     P = ok.shape[0]
     keep = min(P, cap)
     idx = torch.nonzero(ok).reshape(-1)
+    trace.note_sync(8)                # nonzero reads its count back
     nvalid = idx.shape[0]
     if nvalid < keep:
         # the first (keep - nvalid) invalid combos lie in ok[:keep]
         idx = torch.cat([idx, torch.nonzero(~ok[:keep]).reshape(-1)[
             :keep - nvalid]])
+        trace.note_sync(8)
     idx = idx[:keep]
     read = idx // (SH * SH)
     ja = (idx // SH) % SH
@@ -239,13 +242,13 @@ def find_fr_fusions(fm, gs, seg_tables, params, cap: int = FR_PAIR_CAP):
             f"FR/RF anchor pairs overflowed {cap} slots; some candidates "
             "were dropped (raise the cap or reduce the chunk size)",
             stacklevel=2)
-    host = lambda x: x.cpu().numpy().astype(np.int32)
+    host = lambda x: trace.to_host(x).astype(np.int32)
 
     out = []
     for pattern, dirname in (("prefix", "fr"), ("suffix", "rf")):
         t, posA, posB, mm, valid = scan_fr_pairs(
             fm.genome, reads_f, reads_r, lengths[:R], pairs, L, pattern)
-        valid = valid.cpu().numpy()
+        valid = trace.to_host(valid)
         if not valid.any():
             continue
         rd = host(pairs.read)[valid]
@@ -266,7 +269,7 @@ def find_fr_fusions(fm, gs, seg_tables, params, cap: int = FR_PAIR_CAP):
             torch.as_tensor(uniq[:, 0], device=dev),
             torch.as_tensor(uniq[:, 1], device=dev),
             torch.ones(E, dtype=torch.bool, device=dev), dirname)
-        bt, bmm, ok = (x.cpu().numpy() for x in (bt, bmm, ok))
+        bt, bmm, ok = (trace.to_host(x) for x in (bt, bmm, ok))
         # np.nonzero is row-major over (R, E): that order decides which
         # duplicates `seen` drops
         seen = set(zip(rd.tolist(), tt.tolist(), pa.tolist(), pb.tolist()))

@@ -17,7 +17,7 @@ The scan is plain torch on the genome's device (XLA in the JAX package,
 not Pallas). The result feeds the pipeline as (a) novel indel EVENTS and
 (b) direct read candidates that bypass the segment-path admission; the
 host loop over the passing placements reads the scan's results through
-one .cpu() each.
+one counted read each (utils/trace.to_host).
 """
 
 from __future__ import annotations
@@ -28,6 +28,7 @@ import torch
 from tophat_tpu_torch.ops.events import MAX_INS
 from tophat_tpu_torch.ops.splice import (KIND_DELETION, KIND_INSERTION,
                                          first_argmin)
+from tophat_tpu_torch.utils import trace
 
 BIG = 32767
 MAX_CAND = 8
@@ -157,10 +158,6 @@ def b2_score_model(params):
     return mp_max, rdg, rfg, floor_fn
 
 
-def _host(a) -> np.ndarray:
-    return a.cpu().numpy() if isinstance(a, torch.Tensor) else np.asarray(a)
-
-
 def gapped_from_segments(genome_codes, gs, seg_tables, params,
                          offsets=None):
     """Bowtie2-mode direct gapped alignment of the IUM rows, seeded by the
@@ -178,7 +175,7 @@ def gapped_from_segments(genome_codes, gs, seg_tables, params,
     novel indels found; `results` is a list of (row, pos, t, gap, mm,
     ev_key) with ev_key = (kind, left, right) for looking the merged event
     index back up in candidates_for_mate."""
-    seg_pos, seg_mm, seg_valid = (_host(a) for a in seg_tables[:3])
+    seg_pos, seg_mm, seg_valid = (trace.to_host(a) for a in seg_tables[:3])
     rows = gs.rows
     if rows == 0:
         return None, []
@@ -222,7 +219,7 @@ def gapped_from_segments(genome_codes, gs, seg_tables, params,
     floor = np.array([floor_fn(int(l)) for l in gs.lengths], np.int32)
     dev = genome_codes.device
     put = lambda a: torch.as_tensor(np.ascontiguousarray(a), device=dev)
-    pos, t, gap, mm, _pen, ok = (_host(x) for x in gapped_scan(
+    pos, t, gap, mm, _pen, ok = (trace.to_host(x) for x in gapped_scan(
         genome_codes, put(gs.readsg), put(gs.lengths), put(cand),
         put(cvalid), put(floor), max_gap=g, mp_max=mp_max,
         rdg_open=rdg[0], rdg_ext=rdg[1], rfg_open=rfg[0], rfg_ext=rfg[1]))

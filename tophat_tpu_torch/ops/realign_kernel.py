@@ -36,6 +36,8 @@ import subprocess
 
 import torch
 
+from tophat_tpu_torch.utils import trace
+
 BIG = 32767
 C = 8                # one-hot channels of the plain version (codes 0..7)
 MAX_L = (1 << 18) - 1  # widest row the kernel takes: -2^30 + 4,096 L + 7
@@ -157,7 +159,7 @@ def pack_sparse(bt, mm, ok):
     dev = ok.device
     flat = ok.reshape(-1)
     csum = torch.cumsum(flat.long(), 0)
-    n = int(csum[-1]) if csum.numel() else 0
+    n = int(trace.to_host(csum[-1])) if csum.numel() else 0
     slot = (csum - 1)[flat]
     lane = torch.arange(R * E, device=dev)
     out = torch.empty((4, n), dtype=torch.int32, device=dev)
@@ -241,11 +243,9 @@ def realign_group(reads, lengths, flank_l, comb, q: int, max_mm: int):
     if R == 0 or E == 0:
         return best_t, mm, ok
     _launch(reads, lengths, flank_l, comb, q, max_mm, dense=(best_t, mm, ok))
-    realign_group.launches += 1
+    trace.count("realign.launches")
+    trace.count("realign.dense_launches")
     return best_t, mm, ok
-
-
-realign_group.launches = 0
 
 
 def realign_group_sparse(reads, lengths, flank_l, comb, q: int, max_mm: int,
@@ -272,19 +272,19 @@ def realign_group_sparse(reads, lengths, flank_l, comb, q: int, max_mm: int,
         count = torch.zeros(1, dtype=torch.int64, device=dev)
         _launch(reads, lengths, flank_l, comb, q, max_mm,
                 sparse=(valid, rec, cap, count))
-        realign_group_sparse.launches += 1
-        n = int(count.item())
+        trace.count("realign.launches")
+        n = int(trace.to_host(count)[0])
         if n <= cap:
             break
         if n >= INT32_LIMIT:
             raise ValueError(f"the sparse realign entry found {n} records: "
                              "its int32 record table holds fewer than 2^31")
         cap = realign_group_sparse.cap_hint = n
+        trace.count("realign.relaunches")
     rec = rec[:, :n]
     # row * E + event is unique to a pair: any sort gives one order
     key = (rec[0] if R * E < 2 ** 31 else rec[0].long()) * E + rec[1]
     return rec[:, torch.sort(key).indices]
 
 
-realign_group_sparse.launches = 0
 realign_group_sparse.cap_hint = 0   # the most records one call has found

@@ -23,6 +23,7 @@ from typing import Any
 import torch
 
 from tophat_tpu_torch.parallel import auto
+from tophat_tpu_torch.utils import trace
 
 LOOK_BP = 8       # anchor bases examined each side of a segment boundary
 WINDOW_MM = 2     # split-point mismatch budget (segment_juncs.cpp:2265)
@@ -99,6 +100,7 @@ def _pairs_for_offset(seg_pos, seg_valid, cuts, nseg, doff,
 
     def windows(mask):
         r, s, h, k = mask.nonzero(as_tuple=True)
+        trace.note_sync(8)            # nonzero reads its count back
         # support span: [boundary_after_left - 8, partner_start_boundary + 8)
         sup_start = cuts[r, s + 1] - LOOK_BP
         return PairWindows(
@@ -334,15 +336,18 @@ def compact_by_valid(valid, arrays, cap: int):
     valid = valid.reshape(-1)
     dev = valid.device
     csum = torch.cumsum(valid.long(), 0)
-    nvalid = int(csum[-1]) if csum.numel() else 0
+    nvalid = int(trace.to_host(csum[-1])) if csum.numel() else 0
     keep = valid & (csum <= cap)
     slot = (csum - 1)[keep]
+    # each boolean-mask index reads its count back
+    trace.note_sync(8)
     out = []
     for a in arrays:
         a = a.reshape(valid.shape[0], *a.shape[1:])
         o = torch.zeros((cap,) + tuple(a.shape[1:]), dtype=a.dtype,
                         device=dev)
         o[slot] = a[keep]
+        trace.note_sync(8)
         out.append(o)
     cvalid = torch.arange(cap, device=dev) < min(nvalid, cap)
     return out, cvalid, nvalid > cap
@@ -365,7 +370,7 @@ def compact_scan_hits(left, right, rev, valid, win_row, cap: int):
         valid.reshape(-1),
         [left.reshape(-1), right.reshape(-1), rev.reshape(-1),
          rows.reshape(-1)], cap)
-    return l, r, v, rw, int(cvalid.sum()), ovf
+    return l, r, v, rw, int(trace.to_host(cvalid.sum())), ovf
 
 
 def build_indel_pairs(seg_pos, seg_mm, seg_valid, cuts, nseg,

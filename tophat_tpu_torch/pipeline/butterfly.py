@@ -34,6 +34,7 @@ from tophat_tpu_torch.index.fasta import revcomp
 from tophat_tpu_torch.ops.events import MAX_INS
 from tophat_tpu_torch.ops.splice import KIND_JUNCTION
 from tophat_tpu_torch.pipeline.juncs import empty_events
+from tophat_tpu_torch.utils import trace
 
 HALF_MER = 5          # half_splice_mer_len (driver :5009, :5025)
 MER = 2 * HALF_MER
@@ -166,11 +167,12 @@ def _events_from(ls, rs, anti):
                 ins_seq=np.full((k, MAX_INS), -1, np.int8))
 
 
+@trace.span("butterfly_search", sync=True)
 def butterfly_search_events(fm, genome, gs, seg_tables, params):
     """Junctions between/within coverage islands, gated by read-mer
     extendability (pair_covered_sites :4178)."""
     n = fm.n
-    seg_pos, _seg_mm, seg_valid = (x.cpu().numpy() for x in seg_tables)
+    seg_pos, _seg_mm, seg_valid = (trace.to_host(x) for x in seg_tables)
     seg_len = gs.cuts[:, 1:] - gs.cuts[:, :-1]
     starts = seg_pos[seg_valid]
     lens = np.broadcast_to(seg_len[:, :, None], seg_pos.shape)[seg_valid]
@@ -203,12 +205,13 @@ def butterfly_search_events(fm, genome, gs, seg_tables, params):
     return _events_from(fl + rl, fr + rr, fan + ran)
 
 
+@trace.span("microexon_search", sync=True)
 def microexon_events(fm, genome, gs, seg_tables, params):
     """Junctions reachable only through an unmapped edge segment
     (align_microexon_segs :3737 + window collection :3880-3941)."""
     if gs.rows == 0 or seg_tables is None:
         return empty_events()
-    seg_pos, _seg_mm, seg_valid = (x.cpu().numpy() for x in seg_tables)
+    seg_pos, _seg_mm, seg_valid = (trace.to_host(x) for x in seg_tables)
     seg_len = gs.cuts[:, 1:] - gs.cuts[:, :-1]
     n = fm.n
     ma = params.min_anchor_len

@@ -33,6 +33,7 @@ from tophat_tpu_torch.ops.events import realign_events_sparse
 from tophat_tpu_torch.ops.splice import (KIND_DELETION, KIND_FUSION,
                                          KIND_INSERTION)
 from tophat_tpu_torch.pipeline.segment import GenomeSpaceReads, segment_rows
+from tophat_tpu_torch.utils import trace
 
 MAX_TRIES = 10000   # reference: long_spanning_reads.cpp:2647
 MAX_EVENTS_PER_CHAIN = 3
@@ -46,7 +47,7 @@ def _host(a, rows=None):
     if isinstance(a, torch.Tensor):
         if rows is not None:
             a = a[torch.as_tensor(rows, device=a.device)]
-        return a.cpu().numpy()
+        return trace.to_host(a)
     a = np.asarray(a)
     return a if rows is None else a[rows]
 

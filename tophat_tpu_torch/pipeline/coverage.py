@@ -27,6 +27,7 @@ from tophat_tpu_torch.index.fm import host_codes
 from tophat_tpu_torch.ops.events import MAX_INS
 from tophat_tpu_torch.ops.splice import KIND_JUNCTION
 from tophat_tpu_torch.pipeline.juncs import empty_events
+from tophat_tpu_torch.utils import trace
 
 EXTEND = 45          # reference: segment_juncs.cpp:4349
 REPEAT_TOL = 5       # :4350
@@ -78,6 +79,7 @@ def _motif_sites(g, starts, ends, n, a: int, b: int):
     return p[(g[p] == a) & (g[p + 1] == b)]
 
 
+@trace.span("coverage_search", sync=True)
 def coverage_search_events(fm, genome, gs, seg_tables,
                            params) -> Dict[str, np.ndarray]:
     """The JAX package's coverage_search_events, element for element, in
@@ -85,7 +87,7 @@ def coverage_search_events(fm, genome, gs, seg_tables,
     come from the segment hits' intervals, where the reference paints
     every base of the genome (diff/cumsum masks)."""
     n = fm.n
-    seg_pos, seg_mm, seg_valid = (x.cpu().numpy() for x in seg_tables)
+    seg_pos, seg_mm, seg_valid = (trace.to_host(x) for x in seg_tables)
     seg_len = (gs.cuts[:, 1:] - gs.cuts[:, :-1])  # (rows, S)
 
     valid = seg_valid
@@ -98,6 +100,7 @@ def coverage_search_events(fm, genome, gs, seg_tables,
     rises, falls = _positive_runs(starts, starts + lens, n)
     keep = (falls - rises) >= MIN_COV_LENGTH
     rises, falls = rises[keep], falls[keep]
+    trace.count("coverage.islands", rises.size)
     if rises.size == 0:
         return empty_events()
 

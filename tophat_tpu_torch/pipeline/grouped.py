@@ -39,12 +39,11 @@ from tophat_tpu_torch.pipeline.juncs import (discover_events, empty_events,
                                              merge_events)
 from tophat_tpu_torch.pipeline.params import Params
 from tophat_tpu_torch.pipeline.prep import prep_filter
-from tophat_tpu_torch.pipeline.report import (accumulate_event_stats,
-                                              filter_junctions, write_outputs)
+from tophat_tpu_torch.pipeline.report import write_outputs
 from tophat_tpu_torch.pipeline.run import (MateState, _select, _spliced_mate,
                                            _trans_for, _v2_score_of,
                                            candidates_for_mate,
-                                           default_chains, merge_stats,
+                                           default_chains, junction_stats,
                                            revcomp_rows)
 from tophat_tpu_torch.pipeline.transcriptome import (
     map_reads_transcriptome, transcriptome_candidates)
@@ -317,12 +316,7 @@ def pipeline_core_grouped(genome: Genome, batches, params: Params,
         mapper.fill_candidates(mate, events, paired=len(batches) > 1)
 
     # pass 1: stats + acceptance on the merged global structures
-    stats: Dict[int, object] = {}
-    for mate in mates:
-        merge_stats(stats, accumulate_event_stats(
-            mate.cands, events, mate.batch.lengths.astype(np.int32)))
-    filter_junctions(events, stats, params, gtf_accept=gtf_accept)
-    accepted = {e for e, st in stats.items() if st.accepted}
+    stats, accepted = junction_stats(mates, events, params, gtf_accept)
     return mates, events, stats, accepted, gfm
 
 

@@ -24,6 +24,7 @@ from tophat_tpu_torch.ops.splice import (KIND_DELETION, KIND_FUSION,
                                          scan_fusion_windows,
                                          scan_indel_pairs, scan_windows)
 from tophat_tpu_torch.pipeline.segment import GenomeSpaceReads, map_segments
+from tophat_tpu_torch.utils import trace
 
 MAX_WINDOWS = 32768
 # junction scan hits are capped independently of the window count: every
@@ -73,6 +74,7 @@ def _library_type_keep(params, strands, rev, read_side):
     return np.where(rev, ~skip_rev, skip_rev)
 
 
+@trace.span("discovery", sync=True)
 def discover_events(fm, offsets, gs: GenomeSpaceReads, params,
                     seg_tables=None, log=None,
                     read_side: int = 0) -> Dict[str, np.ndarray]:
@@ -113,11 +115,11 @@ def discover_events(fm, offsets, gs: GenomeSpaceReads, params,
             f"junction scan hits overflowed {MAX_SCAN_HITS} slots; "
             "some candidates were dropped (raise MAX_SCAN_HITS or "
             "reduce the chunk size)", stacklevel=2)
-    jl = cl[:cnt].cpu().numpy()
-    jr = cr[:cnt].cpu().numpy()
-    jrev = crev[:cnt].cpu().numpy().astype(bool)
+    jl = trace.to_host(cl[:cnt])
+    jr = trace.to_host(cr[:cnt])
+    jrev = trace.to_host(crev[:cnt]).astype(bool)
     if params.library_type != "fr-unstranded":
-        row_strand = gs.strand[crow[:cnt].cpu().numpy()]
+        row_strand = gs.strand[trace.to_host(crow[:cnt])]
         keep_dir = _library_type_keep(params, row_strand, jrev, read_side)
         jl, jr, jrev = jl[keep_dir], jr[keep_dir], jrev[keep_dir]
     juncs = dict(left=jl.astype(np.int32), right=jr.astype(np.int32),
@@ -142,7 +144,7 @@ def discover_events(fm, offsets, gs: GenomeSpaceReads, params,
         out = scan_indel_pairs(fm.genome, readsg, lengths, pairs,
                                two_seg_max)
         kind, left, right, ins_len, valid, _, rowf, ins_off = (
-            a.cpu().numpy() for a in out)
+            trace.to_host(a) for a in out)
         kind, left, right = kind[valid], left[valid], right[valid]
         ins_len = ins_len[valid]
         rowf = rowf[valid]
@@ -168,7 +170,7 @@ def discover_events(fm, offsets, gs: GenomeSpaceReads, params,
                 f"fusion windows overflowed {MAX_WINDOWS} slots; some "
                 "candidates were dropped (raise MAX_WINDOWS or reduce the "
                 "chunk size)", stacklevel=2)
-        fl, fr, _, fvalid = (a.cpu().numpy() for a in scan_fusion_windows(
+        fl, fr, _, fvalid = (trace.to_host(a) for a in scan_fusion_windows(
             fm.genome, readsg, fwin, sup_max))
         fl, fr = fl[fvalid], fr[fvalid]
         fusions = dict(left=fl.astype(np.int32), right=fr.astype(np.int32),

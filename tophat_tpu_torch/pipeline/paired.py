@@ -43,6 +43,7 @@ from tophat_tpu_torch.pipeline.run import (_index_for, _map_mate,
                                            candidates_for_mate,
                                            merge_stats, resolve_device,
                                            search_tables)
+from tophat_tpu_torch.utils import trace
 
 
 @dataclasses.dataclass
@@ -165,6 +166,7 @@ def run_pipeline_paired(genome: Genome, batch1, batch2, params, out_dir,
         log=log, gfm=gfm, device=device)
 
 
+@trace.span(trace.ROOT)
 def run_pipeline_paired_streaming(genome: Genome, pair_iter, params,
                                   out_dir, fm=None, known_events=None,
                                   gtf_accept=None, trans=None, log=print,
@@ -204,29 +206,46 @@ def run_pipeline_paired_streaming(genome: Genome, pair_iter, params,
         log(f"pair chunk {len(chunks) - 1}: {b1.size} read pairs")
     if not chunks:
         raise SystemExit("Error: no reads in input")
-    events = mapper.finalize_events(known_events)
+    with trace.span("events.union"):
+        events = mapper.finalize_events(known_events)
+        trace.count("events", len(events["left"]))
 
-    stats: Dict[int, EventStats] = {}
-    for (b1, b2, m1, m2) in chunks:
-        for m in (m1, m2):
-            mapper.fill_candidates(m, events, paired=True)
+    all_mates = [m for (_, _, m1, m2) in chunks for m in (m1, m2)]
+    for m in all_mates:
+        mapper.fill_candidates(m, events, paired=True)
+    with trace.span("junctions.filter"):
+        stats: Dict[int, EventStats] = {}
+        for m in all_mates:
             merge_stats(stats, accumulate_event_stats(
                 m.cands, events, m.batch.lengths.astype(np.int32)))
-    filter_junctions(events, stats, params, gtf_accept=gtf_accept)
-    accepted = {e for e, st in stats.items() if st.accepted}
+        filter_junctions(events, stats, params, gtf_accept=gtf_accept)
+        accepted = {e for e, st in stats.items() if st.accepted}
 
-    with open(os.path.join(out_dir, "prep_reads.info"), "w") as f:
-        f.write("left reads:\n" + prep_all[0].info_text())
-        f.write("right reads:\n" + prep_all[1].info_text())
+    with trace.span("pairs.select"):
+        records, chunk_selected, final_stats, tally = _select_pairs(
+            chunks, all_mates, events, stats, accepted, params)
+    with trace.span("output"):
+        _write_paired(out_dir, genome, params, events, records,
+                      chunk_selected, final_stats, tally, prep_all)
+    log(f"paired done in {time.time() - t0:.1f}s; "
+        f"{len(records)} records, {tally[0]} pairs over "
+        f"{len(chunk_selected)} chunks")
+    sel_pairs = [(s0, s1) for (_, _, s0, s1) in chunk_selected]
+    return dict(events=events, stats=stats, selected=sel_pairs[0],
+                selected_chunks=sel_pairs, fm=fm)
 
+
+def _select_pairs(chunks, all_mates, events, stats, accepted, params):
+    """Selection, mate rescue and pair grading, chunk by chunk; (records
+    to write, [(batch1, batch2, selected1, selected2)] per chunk, the
+    events' final stats, (pairs, single, discordant, reads 1, reads 2,
+    mapped 1, mapped 2, multi 1, multi 2))."""
     rng = np.random.default_rng(1)
     final_stats: Dict[int, EventStats] = {}
     records = []
     chunk_selected = []          # [(batch1, batch2, sel0, sel1)]
     n_pairs = n_single = n_disc = 0
     total1 = total2 = mapped1 = mapped2 = multi1 = multi2 = 0
-
-    all_mates = [m for (_, _, m1, m2) in chunks for m in (m1, m2)]
     score_of = _v2_score_of(params, all_mates, events, stats)
     for ci, (batch1, batch2, m1, m2) in enumerate(chunks):
         selected: List[Dict[int, List[Candidate]]] = []
@@ -348,6 +367,81 @@ def run_pipeline_paired_streaming(genome: Genome, pair_iter, params,
         multi1 += sum(1 for v in selected[0].values() if len(v) > 1)
         multi2 += sum(1 for v in selected[1].values() if len(v) > 1)
 
+    return records, chunk_selected, final_stats, (
+        n_pairs, n_single, n_disc, total1, total2, mapped1, mapped2, multi1,
+        multi2)
+
+
+def _write_paired(out_dir, genome, params, events, records, chunk_selected,
+                  final_stats, tally, prep_all):
+    """Every output file of a paired run."""
+    n_pairs, _, n_disc, total1, total2, mapped1, mapped2, multi1, multi2 = \
+        tally
+    bam_recs = _write_paired_sam(out_dir, genome, params, events, records)
+
+    header = "\n".join(samio.header_lines(genome, params=params)) + "\n"
+    lens = [int(x) for x in genome.contig_lengths()]
+    with trace.span("output.bam"):
+        w = BamWriter(os.path.join(out_dir, "accepted_hits.bam"), header,
+                      genome.names, lens)
+        for r in bam_recs:
+            w.write(r)
+        w.close()
+
+    with trace.span("output.unmapped"):
+        w = BamWriter(os.path.join(out_dir, "unmapped.bam"),
+                      "\n".join(samio.header_lines(genome, "unsorted",
+                                                    params=params)) + "\n",
+                      genome.names, lens)
+        for (batch1, batch2, sel0, sel1) in chunk_selected:
+            for mi, (batch, sel) in enumerate(((batch1, sel0),
+                                               (batch2, sel1))):
+                mate_bit = (samio.FLAG_READ1 if mi == 0
+                            else samio.FLAG_READ2)
+                for r in range(batch.size):
+                    if sel.get(r):
+                        continue
+                    rl = int(batch.lengths[r])
+                    w.write(BamRecord(
+                        batch.names[r],
+                        samio.FLAG_PAIRED | mate_bit | samio.FLAG_UNMAPPED,
+                        -1, -1, 0, [], -1, -1, 0,
+                        decode_seq(batch.codes[r][:rl]).encode(),
+                        batch.quals[r][:rl] or b"*", []))
+        w.close()
+
+    with trace.span("output.beds"):
+        _write_beds(out_dir, genome, events, final_stats)
+    if params.fusion_search:
+        parts = []
+        for (batch1, batch2, sel0, sel1) in chunk_selected:
+            parts += [(batch1, sel0), (batch2, sel1)]
+        ft = build_fusion_table(genome, events, params, parts)
+        # mate-pair evidence (pair_support, fusions.cpp:497)
+        for (batch1, batch2, sel0, sel1) in chunk_selected:
+            for r in range(max(batch1.size, batch2.size)):
+                s1 = sel0.get(r, []) if r < batch1.size else []
+                s2 = sel1.get(r, []) if r < batch2.size else []
+                if (s1 and s2 and len(s1) <= params.fusion_multipairs
+                        and len(s2) <= params.fusion_multipairs):
+                    ft.add_pair(s1[0], s2[0], int(batch1.lengths[r]),
+                                int(batch2.lengths[r]))
+        ft.write(os.path.join(out_dir, "fusions.out"))
+
+    with trace.span("output.summary"):
+        with open(os.path.join(out_dir, "prep_reads.info"), "w") as f:
+            f.write("left reads:\n" + prep_all[0].info_text())
+            f.write("right reads:\n" + prep_all[1].info_text())
+        write_align_summary(
+            out_dir, ("Left reads", total1, mapped1, multi1, 0),
+            ("Right reads", total2, mapped2, multi2, 0), None,
+            (n_pairs, 0, n_disc), params.max_multihits)
+
+
+@trace.span("output.sam")
+def _write_paired_sam(out_dir, genome, params, events, records):
+    """accepted_hits.sam, coordinate-sorted; the same records as
+    BamRecords, in the same order."""
     records.sort(key=lambda rec: (rec[0].pos, rec[8], rec[0].read,
                                   rec[3] & 0xC0))
     lines = []
@@ -391,59 +485,5 @@ def run_pipeline_paired_streaming(genome: Genome, pair_iter, params,
     with open(os.path.join(out_dir, "accepted_hits.sam"), "w") as f:
         for ln in lines:
             f.write(ln + "\n")
-
-    header = "\n".join(samio.header_lines(genome, params=params)) + "\n"
-    lens = [int(x) for x in genome.contig_lengths()]
-    w = BamWriter(os.path.join(out_dir, "accepted_hits.bam"), header,
-                  genome.names, lens)
-    for r in bam_recs:
-        w.write(r)
-    w.close()
-
-    w = BamWriter(os.path.join(out_dir, "unmapped.bam"),
-                  "\n".join(samio.header_lines(genome, "unsorted",
-                                                params=params)) + "\n",
-                  genome.names, lens)
-    for (batch1, batch2, sel0, sel1) in chunk_selected:
-        for mi, (batch, sel) in enumerate(((batch1, sel0),
-                                           (batch2, sel1))):
-            mate_bit = samio.FLAG_READ1 if mi == 0 else samio.FLAG_READ2
-            for r in range(batch.size):
-                if sel.get(r):
-                    continue
-                rl = int(batch.lengths[r])
-                w.write(BamRecord(
-                    batch.names[r],
-                    samio.FLAG_PAIRED | mate_bit | samio.FLAG_UNMAPPED,
-                    -1, -1, 0, [], -1, -1, 0,
-                    decode_seq(batch.codes[r][:rl]).encode(),
-                    batch.quals[r][:rl] or b"*", []))
-    w.close()
-
-    _write_beds(out_dir, genome, events, final_stats)
-    if params.fusion_search:
-        parts = []
-        for (batch1, batch2, sel0, sel1) in chunk_selected:
-            parts += [(batch1, sel0), (batch2, sel1)]
-        ft = build_fusion_table(genome, events, params, parts)
-        # mate-pair evidence (pair_support, fusions.cpp:497)
-        for (batch1, batch2, sel0, sel1) in chunk_selected:
-            for r in range(max(batch1.size, batch2.size)):
-                s1 = sel0.get(r, []) if r < batch1.size else []
-                s2 = sel1.get(r, []) if r < batch2.size else []
-                if (s1 and s2 and len(s1) <= params.fusion_multipairs
-                        and len(s2) <= params.fusion_multipairs):
-                    ft.add_pair(s1[0], s2[0], int(batch1.lengths[r]),
-                                int(batch2.lengths[r]))
-        ft.write(os.path.join(out_dir, "fusions.out"))
-
-    write_align_summary(
-        out_dir, ("Left reads", total1, mapped1, multi1, 0),
-        ("Right reads", total2, mapped2, multi2, 0), None,
-        (n_pairs, 0, n_disc), params.max_multihits)
-    log(f"paired done in {time.time() - t0:.1f}s; "
-        f"{len(records)} records, {n_pairs} pairs over "
-        f"{len(chunk_selected)} chunks")
-    sel_pairs = [(s0, s1) for (_, _, s0, s1) in chunk_selected]
-    return dict(events=events, stats=stats, selected=sel_pairs[0],
-                selected_chunks=sel_pairs, fm=fm)
+    trace.count("records", len(records))
+    return bam_recs

@@ -33,6 +33,7 @@ from tophat_tpu_torch.io import sam as samio
 from tophat_tpu_torch.ops.splice import (KIND_DELETION, KIND_FUSION,
                                    KIND_INSERTION, KIND_JUNCTION)
 from tophat_tpu_torch.pipeline.fusion_stats import build_fusion_table
+from tophat_tpu_torch.utils import trace
 
 MISMATCH_PENALTY = 6   # bowtie2 mp max (reference: common.h bowtie2_* defaults)
 GAP_OPEN = 5
@@ -758,7 +759,28 @@ def write_outputs_multi(out_dir: str, genome: Genome, params, parts,
     per chunk (the k-way-merge role of the reference's per-thread output
     parts, src/bam_merge.cpp + tophat.py:2736-2830)."""
     os.makedirs(out_dir, exist_ok=True)
+    records, final_stats, bam_blob, tally = _write_sam(out_dir, genome,
+                                                       params, parts, events)
+    write_bam_outputs(out_dir, genome, parts, bam_blob,
+                      skip_accepted=params.no_convert_bam, params=params)
 
+    with trace.span("output.beds"):
+        _write_beds(out_dir, genome, events, final_stats)
+    if params.fusion_search:
+        build_fusion_table(genome, events, params, parts).write(
+            os.path.join(out_dir, "fusions.out"))
+
+    with trace.span("output.summary"):
+        write_align_summary(out_dir, ("Reads",) + tally + (0,), None, None,
+                            None, params.max_multihits)
+    return records
+
+
+@trace.span("output.sam")
+def _write_sam(out_dir, genome, params, parts, events):
+    """accepted_hits.sam of the selected candidates, coordinate-sorted;
+    (records, the events' final stats, the BAM records' bytes, (reads,
+    aligned reads, multi-mapped reads))."""
     final_stats: Dict[int, EventStats] = {}
     records = []  # (c, nh, rl, part_idx)
     n_aligned_reads = 0
@@ -823,18 +845,9 @@ def write_outputs_multi(out_dir: str, genome: Genome, params, parts,
                                           events, last_of_read, next_of)
     with open(os.path.join(out_dir, "accepted_hits.sam"), "wb") as f:
         f.write(sam_content)
-    write_bam_outputs(out_dir, genome, parts, bam_blob,
-                      skip_accepted=params.no_convert_bam, params=params)
-
-    _write_beds(out_dir, genome, events, final_stats)
-    if params.fusion_search:
-        build_fusion_table(genome, events, params, parts).write(
-            os.path.join(out_dir, "fusions.out"))
-
-    write_align_summary(out_dir, ("Reads", total, n_aligned_reads,
-                                   multimapped, 0), None, None, None,
-                        params.max_multihits)
-    return records
+    trace.count("records", len(records))
+    return (records, final_stats, bam_blob,
+            (total, n_aligned_reads, multimapped))
 
 
 def write_align_summary(out_dir, left, right, unpaired, pairs,
@@ -1086,17 +1099,19 @@ def write_bam_outputs(out_dir, genome, parts, bam_blob,
     header = "\n".join(samio.header_lines(genome, params=params)) + "\n"
     lens = [int(x) for x in genome.contig_lengths()]
     if not skip_accepted:
-        w = BamWriter(os.path.join(out_dir, "accepted_hits.bam"), header,
-                      genome.names, lens)
-        w.write_encoded(bam_blob)
-        w.close()
+        with trace.span("output.bam"):
+            w = BamWriter(os.path.join(out_dir, "accepted_hits.bam"), header,
+                          genome.names, lens)
+            w.write_encoded(bam_blob)
+            w.close()
 
-    w = BamWriter(os.path.join(out_dir, "unmapped.bam"),
-                  "\n".join(samio.header_lines(genome, "unsorted",
-                                               params=params)) + "\n",
-                  genome.names, lens)
-    w.write_encoded(_unmapped_blob(parts))
-    w.close()
+    with trace.span("output.unmapped"):
+        w = BamWriter(os.path.join(out_dir, "unmapped.bam"),
+                      "\n".join(samio.header_lines(genome, "unsorted",
+                                                   params=params)) + "\n",
+                      genome.names, lens)
+        w.write_encoded(_unmapped_blob(parts))
+        w.close()
 
 
 def _write_beds(out_dir, genome, events, stats: Dict[int, EventStats]):

@@ -12,12 +12,14 @@ With fusion search, discovery adds FF fusion events, and each mate's
 candidates add FR/RF fusions (ops/fusion_fr.py) and chains over every row,
 cross-strand ones included (pipeline/chains.py).
 Device stages take torch tensors on `device`; every crossing back to the
-host is an explicit .cpu() (np.asarray of a CUDA tensor raises).
+host is an explicit, counted read (utils/trace.to_host; np.asarray of a
+CUDA tensor raises).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import itertools
 import os
 import time
 import types
@@ -57,6 +59,7 @@ from tophat_tpu_torch.pipeline.segment import (build_genome_space,
                                                map_segments)
 from tophat_tpu_torch.pipeline.transcriptome import (
     map_reads_transcriptome, transcriptome_candidates)
+from tophat_tpu_torch.utils import trace
 from tophat_tpu_torch.utils.device import resolve_device
 
 
@@ -85,17 +88,19 @@ def load_reads(files: List[str], quals_scale: str,
 
 def iter_read_batches(files: List[str], quals_scale: str, batch_size: int,
                       integer_quals: bool = False):
-    """Stream (name, seq, qual) records into fixed-size ReadBatches."""
-    buf = []
-    for path in files:
-        for rec in read_all(path, quals_scale,
-                            integer_quals=integer_quals):
-            buf.append(rec)
-            if len(buf) >= batch_size:
-                yield batch_reads(buf)
-                buf = []
-    if buf:
-        yield batch_reads(buf)
+    """Stream (name, seq, qual) records into fixed-size ReadBatches. The
+    parse of each batch is one `fastq.parse` span, closed before the batch
+    is handed on."""
+    records = itertools.chain.from_iterable(
+        read_all(path, quals_scale, integer_quals=integer_quals)
+        for path in files)
+    while True:
+        with trace.span("fastq.parse"):
+            buf = list(itertools.islice(records, max(batch_size, 1)))
+            batch = batch_reads(buf) if buf else None
+        if batch is None:
+            return
+        yield batch
 
 
 @dataclasses.dataclass
@@ -213,12 +218,13 @@ def _spliced_mate(fm, offsets, m: MateState, params: Params,
                             params.segment_length, row_mask=ium,
                             pad_rows_pow2=True)
     m.gs = gs
+    trace.count("segments", int(gs.nseg[gs.read_idx >= 0].sum()))
     if gs.rows:
         m.seg_tables = map_segments(
             fm, offsets, gs, segment_mismatches=params.segment_mismatches,
             hits_per_seed=params.hits_per_seed, max_hits=16)
         st = stitch_contiguous(*m.seg_tables, gs.cuts, gs.nseg)
-        m.stitched = tuple(x.cpu().numpy() for x in st)
+        m.stitched = tuple(trace.to_host(x) for x in st)
     if params.bowtie2 and m.seg_tables is not None:
         # bowtie2-mode direct gapped alignment of the IUM reads (no
         # segment-pair discovery needed; reference tophat.py:2253-2337)
@@ -228,6 +234,7 @@ def _spliced_mate(fm, offsets, m: MateState, params: Params,
             log(f"bowtie2 gapped: {len(m.gapped)} direct indel alignments")
 
 
+@trace.span("map", sync=True)
 def _map_mate(fm, offsets, batch: ReadBatch, params: Params, log,
               genome=None, trans=None) -> MateState:
     m, ium, reads_f, reads_r, lengths = _align_mate(
@@ -312,12 +319,7 @@ def pipeline_core(genome: Genome, batches: List[ReadBatch], params: Params,
                             paired=len(mates) > 1)
 
     # pass 1: stats + acceptance over all candidates
-    stats: Dict[int, object] = {}
-    for m in mates:
-        merge_stats(stats, accumulate_event_stats(
-            m.cands, events, m.batch.lengths.astype(np.int32)))
-    filter_junctions(events, stats, params, gtf_accept=gtf_accept)
-    accepted = {e for e, st in stats.items() if st.accepted}
+    stats, accepted = junction_stats(mates, events, params, gtf_accept)
     return mates, events, stats, accepted, fm
 
 
@@ -333,6 +335,18 @@ def _v2_score_of(params, mates, events, stats):
     return lambda c: smap[id(c)]
 
 
+@trace.span("junctions.filter")
+def junction_stats(mates, events, params, gtf_accept):
+    """Pass 1 over the mates' candidates: each event's stats, then
+    filter_junctions; (stats, the accepted events)."""
+    stats: Dict[int, object] = {}
+    for m in mates:
+        merge_stats(stats, accumulate_event_stats(
+            m.cands, events, m.batch.lengths.astype(np.int32)))
+    filter_junctions(events, stats, params, gtf_accept=gtf_accept)
+    return stats, {e for e, st in stats.items() if st.accepted}
+
+
 def merge_stats(into: Dict[int, object], other: Dict[int, object]) -> None:
     for e, st in other.items():
         if e in into:
@@ -345,6 +359,7 @@ def merge_stats(into: Dict[int, object], other: Dict[int, object]) -> None:
             into[e] = st
 
 
+@trace.span("candidates", sync=True)
 def candidates_for_mate(fm, m: MateState, events, params, log,
                         paired=False, chain_default=True) -> None:
     """Realign one chunk/mate against the (global) event table and build
@@ -529,6 +544,7 @@ def run_pipeline(genome: Genome, batch: ReadBatch, params: Params,
                 fm=fm)
 
 
+@trace.span(trace.ROOT)
 def run_pipeline_streaming(genome: Genome, batch_iter, params: Params,
                            out_dir: str, fm: Optional[FMIndex] = None,
                            known_events=None, gtf_accept=None, trans=None,
@@ -567,29 +583,29 @@ def run_pipeline_streaming(genome: Genome, batch_iter, params: Params,
         fm = types.SimpleNamespace(
             genome=torch.as_tensor(genome.codes, device=dev),
             genome_host=genome.codes)
-    if known_events is not None:
-        tables.append(known_events)
-    events = merge_events(*tables)
+    with trace.span("events.union"):
+        if known_events is not None:
+            tables.append(known_events)
+        events = merge_events(*tables)
+        trace.count("events", len(events["left"]))
     log(f"{len(events['left'])} candidate events across "
         f"{len(chunks)} chunks")
 
-    with open(os.path.join(out_dir, "prep_reads.info"), "w") as f:
-        f.write(prep_all.info_text())
-
-    stats: Dict[int, object] = {}
     for m in chunks:
         candidates_for_mate(fm, m, events, params, log)
-        merge_stats(stats, accumulate_event_stats(
-            m.cands, events, m.batch.lengths.astype(np.int32)))
-    filter_junctions(events, stats, params, gtf_accept=gtf_accept)
-    accepted = {e for e, st in stats.items() if st.accepted}
+    stats, accepted = junction_stats(chunks, events, params, gtf_accept)
 
-    rng = np.random.default_rng(1)
-    score_of = _v2_score_of(params, chunks, events, stats)
-    parts = [(m.batch, _select(m, params, accepted, rng, score_of))
-             for m in chunks]
+    with trace.span("pairs.select"):
+        rng = np.random.default_rng(1)
+        score_of = _v2_score_of(params, chunks, events, stats)
+        parts = [(m.batch, _select(m, params, accepted, rng, score_of))
+                 for m in chunks]
 
-    records = write_outputs_multi(out_dir, genome, params, parts, events)
+    with trace.span("output"):
+        records = write_outputs_multi(out_dir, genome, params, parts, events)
+        with trace.span("output.summary"):
+            with open(os.path.join(out_dir, "prep_reads.info"), "w") as f:
+                f.write(prep_all.info_text())
     log(f"streaming done in {time.time() - t0:.1f}s; {len(records)} "
         f"alignments over {len(chunks)} chunks")
     return dict(events=events, stats=stats, parts=parts, fm=fm)
@@ -605,7 +621,10 @@ def _mapped_chunk(fm_get, genome, offsets, batch, params, log, trans=None,
     import pickle
 
     art = os.path.join(tmp_dir, f"{tag}.pkl") if tmp_dir else None
-    key = _chunk_key(batch, params) if art else None
+    key = None
+    if art:
+        with trace.span("chunk.artifact"):
+            key = _chunk_key(batch, params)
     if resume and art and os.path.exists(art):
         try:
             with open(art, "rb") as f:
@@ -626,22 +645,31 @@ def _mapped_chunk(fm_get, genome, offsets, batch, params, log, trans=None,
     if m.gapped_events is not None:
         chunk_tables.append(m.gapped_events)
     if art:
-        batch_ref = m.batch
-        seg_ref = m.seg_tables
-        try:
-            os.makedirs(tmp_dir, exist_ok=True)
-            if seg_ref is not None:   # host copies: loadable on any device
-                m.seg_tables = tuple(a.cpu().numpy() for a in seg_ref)
-            m.batch = None          # reads live in the input files
-            with open(art, "wb") as f:
-                pickle.dump((m, chunk_tables, key), f,
-                            protocol=pickle.HIGHEST_PROTOCOL)
-        except OSError:
-            pass                    # artifact write is best-effort
-        finally:
-            m.batch = batch_ref
-            m.seg_tables = seg_ref
+        with trace.span("chunk.artifact"):
+            _save_chunk(art, m, chunk_tables, key)
     return m, chunk_tables
+
+
+def _save_chunk(art, m, chunk_tables, key) -> None:
+    """Persist one mapped chunk (segment tables as host numpy) for
+    _mapped_chunk's resume; best-effort."""
+    import pickle
+
+    batch_ref = m.batch
+    seg_ref = m.seg_tables
+    try:
+        os.makedirs(os.path.dirname(art), exist_ok=True)
+        if seg_ref is not None:   # host copies: loadable on any device
+            m.seg_tables = tuple(trace.to_host(a) for a in seg_ref)
+        m.batch = None          # reads live in the input files
+        with open(art, "wb") as f:
+            pickle.dump((m, chunk_tables, key), f,
+                        protocol=pickle.HIGHEST_PROTOCOL)
+    except OSError:
+        pass                    # artifact write is best-effort
+    finally:
+        m.batch = batch_ref
+        m.seg_tables = seg_ref
 
 
 def _chunk_key(batch, params) -> str:

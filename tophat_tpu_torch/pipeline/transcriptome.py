@@ -32,6 +32,7 @@ from tophat_tpu_torch.ops.align import (align_reads_adaptive, kmer_fast_ok,
                                         transfer_alignments)
 from tophat_tpu_torch.ops.splice import KIND_JUNCTION
 from tophat_tpu_torch.pipeline.report import Candidate
+from tophat_tpu_torch.utils import trace
 from tophat_tpu_torch.utils.device import resolve_device
 
 
@@ -87,6 +88,7 @@ def build_transcriptome_index(genome: Genome, transcripts, prefix=None,
     return TranscriptomeIndex(fm, tgenome, rows)
 
 
+@trace.span("map.transcriptome", sync=True)
 def map_reads_transcriptome(tix: TranscriptomeIndex, genome: Genome,
                             reads_f, reads_r, lengths, params
                             ) -> Dict[int, List[Tuple]]:
