@@ -219,6 +219,25 @@ def test_streaming_pipelines_traced(annotated_case, tmp_path, mates):
     assert c["host_syncs"] > 0 and c["host_sync_bytes"] > 0
     assert sp["realign"]["counts"]["realign.rows"] == c["realign.rows"]
     assert sp["output.sam"]["counts"] == {"records": c["records"]}
+    assert "junctions.shadowed" in sp["junctions.filter"]["counts"]
+
+
+def test_junction_filter_counts_shadowed():
+    """junctions.shadowed counts exactly the junctions that pass acceptance
+    but that the JAX package's shadow knockout rejects (tracing off: the
+    counter counts all the same)."""
+    import types
+
+    from test_torch_junction_filter import clustered, run_both, shadowed
+
+    rows, _ = clustered(23, 6, 40)
+    params = types.SimpleNamespace(min_anchor_len=8, splice_mismatches=2)
+    trace.reset()
+    got, want, alone = run_both(rows, params, None)
+    assert got == want
+    n = trace.snapshot()["counters"]["junctions.shadowed"]
+    assert n == len(shadowed(want, alone)) > 0
+    trace.reset()
 
 
 def test_cli_trace_writes_trace_json(tmp_path, monkeypatch):
