@@ -2,7 +2,8 @@
 counters and host syncs; tracing off records nothing; both streaming
 pipelines traced on an annotated CPU case, every stage span under one
 pipeline call and every output file the same with tracing on and off; the
-CLI's --trace."""
+de novo single-end run's segment-search and chain spans and its discovery
+and chain counters; the CLI's --trace."""
 
 import json
 import threading
@@ -17,9 +18,10 @@ from tophat_tpu_torch.utils import trace
 # every span the streaming pipelines open on an annotated run, and its
 # parent
 SPANS = {"sample": None, "fastq.parse": "sample", "map": "sample",
-         "map.transcriptome": "map", "discovery": "sample",
-         "coverage_search": "sample", "events.union": "sample",
-         "candidates": "sample", "realign": "candidates",
+         "map.transcriptome": "map", "map.segments": "map",
+         "discovery": "sample", "coverage_search": "sample",
+         "events.union": "sample", "candidates": "sample",
+         "realign": "candidates", "candidates.chains": "candidates",
          "junctions.filter": "sample", "pairs.select": "sample",
          "output": "sample", "output.sam": "output", "output.bam": "output",
          "output.unmapped": "output", "output.beds": "output",
@@ -203,7 +205,7 @@ def test_streaming_pipelines_traced(annotated_case, tmp_path, mates):
     seen = {r.name: r.parent for r in recs}
     for name, parent in SPANS.items():
         assert seen.get(name, "missing") == parent, name
-    root = next(r for r in recs if r.name == trace.ROOT)
+    root = _adds_up(recs)
     assert root.self_s < 0.05 * root.wall_s
     sp = snap["spans"]
     chunks = -(-annotated_case["reads"] // CHUNK)
@@ -220,6 +222,123 @@ def test_streaming_pipelines_traced(annotated_case, tmp_path, mates):
     assert sp["realign"]["counts"]["realign.rows"] == c["realign.rows"]
     assert sp["output.sam"]["counts"] == {"records": c["records"]}
     assert "junctions.shadowed" in sp["junctions.filter"]["counts"]
+
+
+def _adds_up(recs):
+    """Every record under one pipeline call, no span's children longer
+    than itself, and the self times of all spans summing to the root's
+    wall; the root's record."""
+    root = next(r for r in recs if r.name == trace.ROOT)
+    assert {r.sample for r in recs} == {0}
+    assert all(r.self_s >= 0 for r in recs)
+    assert sum(r.self_s for r in recs) == pytest.approx(root.wall_s,
+                                                        rel=1e-6)
+    return root
+
+
+@pytest.fixture(scope="module")
+def multi_junction_case(tmp_path_factory):
+    """A 40-kb genome holding one gene of four exons (60/30/30/60 bp,
+    GT..AG introns of 180, 150 and 220 bp), as test_chains_default builds
+    it, and a FASTQ of 100-bp reads at every second offset of its
+    transcript: most cross two or three introns, a few one."""
+    from tophat_tpu_torch.index.fasta import Genome, decode_seq
+    from tophat_tpu_torch.index.fm import build_fm_index
+
+    rng = np.random.default_rng(11)
+    n = 40_000
+    codes = rng.integers(0, 4, n).astype(np.int8)
+    exons, p = [], 5_000
+    for el, il in zip((60, 30, 30, 60), (180, 150, 220, 0)):
+        exons.append((p, p + el))
+        if il:
+            codes[p + el:p + el + 2] = (2, 3)                 # GT
+            codes[p + el + il - 2:p + el + il] = (0, 2)       # AG
+        p += el + il
+    tx = np.concatenate([codes[a:b] for a, b in exons])
+    genome = Genome(codes=codes, offsets=np.array([0, n]), names=["chrT"])
+    fq = tmp_path_factory.mktemp("multi_junction") / "reads.fq"
+    starts = range(0, len(tx) - 100 + 1, 2)
+    fq.write_text("".join(f"@r{s}\n{decode_seq(tx[s:s + 100])}\n+\n"
+                          f"{'I' * 100}\n" for s in starts))
+    juncs = {(a[1] - 1, b[0]) for a, b in zip(exons, exons[1:])}
+    return dict(genome=genome, fq=str(fq), reads=len(starts), juncs=juncs,
+                fm=build_fm_index(genome, device="cpu"))
+
+
+def test_de_novo_single_end_spans_and_counters(multi_junction_case,
+                                               tmp_path, monkeypatch):
+    """An unannotated single-end streaming run with the coverage search
+    off, as the CLI makes it with a tmp dir: `map.segments` once a chunk
+    inside `map`, `candidates.chains` once a chunk inside `candidates`,
+    the discovery counters equal to the tables discover_events returned,
+    `chains.found` equal to the chains that joined candidate lists, and
+    the span tree nesting and adding up."""
+    from tophat_tpu_torch.ops.splice import (KIND_DELETION, KIND_INSERTION,
+                                             KIND_JUNCTION)
+    from tophat_tpu_torch.pipeline import run as prun
+    from tophat_tpu_torch.pipeline.params import Params
+
+    case = multi_junction_case
+    tables, chains = [], []
+    discover, select = prun.discover_events, prun._select
+
+    def discover_kept(*a, **k):
+        tables.append(discover(*a, **k))
+        return tables[-1]
+
+    def select_seen(m, *a, **k):
+        chains.extend(c for cl in m.cands.values() for c in cl
+                      if c.kind == -2)
+        return select(m, *a, **k)
+
+    monkeypatch.setattr(prun, "discover_events", discover_kept)
+    monkeypatch.setattr(prun, "_select", select_seen)
+    params = Params(coverage_search=False)
+    out = tmp_path / "out"
+    trace.reset()
+    trace.enable()
+    try:
+        res = prun.run_pipeline_streaming(
+            case["genome"], prun.iter_read_batches([case["fq"]],
+                                                   params.quals_scale,
+                                                   CHUNK),
+            params, str(out), fm=case["fm"], tmp_dir=str(out / "tmp"),
+            log=lambda *a: None, device="cpu")
+        snap = trace.snapshot()
+    finally:
+        trace.disable()
+        trace.reset()
+    chunks = -(-case["reads"] // CHUNK)
+    recs = snap["records"]
+    root = _adds_up(recs)
+    assert root.self_s < 0.05 * root.wall_s
+    sp = snap["spans"]
+    for name, parent in (("map.segments", "map"),
+                         ("candidates.chains", "candidates"),
+                         ("chunk.artifact", "sample")):
+        assert {r.parent for r in recs if r.name == name} == {parent}, name
+    assert sp["map.segments"]["calls"] == sp["map"]["calls"] == chunks > 1
+    assert sp["candidates.chains"]["calls"] == chunks
+    assert "coverage_search" not in sp
+    assert sp["map.segments"]["counts"]["segments"] == \
+        snap["counters"]["segments"] > 0
+    c = snap["counters"]
+    assert len(tables) == chunks
+    for name, kind in (("discovery.junctions", KIND_JUNCTION),
+                       ("discovery.insertions", KIND_INSERTION),
+                       ("discovery.deletions", KIND_DELETION)):
+        assert c[name] == sum(int((t["kind"] == kind).sum())
+                              for t in tables), name
+    assert c["discovery.junctions"] > 0
+    # the chains joined the reads' candidate lists, and the three introns
+    # reached the junction track through them and the one-event reads
+    assert c["chains.found"] == len(chains) > 0
+    assert 0 < c["chains.rows"]
+    assert sp["candidates.chains"]["counts"]["chains.found"] == len(chains)
+    ev = res["events"]
+    for lt, rt in case["juncs"]:
+        assert ((ev["left"] == lt) & (ev["right"] == rt)).any()
 
 
 def test_junction_filter_counts_shadowed():

@@ -169,6 +169,7 @@ def chain_stitch(fm, gs, seg_tables, events, params,
                  seg_hits=None) -> List[ChainCandidate]:
     """Assemble multi-event chains for every genome-space row. seg_hits:
     segment_event_hits' result for these rows, computed here if None."""
+    trace.count("chains.rows", gs.rows)
     if gs.rows == 0 or len(events["left"]) == 0:
         return []
     tables4, seg_ev = _hit_tables(fm, gs, seg_tables, events, params,
@@ -283,6 +284,7 @@ def chain_stitch(fm, gs, seg_tables, events, params,
             out.append(ChainCandidate(
                 read=int(gs.read_idx[row]), strand=int(gs.strand[row]),
                 pos=pos0, mm=mm, ops=ops, events=evs))
+    trace.count("chains.found", len(out))
     return out
 
 

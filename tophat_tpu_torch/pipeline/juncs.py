@@ -192,10 +192,13 @@ def discover_events(fm, offsets, gs: GenomeSpaceReads, params,
                 | ((cid_l == cid_r) & (ev["left"] < ev["right"])))
         ev = {k: v[keep] for k, v in ev.items()}
 
+    nj = int((ev["kind"] == KIND_JUNCTION).sum())
+    nd = int((ev["kind"] == KIND_DELETION).sum())
+    ni = int((ev["kind"] == KIND_INSERTION).sum())
+    trace.count("discovery.junctions", nj)
+    trace.count("discovery.insertions", ni)
+    trace.count("discovery.deletions", nd)
     if log:
-        nj = int((ev["kind"] == KIND_JUNCTION).sum())
-        nd = int((ev["kind"] == KIND_DELETION).sum())
-        ni = int((ev["kind"] == KIND_INSERTION).sum())
         log(f"Found {nj} potential split-segment junctions")
         log(f"Found {nd} potential small deletions")
         log(f"Found {ni} potential small insertions")

@@ -209,6 +209,7 @@ def _align_mate(fm, offsets, batch: ReadBatch, params: Params, log,
     return m, ium, reads_f, reads_r, lengths
 
 
+@trace.span("map.segments", sync=True)
 def _spliced_mate(fm, offsets, m: MateState, params: Params,
                   ium, reads_f, reads_r, lengths, log=print) -> None:
     """Segment split + mapping + contiguous stitch (+ bowtie2-mode gapped
@@ -477,6 +478,7 @@ def _gapped_candidates(m: MateState, events, log) -> None:
         log(f"bowtie2 direct candidates: {nb2}")
 
 
+@trace.span("candidates.chains", sync=True)
 def default_chains(fm, m: MateState, events, params, log,
                    resolved=None) -> None:
     """Multi-event chains for the default (non-fusion) mode: a read crossing
