@@ -113,11 +113,19 @@ def _run_both(tmp_path, n, jax_kw, chunk=None):
 
 
 @pytest.mark.parametrize("mode", ["default", "no_mixed", "no_discordant",
-                                  "v2_sam"])
-def test_run_pipeline_paired_identical(tmp_path, mode):
+                                  "v2_sam", "no_native"])
+def test_run_pipeline_paired_identical(tmp_path, monkeypatch, mode):
+    """no_native: the port's record emitter without its native library
+    (the Python fallback) writes the same bytes."""
     kw = {"default": {}, "no_mixed": {"no_mixed": True},
           "no_discordant": {"no_discordant": True},
-          "v2_sam": {"v2_sam": True, "inner_dist_mean": 60}}[mode]
+          "v2_sam": {"v2_sam": True, "inner_dist_mean": 60},
+          "no_native": {}}[mode]
+    if mode == "no_native":
+        from tophat_tpu_torch import native
+
+        monkeypatch.setattr(native.bamenc, "_lib", None)
+        monkeypatch.setattr(native.bamenc, "_failed", True)
     recs = _run_both(tmp_path, 30000, kw)
     flags = [int(t[1]) for t in recs]
     assert all(f & 0x1 for f in flags)

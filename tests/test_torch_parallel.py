@@ -205,7 +205,17 @@ def _realign_n_case(R=22, L=32):
     return genome, reads, lengths, ev
 
 
-def test_realign_per_row_shard_matches_one_device_n_over_n():
+def _no_jax_mesh(monkeypatch):
+    """The JAX references run with no active JAX mesh: a JAX CLI run
+    earlier in the same process (test_torch_multidevice's) leaves its mesh
+    active, which sends JAX's one-device calls down its mesh path."""
+    from tophat_tpu.parallel import auto as jax_auto
+
+    monkeypatch.setattr(jax_auto, "_MESH", None)
+    monkeypatch.setattr(jax_auto, "_GSHARD", None)
+
+
+def test_realign_per_row_shard_matches_one_device_n_over_n(monkeypatch):
     """realign_events / realign_events_sparse on a 4-shard mesh (22 rows:
     two pad rows in the last shard) equal the port's and JAX's one-device
     runs, the read N over a genome N included (it matches). JAX's own mesh
@@ -216,6 +226,8 @@ def test_realign_per_row_shard_matches_one_device_n_over_n():
     from tophat_tpu.ops.events import realign_events_sparse as jsparse
     from tophat_tpu_torch.ops import events
     from tophat_tpu_torch.ops.realign_kernel import realign_group_sparse
+
+    _no_jax_mesh(monkeypatch)
 
     genome, reads, lengths, ev = _realign_n_case()
     g = torch.as_tensor(genome)
@@ -254,11 +266,13 @@ def test_realign_per_row_shard_matches_one_device_n_over_n():
     np.testing.assert_array_equal(jmesh[2][rest], mesh[2][rest])
 
 
-def test_sharded_pipeline_step_matches_jax():
+def test_sharded_pipeline_step_matches_jax(monkeypatch):
     """parallel/dist: the step on a 2-shard mesh against JAX's on 2
     devices (tests/test_parallel.py's problem, N-free): all 8 outputs
     equal, best_t where ok."""
     import __graft_entry__ as g
+
+    _no_jax_mesh(monkeypatch)
     from tophat_tpu.parallel.dist import make_sharded_pipeline_step as jstep
     from tophat_tpu.parallel.mesh import make_mesh as jmake
     from tophat_tpu.parallel.mesh import reads_sharding, replicated

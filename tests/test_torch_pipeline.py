@@ -69,6 +69,21 @@ def _compare(dir_a, dir_b):
 
 @pytest.mark.parametrize("n", [30000, (1 << 21) + 4096])
 def test_run_pipeline_outputs_identical(tmp_path, n):
+    _run_pipeline_both(tmp_path, n)
+
+
+def test_run_pipeline_outputs_identical_without_native(tmp_path,
+                                                       monkeypatch):
+    """The port's record emitter without its native library (the Python
+    fallback) writes the same bytes."""
+    from tophat_tpu_torch import native
+
+    monkeypatch.setattr(native.bamenc, "_lib", None)
+    monkeypatch.setattr(native.bamenc, "_failed", True)
+    _run_pipeline_both(tmp_path, 30000)
+
+
+def _run_pipeline_both(tmp_path, n):
     from tophat_tpu.index.fasta import Genome as JGenome
     from tophat_tpu.io.fastq import batch_reads as jbatch
     from tophat_tpu.pipeline.params import Params as JParams

@@ -13,6 +13,7 @@ import numpy as np
 import pytest
 import torch
 
+from tophat_tpu_torch.native import bamenc
 from tophat_tpu_torch.utils import trace
 
 # every span the streaming pipelines open on an annotated run, and its
@@ -220,7 +221,15 @@ def test_streaming_pipelines_traced(annotated_case, tmp_path, mates):
     assert c["coverage.islands"] > 0
     assert c["host_syncs"] > 0 and c["host_sync_bytes"] > 0
     assert sp["realign"]["counts"]["realign.rows"] == c["realign.rows"]
-    assert sp["output.sam"]["counts"] == {"records": c["records"]}
+    # the one emitter formats every record natively when its library
+    # loads; records with extra tags are the single-end secondaries (CC/CP)
+    extra = sum(1 for ln in sam if "\tCC:Z:" in ln or "\tXF:Z:" in ln)
+    assert c["records.extra"] == extra
+    assert (extra > 0) == (mates == 1)
+    assert c["records.native"] == (c["records"] if bamenc.available else 0)
+    assert sp["output.sam"]["counts"] == {
+        "records": c["records"], "records.native": c["records.native"],
+        "records.extra": extra}
     assert "junctions.shadowed" in sp["junctions.filter"]["counts"]
 
 

@@ -1,4 +1,5 @@
-# Copy of tophat_tpu/io/bam.py (host code), imports rewritten.
+# Copy of tophat_tpu/io/bam.py (host code), imports rewritten; records are
+# written columnar only (io/emit.py), with their mate columns.
 """BAM/BGZF reading and writing (pure Python + zlib).
 
 Replaces the role of the vendored samtools-0.1.18 libbam (reference:
@@ -128,66 +129,6 @@ class BamRecord:
         self.tags = tags          # [(tag, type_char, value)]
 
 
-def reg2bin(beg: int, end: int) -> int:
-    end -= 1
-    if beg >= 1 << 29 or end >= 1 << 29:
-        # the 16-bit BAI binning scheme only covers [0, 2^29); htslib
-        # stores the pseudo-bin for out-of-range coordinates (CSI indexes
-        # carry the real bins for long contigs)
-        return 0
-    if beg >> 14 == end >> 14:
-        return ((1 << 15) - 1) // 7 + (beg >> 14)
-    if beg >> 17 == end >> 17:
-        return ((1 << 12) - 1) // 7 + (beg >> 17)
-    if beg >> 20 == end >> 20:
-        return ((1 << 9) - 1) // 7 + (beg >> 20)
-    if beg >> 23 == end >> 23:
-        return ((1 << 6) - 1) // 7 + (beg >> 23)
-    if beg >> 26 == end >> 26:
-        return ((1 << 3) - 1) // 7 + (beg >> 26)
-    return 0
-
-
-def _ref_span(cigar) -> int:
-    return sum(n for op, n in cigar if op in "MDN=X")
-
-
-def encode_record(rec: BamRecord) -> bytes:
-    name = rec.name.encode() + b"\x00"
-    cig = b"".join(struct.pack("<I", (n << 4) | _CIGAR_OPS.index(op))
-                   for op, n in rec.cigar)
-    l_seq = 0 if rec.seq in (b"*", b"") else len(rec.seq)
-    if l_seq:
-        a = _SEQ_ENC_LUT[np.frombuffer(rec.seq, np.uint8, count=l_seq)]
-        if l_seq % 2:
-            a = np.concatenate([a, np.zeros(1, np.uint8)])
-        seq4 = ((a[0::2] << 4) | a[1::2]).tobytes()
-    else:
-        seq4 = b""
-    if rec.qual in (b"*", b"") or l_seq == 0:
-        qual = b"\xff" * l_seq
-    else:
-        qual = (np.frombuffer(rec.qual, np.uint8, count=l_seq)
-                - np.uint8(33)).tobytes()
-    tags = bytearray()
-    for tag, typ, val in rec.tags:
-        tags += tag.encode()
-        if typ == "i":
-            tags += b"i" + struct.pack("<i", val)
-        elif typ == "A":
-            tags += b"A" + val.encode()
-        elif typ == "Z":
-            tags += b"Z" + val.encode() + b"\x00"
-        else:
-            raise ValueError(f"unsupported tag type {typ}")
-    end = rec.pos + max(1, _ref_span(rec.cigar))
-    body = struct.pack(
-        "<iiBBHHHiiii", rec.ref_id, rec.pos, len(name), rec.mapq,
-        reg2bin(rec.pos, end), len(rec.cigar), rec.flag, l_seq,
-        rec.ref_id2, rec.pos2, rec.tlen) + name + cig + seq4 + qual + bytes(tags)
-    return struct.pack("<i", len(body)) + body
-
-
 def _ragged_index(starts: np.ndarray, lengths: np.ndarray) -> np.ndarray:
     """Flat indices covering [starts[i], starts[i]+lengths[i]) for every i,
     concatenated in order — the gather/scatter pattern for variable-length
@@ -208,7 +149,8 @@ def _ragged_index(starts: np.ndarray, lengths: np.ndarray) -> np.ndarray:
 
 
 def reg2bin_vec(beg: np.ndarray, end: np.ndarray) -> np.ndarray:
-    """Vectorized reg2bin (same scheme as reg2bin above)."""
+    """BAI bin of each [beg, end) (SAM spec 5.3; the 16-bit scheme covers
+    [0, 2^29): past it htslib stores the pseudo-bin 0, as here)."""
     beg = beg.astype(np.int64)
     end = end.astype(np.int64) - 1
     out = np.zeros(len(beg), np.int64)
@@ -236,7 +178,8 @@ _ASCII_TO_4BIT = _SEQ_ENC_LUT
 
 def encode_records_columns(names, flag, ref_id, pos, end, mapq,
                            cigar_flat, n_cig, seq_list, qual_list,
-                           no_qual, tag_list) -> bytes:
+                           no_qual, tag_list, mate_ref=None, mate_pos=None,
+                           tlen=None) -> bytes:
     """Columnar BAM record encoder: the whole record blob is assembled with
     numpy ragged scatters instead of per-record struct.pack calls —
     replaces a ~50 us/record Python loop with ~1 us/record array work (the
@@ -254,10 +197,14 @@ def encode_records_columns(names, flag, ref_id, pos, end, mapq,
                 (content ignored where no_qual)
     no_qual:    bool array (N,) — emit 0xFF fill (SAM "*")
     tag_list:   list[bytes] pre-encoded tag blocks
+    mate_ref/mate_pos/tlen: int arrays (N,), or None for -1, -1 and 0
     """
     n = len(names)
     if n == 0:
         return b""
+    mate_ref = np.full(n, -1) if mate_ref is None else mate_ref
+    mate_pos = np.full(n, -1) if mate_pos is None else mate_pos
+    tlen = np.zeros(n) if tlen is None else tlen
     names_join = b"\x00".join(names) + b"\x00"
     name_len = np.fromiter((len(b) + 1 for b in names), np.int64, n)
     # the BAM prefix stores l_read_name in a uint8 and n_cigar_op in a
@@ -295,6 +242,9 @@ def encode_records_columns(names, flag, ref_id, pos, end, mapq,
             np.ascontiguousarray(np.asarray(pos, np.int32)),
             np.ascontiguousarray(np.asarray(end, np.int32)),
             np.ascontiguousarray(np.asarray(mapq, np.int32)),
+            np.ascontiguousarray(np.asarray(mate_ref, np.int32)),
+            np.ascontiguousarray(np.asarray(mate_pos, np.int32)),
+            np.ascontiguousarray(np.asarray(tlen, np.int32)),
             np.ascontiguousarray(np.asarray(cigar_flat, np.uint32)),
             np.ascontiguousarray(cig_off),
             np.frombuffer(seq_join, np.uint8) if seq_join
@@ -324,9 +274,9 @@ def encode_records_columns(names, flag, ref_id, pos, end, mapq,
     pre["n_cig"] = n_cig
     pre["flag"] = np.asarray(flag, np.int64)
     pre["l_seq"] = l_seq
-    pre["ref_id2"] = -1
-    pre["pos2"] = -1
-    pre["tlen"] = 0
+    pre["ref_id2"] = np.asarray(mate_ref, np.int64)
+    pre["pos2"] = np.asarray(mate_pos, np.int64)
+    pre["tlen"] = np.asarray(tlen, np.int64)
     big[off[:-1, None] + np.arange(36)] = \
         pre.view(np.uint8).reshape(n, 36)
 
@@ -445,9 +395,6 @@ class BamWriter:
             nb = name.encode() + b"\x00"
             hdr += struct.pack("<i", len(nb)) + nb + struct.pack("<i", int(ln))
         self.buf += hdr
-
-    def write(self, rec: BamRecord) -> None:
-        self.buf += encode_record(rec)
 
     def write_encoded(self, blob: bytes) -> None:
         """Append pre-encoded record bytes (encode_records_columns)."""

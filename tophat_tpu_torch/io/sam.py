@@ -1,5 +1,6 @@
-# Copy of tophat_tpu/io/sam.py (host code), imports rewritten.
-"""SAM formatting and header generation (host side).
+# Copy of tophat_tpu/io/sam.py (host code), imports rewritten; records are
+# formatted by io/emit.py.
+"""SAM header generation and field conventions (host side).
 
 Field conventions copied from the reference's final rewrite
 (src/tophat_reports.cpp:656-1050 rewrite_sam_record/print_sam_for_single):
@@ -16,7 +17,7 @@ get_index_sam_header (src/tophat.py:1415).
 from __future__ import annotations
 
 import math
-from typing import List, Optional, Tuple
+from typing import List, Optional
 
 from tophat_tpu_torch.index.fasta import Genome
 
@@ -59,10 +60,6 @@ def ref_span(ops) -> int:
     return sum(n for op, n in ops if op in ("M", "D", "N"))
 
 
-def cigar_string(ops: List[Tuple[str, int]]) -> str:
-    return "".join(f"{n}{op}" for op, n in ops if n > 0) or "*"
-
-
 def rg_header_line(params) -> Optional[str]:
     """@RG line when --rg-id/--rg-sample are set (reference builds it the
     same way in get_index_sam_header, src/tophat.py:1476-1491: ID/SM
@@ -100,24 +97,3 @@ def header_lines(genome: Genome, sort_order: str = "coordinate",
         lines.append(f"@SQ\tSN:{name}\tLN:{int(ln)}")
     lines.append(f"@PG\tID:TopHat\tVN:{program_version}\tCL:tophat_tpu")
     return lines
-
-
-def format_record(name: str, flag: int, ref: str, pos0: int, mapq: int,
-                  cigar: List[Tuple[str, int]], seq: bytes, qual: bytes,
-                  nm: int, nh: int, xs_strand: Optional[str] = None,
-                  rnext: str = "*", pnext0: int = -1, tlen: int = 0,
-                  extra: Optional[List[str]] = None) -> str:
-    if flag & FLAG_REVERSE:
-        seq = revcomp_ascii(seq)
-        qual = qual[::-1]
-    fields = [
-        name, str(flag), ref, str(pos0 + 1), str(mapq), cigar_string(cigar),
-        rnext, str(pnext0 + 1 if pnext0 >= 0 else 0), str(tlen),
-        seq.decode(), qual.decode(), f"NM:i:{nm}",
-    ]
-    if xs_strand is not None:
-        fields.append(f"XS:A:{xs_strand}")
-    fields.append(f"NH:i:{nh}")
-    if extra:
-        fields.extend(extra)
-    return "\t".join(fields)

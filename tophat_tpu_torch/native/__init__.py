@@ -200,8 +200,9 @@ bgzf = _Bgzf()
 
 
 class _BamEnc:
-    """Columnar BAM record assembler (bamenc.cpp) — `available` degrades
-    to the numpy ragged-scatter encoder on any build failure."""
+    """Columnar BAM record assembler and the record emitter (bamenc.cpp) —
+    `available` degrades to the numpy ragged-scatter encoder and the
+    Python emitter on any build failure."""
 
     def __init__(self):
         self._lib = None
@@ -212,15 +213,21 @@ class _BamEnc:
         if self._lib is None and not self._failed:
             try:
                 self._lib = _build_and_load("bamenc")
-                f = self._lib.bam_encode_records
-                f.restype = ctypes.c_int64
                 u8 = ctypes.POINTER(ctypes.c_uint8)
                 i32 = ctypes.POINTER(ctypes.c_int32)
                 i64 = ctypes.POINTER(ctypes.c_int64)
                 u32 = ctypes.POINTER(ctypes.c_uint32)
-                f.argtypes = [ctypes.c_int64, u8, i64, i32, i32, i32, i32,
-                              i32, u32, i64, u8, i64, u8, u8, u8, i64, u8,
-                              ctypes.c_int64]
+                n64 = ctypes.c_int64
+                f = self._lib.bam_encode_records
+                f.restype = n64
+                f.argtypes = [n64, u8, i64, i32, i32, i32, i32, i32, i32,
+                              i32, i32, u32, i64, u8, i64, u8, u8, u8, i64,
+                              u8, n64]
+                f = self._lib.emit_records
+                f.restype = n64
+                f.argtypes = [n64, i64, u32, i64, u8, i64, u8, u8, i64, u8,
+                              i64, u8, i64, u8, i64, u8, n64, u8, n64, u8,
+                              n64, i64, u8, n64]
             except Exception:
                 self._failed = True
         return self._lib
@@ -230,28 +237,44 @@ class _BamEnc:
         return self.lib is not None
 
     def encode(self, names_blob, name_off, flag, ref_id, pos, end, mapq,
-               cig_flat, cig_off, seq_blob, seq_off, qual_blob, no_qual,
-               tag_blob, tag_off, out_cap: int) -> bytes:
-        u8 = ctypes.POINTER(ctypes.c_uint8)
-        i32 = ctypes.POINTER(ctypes.c_int32)
-        i64 = ctypes.POINTER(ctypes.c_int64)
-        u32 = ctypes.POINTER(ctypes.c_uint32)
+               ref_id2, pos2, tlen, cig_flat, cig_off, seq_blob, seq_off,
+               qual_blob, no_qual, tag_blob, tag_off, out_cap: int) -> bytes:
         out = np.empty(out_cap, np.uint8)
-        n = len(flag)
         w = self.lib.bam_encode_records(
-            ctypes.c_int64(n),
-            names_blob.ctypes.data_as(u8), name_off.ctypes.data_as(i64),
-            flag.ctypes.data_as(i32), ref_id.ctypes.data_as(i32),
-            pos.ctypes.data_as(i32), end.ctypes.data_as(i32),
-            mapq.ctypes.data_as(i32),
-            cig_flat.ctypes.data_as(u32), cig_off.ctypes.data_as(i64),
-            seq_blob.ctypes.data_as(u8), seq_off.ctypes.data_as(i64),
-            qual_blob.ctypes.data_as(u8), no_qual.ctypes.data_as(u8),
-            tag_blob.ctypes.data_as(u8), tag_off.ctypes.data_as(i64),
-            out.ctypes.data_as(u8), ctypes.c_int64(out_cap))
+            len(flag), *(_ptr(a) for a in (
+                names_blob, name_off, flag, ref_id, pos, end, mapq, ref_id2,
+                pos2, tlen, cig_flat, cig_off, seq_blob, seq_off, qual_blob,
+                no_qual, tag_blob, tag_off, out)), out_cap)
         if w < 0:
             raise OSError("bam_encode_records overflow")
         return out[:w].tobytes()
+
+    def emit(self, cols, cig, cig_off, names, name_off, seq, qual, qual_off,
+             refs, ref_off, xsam, xsam_off, xbam, xbam_off, rg_sam: bytes,
+             rg_bam: bytes, sam_cap: int, bam_cap: int):
+        """(SAM bytes, BAM record bytes) of the record table `cols`
+        (io/emit.py)."""
+        sam = np.empty(sam_cap, np.uint8)
+        bam = np.empty(bam_cap, np.uint8)
+        sam_len = np.zeros(1, np.int64)
+        rg = [np.frombuffer(x or b"\0", np.uint8) for x in (rg_sam, rg_bam)]
+        w = self.lib.emit_records(
+            len(cols), *(_ptr(a) for a in (
+                cols, cig, cig_off, names, name_off, seq, qual, qual_off,
+                refs, ref_off, xsam, xsam_off, xbam, xbam_off, rg[0])),
+            len(rg_sam), _ptr(rg[1]), len(rg_bam), _ptr(sam), sam_cap,
+            _ptr(sam_len), _ptr(bam), bam_cap)
+        if w < 0:
+            raise OSError("emit_records overflow")
+        return sam[:int(sam_len[0])].tobytes(), bam[:w].tobytes()
+
+
+def _ptr(a: np.ndarray):
+    """A C-contiguous array's data pointer, typed by its dtype."""
+    if not a.flags.c_contiguous:
+        raise ValueError("native arguments must be C-contiguous")
+    return a.ctypes.data_as(ctypes.POINTER(np.ctypeslib.as_ctypes_type(
+        a.dtype)))
 
 
 bamenc = _BamEnc()

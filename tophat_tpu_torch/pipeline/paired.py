@@ -25,19 +25,24 @@ from typing import Dict, List
 
 import numpy as np
 
-from tophat_tpu_torch.index.fasta import Genome, decode_seq
+from tophat_tpu_torch.index.fasta import Genome
+from tophat_tpu_torch.io import emit
 from tophat_tpu_torch.io import sam as samio
-from tophat_tpu_torch.io.bam import BamRecord, BamWriter
-from tophat_tpu_torch.ops.splice import KIND_INSERTION, KIND_JUNCTION
+from tophat_tpu_torch.ops.splice import KIND_INSERTION
 from tophat_tpu_torch.pipeline.fusion_stats import build_fusion_table
 from tophat_tpu_torch.pipeline.grouped import GroupedMapper
 from tophat_tpu_torch.pipeline.juncs import discover_events, merge_events
 from tophat_tpu_torch.pipeline.prep import PrepStats
-from tophat_tpu_torch.pipeline.report import (Candidate, EventStats,
+from tophat_tpu_torch.pipeline.report import (_READ, _POS, Candidate,
+                                              EventStats, _unzip,
                                               _write_beds,
                                               accumulate_event_stats,
-                                              filter_junctions, select_best,
-                                              write_align_summary)
+                                              filter_junctions,
+                                              gather_candidates,
+                                              record_columns, select_best,
+                                              write_align_summary,
+                                              write_bam_outputs,
+                                              write_records)
 from tophat_tpu_torch.pipeline.run import (_index_for, _map_mate,
                                            _trans_for, _v2_score_of,
                                            candidates_for_mate,
@@ -239,7 +244,9 @@ def _select_pairs(chunks, all_mates, events, stats, accepted, params):
     """Selection, mate rescue and pair grading, chunk by chunk; (records
     to write, [(batch1, batch2, selected1, selected2)] per chunk, the
     events' final stats, (pairs, single, discordant, reads 1, reads 2,
-    mapped 1, mapped 2, multi 1, multi 2))."""
+    mapped 1, mapped 2, multi 1, multi 2)). A record is (candidate, NH,
+    read length, flag, the mate's global position or -1, TLEN, part:
+    2 x chunk + mate)."""
     rng = np.random.default_rng(1)
     final_stats: Dict[int, EventStats] = {}
     records = []
@@ -326,7 +333,7 @@ def _select_pairs(chunks, all_mates, events, stats, accepted, params):
                     tlen = 0
                     if other:
                         mate = other[0]
-                        rnext, pnext = "=", mate.pos
+                        mate_pos = mate.pos
                         if mate.strand:
                             flag |= samio.FLAG_MATE_REVERSE
                         if params.v2_sam:
@@ -350,15 +357,15 @@ def _select_pairs(chunks, all_mates, events, stats, accepted, params):
                                 tlen = -tlen
                     else:
                         flag |= samio.FLAG_MATE_UNMAPPED
-                        rnext, pnext = "*", -1
+                        mate_pos = -1
                     rl = int(batch.lengths[c.read])
                     if c.ev >= 0:
                         st = final_stats.setdefault(c.ev, EventStats())
                         ra = rl - c.t - (c.gap if events["kind"][c.ev] ==
                                          KIND_INSERTION else 0)
                         st.add(c.t, ra, c.mm)
-                    records.append((c, nh, rl, flag, rnext, pnext, batch,
-                                    tlen, ci))
+                    records.append((c, nh, rl, flag, mate_pos, tlen,
+                                    2 * ci + mi))
         chunk_selected.append((batch1, batch2, selected[0], selected[1]))
         total1 += batch1.size
         total2 += batch2.size
@@ -377,45 +384,20 @@ def _write_paired(out_dir, genome, params, events, records, chunk_selected,
     """Every output file of a paired run."""
     n_pairs, _, n_disc, total1, total2, mapped1, mapped2, multi1, multi2 = \
         tally
-    bam_recs = _write_paired_sam(out_dir, genome, params, events, records)
-
-    header = "\n".join(samio.header_lines(genome, params=params)) + "\n"
-    lens = [int(x) for x in genome.contig_lengths()]
-    with trace.span("output.bam"):
-        w = BamWriter(os.path.join(out_dir, "accepted_hits.bam"), header,
-                      genome.names, lens)
-        for r in bam_recs:
-            w.write(r)
-        w.close()
-
-    with trace.span("output.unmapped"):
-        w = BamWriter(os.path.join(out_dir, "unmapped.bam"),
-                      "\n".join(samio.header_lines(genome, "unsorted",
-                                                    params=params)) + "\n",
-                      genome.names, lens)
-        for (batch1, batch2, sel0, sel1) in chunk_selected:
-            for mi, (batch, sel) in enumerate(((batch1, sel0),
-                                               (batch2, sel1))):
-                mate_bit = (samio.FLAG_READ1 if mi == 0
-                            else samio.FLAG_READ2)
-                for r in range(batch.size):
-                    if sel.get(r):
-                        continue
-                    rl = int(batch.lengths[r])
-                    w.write(BamRecord(
-                        batch.names[r],
-                        samio.FLAG_PAIRED | mate_bit | samio.FLAG_UNMAPPED,
-                        -1, -1, 0, [], -1, -1, 0,
-                        decode_seq(batch.codes[r][:rl]).encode(),
-                        batch.quals[r][:rl] or b"*", []))
-        w.close()
+    parts = [p for (b1, b2, s0, s1) in chunk_selected
+             for p in ((b1, s0), (b2, s1))]
+    with trace.span("output.sam"):
+        bam_blob = _emit_paired(out_dir, genome, params, events, records,
+                                parts)
+    mates = (samio.FLAG_PAIRED | samio.FLAG_READ1 | samio.FLAG_UNMAPPED,
+             samio.FLAG_PAIRED | samio.FLAG_READ2 | samio.FLAG_UNMAPPED)
+    write_bam_outputs(out_dir, genome, parts, bam_blob, params=params,
+                      unmapped_flags=[mates[i % 2]
+                                      for i in range(len(parts))])
 
     with trace.span("output.beds"):
         _write_beds(out_dir, genome, events, final_stats)
     if params.fusion_search:
-        parts = []
-        for (batch1, batch2, sel0, sel1) in chunk_selected:
-            parts += [(batch1, sel0), (batch2, sel1)]
         ft = build_fusion_table(genome, events, params, parts)
         # mate-pair evidence (pair_support, fusions.cpp:497)
         for (batch1, batch2, sel0, sel1) in chunk_selected:
@@ -438,52 +420,27 @@ def _write_paired(out_dir, genome, params, events, records, chunk_selected,
             (n_pairs, 0, n_disc), params.max_multihits)
 
 
-@trace.span("output.sam")
-def _write_paired_sam(out_dir, genome, params, events, records):
-    """accepted_hits.sam, coordinate-sorted; the same records as
-    BamRecords, in the same order."""
-    records.sort(key=lambda rec: (rec[0].pos, rec[8], rec[0].read,
-                                  rec[3] & 0xC0))
-    lines = []
-    bam_recs = []
-    for c, nh, rl, flag, rnext, pnext, batch, tlen, ci in records:
-        cid, local = genome.global_to_contig(np.int64(c.pos))
-        mate_ref = -1
-        if rnext == "=":
-            mcid, pnext_local = genome.global_to_contig(np.int64(pnext))
-            pnext = int(pnext_local)
-            mate_ref = int(mcid)
-            if mate_ref != int(cid):  # cross-contig mate: name explicitly
-                rnext = genome.names[mate_ref]
-        xs = None
-        if c.kind == KIND_JUNCTION:
-            xs = "-" if events["antisense"][c.ev] else "+"
-        seq = decode_seq(batch.codes[c.read][:rl]).encode()
-        qual = batch.quals[c.read][:rl] or b"*"
-        rg_extra = ([f"RG:Z:{params.rg_id}"]
-                    if getattr(params, "rg_id", "") else None)
-        lines.append(samio.format_record(
-            name=batch.names[c.read], flag=flag,
-            ref=genome.names[int(cid)], pos0=int(local),
-            mapq=samio.mapq_for_nh(nh, params.v2_sam), cigar=c.cigar(rl),
-            seq=seq, qual=qual, nm=c.nm(), nh=nh,
-            xs_strand=xs, rnext=rnext, pnext0=pnext, tlen=tlen,
-            extra=rg_extra))
-        tags = [("NM", "i", c.nm())]
-        if xs is not None:
-            tags.append(("XS", "A", xs))
-        tags.append(("NH", "i", nh))
-        if getattr(params, "rg_id", ""):
-            tags.append(("RG", "Z", params.rg_id))
-        out_seq = (samio.revcomp_ascii(seq)
-                   if flag & samio.FLAG_REVERSE else seq)
-        out_qual = qual[::-1] if flag & samio.FLAG_REVERSE else qual
-        bam_recs.append(BamRecord(
-            batch.names[c.read], flag, int(cid), int(local),
-            samio.mapq_for_nh(nh, params.v2_sam), c.cigar(rl), mate_ref,
-            pnext if rnext == "=" else -1, tlen, out_seq, out_qual, tags))
-    with open(os.path.join(out_dir, "accepted_hits.sam"), "w") as f:
-        for ln in lines:
-            f.write(ln + "\n")
+def _emit_paired(out_dir, genome, params, events, records, parts):
+    """accepted_hits.sam, coordinate-sorted (ties: chunk, read, mate);
+    returns the same records' BAM bytes, in the same order."""
+    cs, nh, rl, flag, mate_pos, tlen, part = _unzip(records, 7)
+    cand = gather_candidates(cs)
+    nh, rl, flag, mate_pos, tlen, part = (
+        np.asarray(x, np.int64) for x in (nh, rl, flag, mate_pos, tlen,
+                                          part))
+    order = np.lexsort((flag & 0xC0, cand[_READ], part // 2, cand[_POS]))
+    cs = list(map(cs.__getitem__, order.tolist()))
+    cand, nh, rl, flag, mate_pos, tlen, part = (
+        x[..., order] for x in (cand, nh, rl, flag, mate_pos, tlen, part))
+    f = record_columns(genome, events, cs, cand, rl)
+    mate_cid = np.full(len(cs), -1, np.int64)
+    mate_local = np.full(len(cs), -1, np.int64)
+    has = mate_pos >= 0
+    mcid, mloc = genome.global_to_contig(mate_pos[has])
+    mate_cid[has], mate_local[has] = mcid, mloc
+    bam_blob = write_records(
+        out_dir, genome, params, emit.ReadPool([b for b, _ in parts]), part,
+        cand, rl, nh, flag, f, f["xs"], mate_cid=mate_cid,
+        mate_pos=mate_local, tlen=tlen)
     trace.count("records", len(records))
-    return bam_recs
+    return bam_blob
