@@ -3412,9 +3412,9 @@ def phase_human(build, hg, grouped=None):
         clock.wrap(run_mod, "realign_events_sparse",
                    "  of which realign, sparse")
         clock.wrap(grouped_mod, "default_chains", "default chains")
-        clock.wrap(grouped_mod, "accumulate_event_stats", "stats + filter")
-        clock.wrap(grouped_mod, "filter_junctions", "stats + filter")
-        clock.wrap(grouped_mod, "write_outputs", "output")
+        clock.wrap(run_mod, "accumulate_event_stats", "stats + filter")
+        clock.wrap(run_mod, "filter_junctions", "stats + filter")
+        clock.wrap(run_mod, "write_outputs_multi", "output")
         kept, calls = [], []
         keep = keep_calls(kept)
 
@@ -4807,7 +4807,7 @@ def bench_spliced_pipeline(fm, codes, juncs):
         clock.wrap(run_mod, "accumulate_event_stats", "stats + filter")
         clock.wrap(run_mod, "filter_junctions", "stats + filter")
         clock.wrap(run_mod, "_select", "selection")
-        clock.wrap(run_mod, "write_outputs", "output")
+        clock.wrap(run_mod, "write_outputs_multi", "output")
         kept, calls = [], []
         keep = keep_calls(kept)
 

@@ -135,12 +135,14 @@ def run_library(which, out, mode, grouped=True, device="cpu", **params):
     if mode == "paired":
         paired.run_pipeline_paired(genome, batch_reads(r1), batch_reads(r2),
                                    P, str(out), log=QUIET, gfm=gfm, **dev)
+    elif which == "torch":
+        run.run_pipeline(genome, batch_reads(r1), P, str(out), log=QUIET,
+                         gfm=gfm, **dev)
     elif grouped:
         gp.run_pipeline_grouped(genome, batch_reads(r1), P, str(out), gfm,
-                                log=QUIET, **dev)
+                                log=QUIET)
     else:
-        run.run_pipeline(genome, batch_reads(r1), P, str(out), log=QUIET,
-                         **dev)
+        run.run_pipeline(genome, batch_reads(r1), P, str(out), log=QUIET)
     return out
 
 

@@ -135,20 +135,25 @@ def test_grouped_cli_mode_runs(tmp_path, flags, item):
     assert "r0" in (out / "accepted_hits.sam").read_text()
 
 
-@pytest.mark.parametrize("what", ["gfm"])
+@pytest.mark.parametrize("what", ["gfm", "single"])
 def test_paired_grouped_mode_runs(tmp_path, what):
     """The paired pipeline, once refusing the grouped index, maps through
-    it: a read on the second group's contig lands there."""
+    it, and so does the single-end run_pipeline: the read lands on its
+    contig."""
     from tophat_tpu_torch.index.grouped import build_grouped_fm
     from tophat_tpu_torch.pipeline.paired import run_pipeline_paired
     from tophat_tpu_torch.pipeline.params import Params
+    from tophat_tpu_torch.pipeline.run import run_pipeline
 
     genome, batch = _two_contigs()
     gfm = build_grouped_fm(genome, max_bases=1000)
     assert gfm.n_groups == 2 and gfm.fms[1].device.type == "cpu"
-    run_pipeline_paired(genome, batch, batch, Params(),
-                        str(tmp_path / "out"), log=lambda *a: None,
-                        device="cpu", gfm=gfm)
+    kw = dict(log=lambda *a: None, device="cpu", gfm=gfm)
+    if what == "single":
+        run_pipeline(genome, batch, Params(), str(tmp_path / "out"), **kw)
+    else:
+        run_pipeline_paired(genome, batch, batch, Params(),
+                            str(tmp_path / "out"), **kw)
     sam = (tmp_path / "out" / "accepted_hits.sam").read_text()
     assert "\tc\t101\t" in sam
 

@@ -150,39 +150,47 @@ def test_run_pipeline_paired_streaming_identical(tmp_path):
     assert sum(1 for t in recs if "N" in t[5]) >= 16
 
 
-def test_pipeline_core_two_batches_matches_jax():
-    """pipeline_core over both mates with every search on: the same event
-    table, in the same order (coverage over both mates, then butterfly and
-    microexon per mate), the same accepted events and candidates."""
+def test_run_pipeline_paired_every_search_matches_jax(tmp_path):
+    """run_pipeline_paired with every search on (coverage, butterfly,
+    microexon): the same event table, in the same order, the same
+    accepted events and the same selected candidates of both mates."""
     from tophat_tpu.index.fasta import Genome as JGenome
     from tophat_tpu.io.fastq import batch_reads as jbatch
+    from tophat_tpu.pipeline.paired import run_pipeline_paired as jrun
     from tophat_tpu.pipeline.params import Params as JParams
-    from tophat_tpu.pipeline.run import pipeline_core as jcore
     from tophat_tpu_torch.index.fasta import Genome
     from tophat_tpu_torch.io.fastq import batch_reads
+    from tophat_tpu_torch.pipeline.paired import run_pipeline_paired
     from tophat_tpu_torch.pipeline.params import Params
-    from tophat_tpu_torch.pipeline.run import pipeline_core
 
     n = 30000
     codes, r1, r2 = _pairs(n, seed=5)
     kw = dict(butterfly_search=True, microexon_search=True)
     offsets = np.array([0, n])
-    jm, jev, _, jacc, _ = jcore(
-        JGenome(codes=codes, offsets=offsets, names=["chrP"]),
-        [jbatch(r1), jbatch(r2)], JParams(**kw), log=lambda *a: None)
-    pm, pev, _, pacc, _ = pipeline_core(
-        Genome(codes=codes, offsets=offsets, names=["chrP"]),
-        [batch_reads(r1), batch_reads(r2)], Params(**kw),
-        log=lambda *a: None, device="cpu")
+    j = jrun(JGenome(codes=codes, offsets=offsets, names=["chrP"]),
+             jbatch(r1), jbatch(r2), JParams(**kw), str(tmp_path / "jax"),
+             log=lambda *a: None)
+    p = run_pipeline_paired(Genome(codes=codes, offsets=offsets,
+                                   names=["chrP"]),
+                            batch_reads(r1), batch_reads(r2), Params(**kw),
+                            str(tmp_path / "torch"), log=lambda *a: None,
+                            device="cpu")
+    jev, pev = j["events"], p["events"]
     assert sorted(jev) == sorted(pev) and len(pev["left"]) >= 8
     for k in jev:
         np.testing.assert_array_equal(np.asarray(jev[k]), pev[k], err_msg=k)
-    assert jacc == pacc
-    for a, b in zip(jm, pm):
-        assert {r: [(c.pos, c.strand, c.mm, c.kind, c.ev, c.t) for c in cl]
-                for r, cl in a.cands.items()} == \
-            {r: [(c.pos, c.strand, c.mm, c.kind, c.ev, c.t) for c in cl]
-             for r, cl in b.cands.items()}
+
+    def accepted(res):
+        return {e for e, st in res["stats"].items() if st.accepted}
+
+    def cands(sel):
+        return {r: [(c.pos, c.strand, c.mm, c.kind, c.ev, c.t) for c in cl]
+                for r, cl in sel.items()}
+
+    assert accepted(j) == accepted(p) and accepted(p)
+    assert len(j["selected"]) == len(p["selected"]) == 2
+    for a, b in zip(j["selected"], p["selected"]):
+        assert cands(a) == cands(b)
 
 
 def test_paired_cli_identical(tmp_path, monkeypatch):

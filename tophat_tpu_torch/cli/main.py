@@ -41,7 +41,6 @@ from tophat_tpu_torch.ops.splice import (KIND_DELETION, KIND_INSERTION,
                                          KIND_JUNCTION)
 from tophat_tpu_torch.parallel import auto
 from tophat_tpu_torch.pipeline.colorspace import run_pipeline_color
-from tophat_tpu_torch.pipeline.grouped import run_pipeline_grouped
 from tophat_tpu_torch.pipeline.juncs import empty_events, merge_events
 from tophat_tpu_torch.pipeline.paired import run_pipeline_paired_streaming
 from tophat_tpu_torch.pipeline.params import Params
@@ -614,11 +613,12 @@ def _run(args, params, device, resume, logger):
         logger.stage("alldone")
         return 0
     if gfm is not None and not args.reads2:
+        # contig groups: the whole read set as one chunk, no artifacts
         batch = load_reads(files1, params.quals_scale,
                            integer_quals=params.integer_quals)
-        run_pipeline_grouped(genome, batch, params, out_dir, gfm,
-                             known_events=known, gtf_accept=gtf_accept,
-                             trans=trans, log=logger.log, device=device)
+        run_pipeline_streaming(genome, [batch], params, out_dir, gfm=gfm,
+                               known_events=known, gtf_accept=gtf_accept,
+                               trans=trans, log=logger.log, device=device)
         logger.stage("alldone")
         return 0
     batches = iter_read_batches(files1, params.quals_scale,

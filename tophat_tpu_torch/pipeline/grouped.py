@@ -21,8 +21,6 @@ the index sharding of the multi-device path).
 from __future__ import annotations
 
 import dataclasses
-import os
-import time
 import types
 from typing import Dict, List, Optional
 
@@ -39,12 +37,9 @@ from tophat_tpu_torch.pipeline.juncs import (discover_events, empty_events,
                                              merge_events)
 from tophat_tpu_torch.pipeline.params import Params
 from tophat_tpu_torch.pipeline.prep import prep_filter
-from tophat_tpu_torch.pipeline.report import write_outputs
-from tophat_tpu_torch.pipeline.run import (MateState, _select, _spliced_mate,
-                                           _trans_for, _v2_score_of,
-                                           candidates_for_mate,
-                                           default_chains, junction_stats,
-                                           revcomp_rows)
+from tophat_tpu_torch.pipeline.run import (MateState, _spliced_mate,
+                                           _trans_for, candidates_for_mate,
+                                           default_chains, revcomp_rows)
 from tophat_tpu_torch.pipeline.transcriptome import (
     map_reads_transcriptome, transcriptome_candidates)
 from tophat_tpu_torch.utils.device import resolve_device
@@ -104,14 +99,14 @@ def _merge_event_tables(group_events: List[dict], bases) -> dict:
 
 
 class GroupedMapper:
-    """Chunk-capable grouped mapping engine, shared by the single-chunk
-    grouped pipeline (pipeline_core_grouped) and the chunked paired pipeline
-    (pipeline/paired.py with a contig-group index).
+    """Chunk-capable grouped mapping engine of both streaming pipelines
+    (run.run_pipeline_streaming and paired.run_pipeline_paired_streaming
+    with a contig-group index).
 
-    Protocol (mirrored by paired.SingleIndexMapper):
-      map_chunk_mate(batch, side) -> MateState   (global coords pending)
-      finalize_events(known)      -> global int64 event table
-      fill_candidates(m, paired)  -> sets m.cands in global coordinates
+    Protocol (mirrored by run.SingleEndMapper and paired.SingleIndexMapper):
+      map_chunk_mate(batch, side)         -> MateState (global coords pending)
+      finalize_events(known)              -> global int64 event table
+      fill_candidates(m, events, paired)  -> sets m.cands in global coords
     """
 
     def __init__(self, gfm: GroupedFM, genome: Genome, params: Params,
@@ -298,50 +293,3 @@ class GroupedMapper:
                                    int(self.group_eoff[g]))
                 for r, lst in new.items():
                     mate.cands.setdefault(r, []).extend(lst)
-
-
-def pipeline_core_grouped(genome: Genome, batches, params: Params,
-                          gfm: GroupedFM, known_events=None,
-                          gtf_accept=None, trans=None, log=print,
-                          device="cuda"):
-    """Grouped analog of pipeline_core: returns (mates, events, stats,
-    accepted, gfm) where each MateState carries the MERGED global-coordinate
-    candidate dict and `events` is the merged int64 event table."""
-    mapper = GroupedMapper(gfm, genome, params, trans=trans, log=log,
-                           device=device)
-    mates = [mapper.map_chunk_mate(b, side)
-             for side, b in enumerate(batches)]
-    events = mapper.finalize_events(known_events)
-    for mate in mates:
-        mapper.fill_candidates(mate, events, paired=len(batches) > 1)
-
-    # pass 1: stats + acceptance on the merged global structures
-    stats, accepted = junction_stats(mates, events, params, gtf_accept)
-    return mates, events, stats, accepted, gfm
-
-
-def run_pipeline_grouped(genome: Genome, batch, params: Params,
-                         out_dir: str, gfm: GroupedFM, known_events=None,
-                         gtf_accept=None, trans=None, log=print,
-                         device="cuda"):
-    """Single-end grouped run: the whole-genome analog of run_pipeline.
-    Device stages run on `device` (default cuda; raises without it)."""
-    t0 = time.time()
-    resolve_device(device)
-    os.makedirs(out_dir, exist_ok=True)
-    mates, events, stats, accepted, gfm = pipeline_core_grouped(
-        genome, [batch], params, gfm, known_events=known_events,
-        gtf_accept=gtf_accept, trans=trans, log=log, device=device)
-    m = mates[0]
-    with open(os.path.join(out_dir, "prep_reads.info"), "w") as f:
-        f.write(m.prep_stats.info_text())
-
-    rng = np.random.default_rng(1)
-    score_of = _v2_score_of(params, mates, events, stats)
-    selected = _select(m, params, accepted, rng, score_of)
-    records = write_outputs(out_dir, genome, params, batch, selected,
-                            events)
-    log(f"grouped done in {time.time() - t0:.1f}s; {len(records)} "
-        f"alignments reported")
-    return dict(mates=mates, events=events, stats=stats, selected=selected,
-                gfm=gfm)

@@ -47,7 +47,7 @@ from tophat_tpu_torch.pipeline.run import (_index_for, _map_mate,
                                            _trans_for, _v2_score_of,
                                            candidates_for_mate,
                                            merge_stats, resolve_device,
-                                           search_tables)
+                                           search_tables, usable_candidates)
 from tophat_tpu_torch.utils import trace
 
 
@@ -261,10 +261,7 @@ def _select_pairs(chunks, all_mates, events, stats, accepted, params):
             sel = {}
             res = {}
             for r, clist in m.cands.items():
-                usable = [c for c in clist
-                          if (all(e in accepted for e in c.chain_events)
-                              if c.kind == -2
-                              else (c.ev < 0 or c.ev in accepted))]
+                usable = usable_candidates(clist, accepted)
                 strict = [c for c in usable if not c.pair_only]
                 sel[r] = select_best(strict, params.max_multihits, rng,
                                      params.report_secondary,

@@ -780,12 +780,6 @@ def select_best(cands: List[Candidate], max_multihits: int,
     return uniq
 
 
-def write_outputs(out_dir: str, genome: Genome, params, batch, selected,
-                  events, program_version="0.1.0"):
-    return write_outputs_multi(out_dir, genome, params,
-                               [(batch, selected)], events)
-
-
 def write_outputs_multi(out_dir: str, genome: Genome, params, parts,
                         events):
     """Emit accepted_hits.sam/.bam, unmapped.bam, BED tracks and

@@ -53,7 +53,6 @@ from tophat_tpu_torch.pipeline.report import (Candidate,
                                               accumulate_event_stats,
                                               collect_candidates,
                                               filter_junctions, select_best,
-                                              write_outputs,
                                               write_outputs_multi)
 from tophat_tpu_torch.pipeline.segment import (build_genome_space,
                                                map_segments)
@@ -287,43 +286,6 @@ def search_tables(fm, genome: Genome, m: MateState, params: Params,
     return out
 
 
-def pipeline_core(genome: Genome, batches: List[ReadBatch], params: Params,
-                  fm: Optional[FMIndex] = None,
-                  known_events: Optional[Dict[str, np.ndarray]] = None,
-                  gtf_accept=None, trans=None, log=print, device="cuda"):
-    """Run prep/map/discover/realign/filter for 1 (single) or 2 (paired)
-    read batches. Returns (mates, events, stats, accepted, fm)."""
-    dev = resolve_device(device)
-    fm = _index_for(genome, fm, dev, log)
-    trans = _trans_for(trans, dev)
-    offsets = genome.offsets.astype(np.int32)
-
-    mates = [_map_mate(fm, offsets, b, params, log, genome=genome,
-                       trans=trans) for b in batches]
-    # joint discovery over every mate's IUM reads
-    tables = [discover_events(fm, offsets, m.gs, params,
-                              seg_tables=m.seg_tables, log=log,
-                              read_side=mi)
-              for mi, m in enumerate(mates)]
-    for m in mates:
-        tables += search_tables(fm, genome, m, params, log, extend=False)
-    for m in mates:
-        tables += search_tables(fm, genome, m, params, log, coverage=False)
-    tables += [m.gapped_events for m in mates
-               if m.gapped_events is not None]
-    if known_events is not None:
-        tables.append(known_events)
-    events = merge_events(*tables)
-
-    for m in mates:
-        candidates_for_mate(fm, m, events, params, log,
-                            paired=len(mates) > 1)
-
-    # pass 1: stats + acceptance over all candidates
-    stats, accepted = junction_stats(mates, events, params, gtf_accept)
-    return mates, events, stats, accepted, fm
-
-
 def _v2_score_of(params, mates, events, stats):
     """--v2-sam selection key: the AlignStatus coverage-scaled alignment
     score (pipeline/align_status.py); None keeps the gold v1 ranking."""
@@ -510,13 +472,20 @@ def default_chains(fm, m: MateState, events, params, log,
             f"over {len(rows_sel)} unresolved rows")
 
 
+def usable_candidates(clist, accepted) -> list:
+    """The candidates of one read that the accepted events allow: a chain
+    whose events are all accepted, or a single candidate with no event or
+    an accepted one."""
+    return [c for c in clist
+            if (all(e in accepted for e in c.chain_events)
+                if c.kind == -2 else (c.ev < 0 or c.ev in accepted))]
+
+
 def _select(m: MateState, params, accepted, rng, score_of):
     selected = {}
     for r, clist in m.cands.items():
-        usable = [c for c in clist
-                  if (all(e in accepted for e in c.chain_events)
-                      if c.kind == -2 else (c.ev < 0 or c.ev in accepted))]
-        selected[r] = select_best(usable, params.max_multihits, rng,
+        selected[r] = select_best(usable_candidates(clist, accepted),
+                                  params.max_multihits, rng,
                                   params.report_secondary,
                                   score_of=score_of)
     return selected
@@ -525,76 +494,58 @@ def _select(m: MateState, params, accepted, rng, score_of):
 def run_pipeline(genome: Genome, batch: ReadBatch, params: Params,
                  out_dir: str, fm: Optional[FMIndex] = None,
                  known_events: Optional[Dict[str, np.ndarray]] = None,
-                 gtf_accept=None, trans=None, log=print, device="cuda"):
-    """One batch through every stage, outputs written to `out_dir`."""
-    t0 = time.time()
-    mates, events, stats, accepted, fm = pipeline_core(
-        genome, [batch], params, fm=fm, known_events=known_events,
-        gtf_accept=gtf_accept, trans=trans, log=log, device=device)
-    os.makedirs(out_dir, exist_ok=True)
-    m = mates[0]
-    with open(os.path.join(out_dir, "prep_reads.info"), "w") as f:
-        f.write(m.prep_stats.info_text())
-
-    rng = np.random.default_rng(1)
-    score_of = _v2_score_of(params, [m], events, stats)
-    selected = _select(m, params, accepted, rng, score_of)
-    records = write_outputs(out_dir, genome, params, batch, selected, events)
-    log(f"done in {time.time() - t0:.1f}s; {len(records)} alignments "
-        f"reported")
-    return dict(mates=mates, events=events, stats=stats, selected=selected,
-                fm=fm)
+                 gtf_accept=None, trans=None, log=print, gfm=None,
+                 device="cuda"):
+    """One batch through every stage, outputs written to `out_dir`: a
+    one-chunk run_pipeline_streaming, plus the chunk's selection."""
+    res = run_pipeline_streaming(
+        genome, [batch], params, out_dir, fm=fm, known_events=known_events,
+        gtf_accept=gtf_accept, trans=trans, log=log, gfm=gfm, device=device)
+    return dict(res, selected=res["parts"][0][1])
 
 
 @trace.span(trace.ROOT)
 def run_pipeline_streaming(genome: Genome, batch_iter, params: Params,
                            out_dir: str, fm: Optional[FMIndex] = None,
                            known_events=None, gtf_accept=None, trans=None,
-                           tmp_dir=None, resume=False, log=print,
+                           tmp_dir=None, resume=False, log=print, gfm=None,
                            device="cuda"):
-    """Chunked single-end pipeline for read sets larger than one device
-    batch: per-chunk map + discovery, a global event union, per-chunk
-    realignment, global junction filtering, and merged output."""
+    """Single-end pipeline over a stream of read chunks: per-chunk map +
+    discovery, a global event union, per-chunk realignment, global
+    junction filtering, and merged output. One chunk is run_pipeline.
+
+    Device stages run on `device` (default cuda; raises without it).
+    gfm: a contig-group index (index/grouped.GroupedFM) routes mapping and
+    candidate assembly through pipeline/grouped.GroupedMapper, which keeps
+    no chunk artifacts; otherwise SingleEndMapper maps against `fm`, with
+    `tmp_dir`/`resume` its chunk artifacts."""
     t0 = time.time()
     dev = resolve_device(device)
-    trans = _trans_for(trans, dev)
     os.makedirs(out_dir, exist_ok=True)
-    offsets = genome.offsets.astype(np.int32)
-
-    # lazy index: a fully-resumed run never needs the FM index for mapping
-    fm_holder = [fm]
-
-    def fm_get():
-        fm_holder[0] = _index_for(genome, fm_holder[0], dev, log)
-        return fm_holder[0]
+    if gfm is not None:
+        # grouped.py imports this module, so its mapper is imported here
+        from tophat_tpu_torch.pipeline.grouped import GroupedMapper
+        mapper = GroupedMapper(gfm, genome, params, trans=trans, log=log,
+                               device=dev)
+    else:
+        mapper = SingleEndMapper(fm, genome, params, dev, trans=trans,
+                                 tmp_dir=tmp_dir, resume=resume, log=log)
 
     chunks: List[MateState] = []
-    tables = []
     prep_all = PrepStats()
     for bi, batch in enumerate(batch_iter):
-        m, chunk_tables = _mapped_chunk(fm_get, genome, offsets, batch,
-                                        params, log, trans=trans,
-                                        tmp_dir=tmp_dir, resume=resume,
-                                        tag=f"chunk{bi:05d}")
-        tables.extend(chunk_tables)
+        m = mapper.map_chunk_mate(batch, 0)
         prep_all.merge(m.prep_stats)
         chunks.append(m)
         log(f"chunk {bi}: {batch.size} reads")
-    fm = fm_holder[0]
-    if fm is None:   # every chunk resumed: realignment needs the codes only
-        fm = types.SimpleNamespace(
-            genome=torch.as_tensor(genome.codes, device=dev),
-            genome_host=genome.codes)
     with trace.span("events.union"):
-        if known_events is not None:
-            tables.append(known_events)
-        events = merge_events(*tables)
+        events = mapper.finalize_events(known_events)
         trace.count("events", len(events["left"]))
     log(f"{len(events['left'])} candidate events across "
         f"{len(chunks)} chunks")
 
     for m in chunks:
-        candidates_for_mate(fm, m, events, params, log)
+        mapper.fill_candidates(m, events, paired=False)
     stats, accepted = junction_stats(chunks, events, params, gtf_accept)
 
     with trace.span("pairs.select"):
@@ -610,51 +561,105 @@ def run_pipeline_streaming(genome: Genome, batch_iter, params: Params,
                 f.write(prep_all.info_text())
     log(f"streaming done in {time.time() - t0:.1f}s; {len(records)} "
         f"alignments over {len(chunks)} chunks")
-    return dict(events=events, stats=stats, parts=parts, fm=fm)
+    return dict(mates=chunks, events=events, stats=stats, parts=parts,
+                fm=gfm if gfm is not None else mapper.fm)
 
 
-def _mapped_chunk(fm_get, genome, offsets, batch, params, log, trans=None,
-                  tmp_dir=None, resume=False, tag="chunk"):
-    """Map + discover (+ search) one chunk, with optional artifact reuse:
-    when `tmp_dir` is set the mapped state + event tables persist as
-    <tmp_dir>/<tag>.pkl (segment tables as host numpy), and `resume=True`
-    reloads them instead of redoing the mapping. The artifact is keyed by
-    the reads' content and the parameters."""
+class SingleEndMapper:
+    """Chunk mapping engine of single-end runs over one index (the
+    protocol of pipeline/grouped.GroupedMapper): map + discover (+ search)
+    each chunk. When `tmp_dir` is set each chunk's mapped state + event
+    tables persist as <tmp_dir>/chunk<i>.pkl (segment tables as host
+    numpy), keyed by the reads' content and the parameters, and
+    `resume=True` reloads them instead of redoing the mapping. The index
+    loads lazily: a fully resumed run never loads it and realigns against
+    the genome codes only."""
+
+    def __init__(self, fm, genome, params, dev, trans=None, tmp_dir=None,
+                 resume=False, log=print):
+        self.fm = fm
+        self.genome = genome
+        self.params = params
+        self.dev = dev
+        self.trans = _trans_for(trans, dev)
+        self.tmp_dir = tmp_dir
+        self.resume = resume
+        self.log = log
+        self.offsets = genome.offsets.astype(np.int32)
+        self.tables = []
+        self.n_chunks = 0
+
+    def map_chunk_mate(self, batch, side: int) -> MateState:
+        tag = f"chunk{self.n_chunks:05d}"
+        self.n_chunks += 1
+        art = key = None
+        if self.tmp_dir:
+            art = os.path.join(self.tmp_dir, f"{tag}.pkl")
+            with trace.span("chunk.artifact"):
+                key = _chunk_key(batch, self.params)
+            if self.resume:
+                got = _load_chunk(art, key, tag, self.log)
+                if got is not None:
+                    m, chunk_tables = got
+                    m.batch = batch     # reads reload from the input files
+                    self.tables += chunk_tables
+                    return m
+        self.fm = fm = _index_for(self.genome, self.fm, self.dev, self.log)
+        genome, params = self.genome, self.params
+        m = _map_mate(fm, self.offsets, batch, params, self.log,
+                      genome=genome, trans=self.trans)
+        chunk_tables = [discover_events(fm, self.offsets, m.gs, params,
+                                        seg_tables=m.seg_tables, log=None,
+                                        read_side=side)]
+        chunk_tables += search_tables(fm, genome, m, params, self.log)
+        if m.gapped_events is not None:
+            chunk_tables.append(m.gapped_events)
+        if art:
+            with trace.span("chunk.artifact"):
+                _save_chunk(art, m, chunk_tables, key)
+        self.tables += chunk_tables
+        return m
+
+    def finalize_events(self, known_events=None) -> dict:
+        tables = list(self.tables)
+        if known_events is not None:
+            tables.append(known_events)
+        return merge_events(*tables)
+
+    def fill_candidates(self, m: MateState, events,
+                        paired: bool = False) -> None:
+        if self.fm is None:  # every chunk resumed: realign needs the codes
+            self.fm = types.SimpleNamespace(
+                genome=torch.as_tensor(self.genome.codes, device=self.dev),
+                genome_host=self.genome.codes)
+        candidates_for_mate(self.fm, m, events, self.params, self.log,
+                            paired=paired)
+
+
+def _load_chunk(art, key, tag, log):
+    """(MateState without its batch, event tables) of the artifact that
+    _save_chunk wrote for the same key; None when there is none, or it is
+    corrupt or stale."""
     import pickle
 
-    art = os.path.join(tmp_dir, f"{tag}.pkl") if tmp_dir else None
-    key = None
-    if art:
-        with trace.span("chunk.artifact"):
-            key = _chunk_key(batch, params)
-    if resume and art and os.path.exists(art):
-        try:
-            with open(art, "rb") as f:
-                m, chunk_tables, stored_key = pickle.load(f)
-            if stored_key == key:
-                m.batch = batch     # reads reload from the input files
-                log(f"[resume] {tag}: reusing mapped tables")
-                return m, chunk_tables
-            log(f"[resume] {tag}: input/params changed, remapping")
-        except Exception:
-            pass  # corrupt/stale artifact: redo the stage
-    fm = fm_get()
-    m = _map_mate(fm, offsets, batch, params, log, genome=genome,
-                  trans=trans)
-    chunk_tables = [discover_events(fm, offsets, m.gs, params,
-                                    seg_tables=m.seg_tables, log=None)]
-    chunk_tables += search_tables(fm, genome, m, params)
-    if m.gapped_events is not None:
-        chunk_tables.append(m.gapped_events)
-    if art:
-        with trace.span("chunk.artifact"):
-            _save_chunk(art, m, chunk_tables, key)
+    if not os.path.exists(art):
+        return None
+    try:
+        with open(art, "rb") as f:
+            m, chunk_tables, stored_key = pickle.load(f)
+    except Exception as e:   # corrupt or foreign artifact: redo the stage
+        log(f"[resume] {tag}: unreadable artifact ({e!r}), remapping")
+        return None
+    if stored_key != key:
+        log(f"[resume] {tag}: input/params changed, remapping")
+        return None
+    log(f"[resume] {tag}: reusing mapped tables")
     return m, chunk_tables
 
 
 def _save_chunk(art, m, chunk_tables, key) -> None:
     """Persist one mapped chunk (segment tables as host numpy) for
-    _mapped_chunk's resume; best-effort."""
+    SingleEndMapper's resume; best-effort."""
     import pickle
 
     batch_ref = m.batch
