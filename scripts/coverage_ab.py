@@ -8,8 +8,11 @@ Run from the root of a checkout, on a machine with a CUDA card:
 
 DIR is the root of another checkout (for example the parent commit,
 unpacked with `git archive`). Each side's
-tophat_tpu_torch/pipeline/coverage.py is loaded from its own file; its
-imports resolve to this checkout's package. The inputs are those of every
+tophat_tpu_torch/pipeline/coverage.py and butterfly.py (the mer-extension
+table and its check) are loaded from its own files: while a side loads
+and runs, its butterfly module stands in for
+tophat_tpu_torch.pipeline.butterfly; every other import resolves to this
+checkout's package. The inputs are those of every
 coverage_search_events call in three CLI runs on the card, made with
 chip_smoke.py's generators and flags: phase 6's timed run (TopHat's
 paired default mode, 32,768 pairs of 2 x 100 bp on the 2^27-base genome,
@@ -17,11 +20,13 @@ two chunk pairs), phase 8's (the same mode with -G, phase 8's annotation
 and pairs) and phase 11's (phase 6's genome as 8 contigs,
 --max-index-bases 2^25: 4 groups). Prints one JSON line: per phase, the
 calls' genome bases, hits and events, each side's two runs (seconds on
-the host clock, summed over the phase's calls, a synchronize around each
-call) and the card.
+the host clock, a synchronize around each call: per call, and summed over
+the phase's calls), the coverage.* counters of each call on this side
+(none where a side counts none) and the card.
 """
 
 import argparse
+import contextlib
 import importlib.util
 import json
 import os
@@ -29,14 +34,38 @@ import sys
 import time
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+BUTTERFLY = "tophat_tpu_torch.pipeline.butterfly"
+COUNTERS = ("coverage.mers", "coverage.pairs", "coverage.extendable")
 
 
-def load_coverage(root: str, name: str):
-    path = os.path.join(root, "tophat_tpu_torch", "pipeline", "coverage.py")
+@contextlib.contextmanager
+def standing_in(butterfly):
+    """sys.modules[BUTTERFLY] is `butterfly` inside the block (a module
+    imported at load or at call time resolves to it)."""
+    saved = sys.modules.get(BUTTERFLY)
+    sys.modules[BUTTERFLY] = butterfly
+    try:
+        yield
+    finally:
+        if saved is None:
+            sys.modules.pop(BUTTERFLY, None)
+        else:
+            sys.modules[BUTTERFLY] = saved
+
+
+def load_module(root: str, stem: str, name: str):
+    path = os.path.join(root, "tophat_tpu_torch", "pipeline", stem + ".py")
     spec = importlib.util.spec_from_file_location(name, path)
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod
+
+
+def load_side(root: str, tag: str):
+    """(coverage module, butterfly module) of the checkout at root."""
+    butterfly = load_module(root, "butterfly", f"bf_{tag}")
+    with standing_in(butterfly):
+        return load_module(root, "coverage", f"cov_{tag}"), butterfly
 
 
 def keeping(fn, calls: list):
@@ -131,24 +160,35 @@ def main():
     sys.path.insert(0, REPO)
     import chip_smoke as cs
 
+    from tophat_tpu_torch.utils import trace
+
     card = cs.card_line()
-    sides = {"other": load_coverage(os.path.abspath(a.other), "cov_other"),
-             "this": load_coverage(REPO, "cov_this")}
+    sides = {"other": load_side(os.path.abspath(a.other), "other"),
+             "this": load_side(REPO, "this")}
     captured = capture_runs(cs)
     result = {"card": card, "phases": {}}
     for phase, calls in captured.items():
         secs = {"other": [], "this": []}
-        outs = {}
+        per_call = {"other": [], "this": []}
+        outs, counted = {}, []
         for side in ("other", "this", "this", "other"):
-            fn = sides[side].coverage_search_events
-            total, got = 0.0, []
-            for args in calls:
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
-                got.append(fn(*args))
-                torch.cuda.synchronize()
-                total += time.perf_counter() - t0
-            secs[side].append(total)
+            coverage, butterfly = sides[side]
+            times, got = [], []
+            with standing_in(butterfly):
+                for args in calls:
+                    before = trace.snapshot()["counters"]
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    got.append(coverage.coverage_search_events(*args))
+                    torch.cuda.synchronize()
+                    times.append(time.perf_counter() - t0)
+                    after = trace.snapshot()["counters"]
+                    if side == "this" and len(counted) < len(calls):
+                        counted.append({k: after.get(k, 0)
+                                        - before.get(k, 0)
+                                        for k in COUNTERS if k in after})
+            secs[side].append(sum(times))
+            per_call[side].append(times)
             outs[side] = got
         for i, (x, y) in enumerate(zip(outs["other"], outs["this"])):
             for k in x:
@@ -160,7 +200,8 @@ def main():
             genome_bases=[int(args[0].n) for args in calls],
             hits=[int(args[3][2].sum()) for args in calls],
             events=[len(x["left"]) for x in outs["this"]],
-            seconds=secs, equal=True)
+            seconds=secs, per_call_seconds=per_call, counters=counted,
+            equal=True)
         print(f"{phase}: other {secs['other']} s, this {secs['this']} s",
               file=sys.stderr, flush=True)
     print(json.dumps(result), flush=True)

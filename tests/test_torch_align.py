@@ -12,6 +12,18 @@ import torch
 import jax.numpy as jnp
 
 
+@pytest.fixture(autouse=True)
+def _no_jax_mesh(monkeypatch):
+    """The JAX references run with no active JAX mesh: a JAX CLI run
+    earlier in the same worker leaves its reads-axis mesh active, which
+    runs JAX's one-device aligner sharded (its deferred call then answers
+    differently)."""
+    from tophat_tpu.parallel import auto as jax_auto
+
+    monkeypatch.setattr(jax_auto, "_MESH", None)
+    monkeypatch.setattr(jax_auto, "_GSHARD", None)
+
+
 def _genome(seed=23, n=20000):
     """Random genome with an N run and a 150-bp block repeated 40 times
     (reads from it overflow both seed-hit tiers)."""

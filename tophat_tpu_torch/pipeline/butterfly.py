@@ -1,4 +1,5 @@
-# Copy of tophat_tpu/pipeline/butterfly.py (host code), imports rewritten.
+# Port of tophat_tpu/pipeline/butterfly.py (host code): the same events,
+# with the mer-extension table as one sorted array and its check batched.
 """Butterfly and microexon junction searches.
 
 The reference's two remaining discovery strategies (segment_juncs.cpp):
@@ -16,21 +17,21 @@ The reference's two remaining discovery strategies (segment_juncs.cpp):
   beyond the innermost mapped hit (:3880-3941) for GT/AG pairs extendable
   by the unmapped edge segment itself.
 
-Both re-use the same extension-table machinery, re-expressed as a host
-dict of 10-mer keys -> (left, right) read extensions; candidate events
+Both re-use the same extension-table machinery, which the coverage search
+shares too: one sorted int64 array of (10-mer, side, length, extension)
+entries, checked for arrays of candidate pairs at once; candidate events
 feed the shared realignment/event pipeline, which replaces the
 reference's seed-and-extend hit synthesis.
 """
 
 from __future__ import annotations
 
-from typing import Dict, List, Tuple
+from typing import List, Tuple
 
 import numpy as np
 
+from tophat_tpu_torch.index.fasta import COMP
 from tophat_tpu_torch.index.fm import host_codes
-
-from tophat_tpu_torch.index.fasta import revcomp
 from tophat_tpu_torch.ops.events import MAX_INS
 from tophat_tpu_torch.ops.splice import KIND_JUNCTION
 from tophat_tpu_torch.pipeline.juncs import empty_events
@@ -47,74 +48,189 @@ MAX_EVENTS = 65536
 MAX_PAIRS_PER_SITE = 16
 
 _POW4 = (4 ** np.arange(MER - 1, -1, -1)).astype(np.int64)
+_POW4_EXT = (4 ** np.arange(MAX_EXT - 1, -1, -1)).astype(np.int64)
+
+# One extension-table entry is an int64: the 10-mer's key (20 bits), the
+# side (0: the read bases before the 10-mer, 1: after it), the
+# extension's length (4 bits) and its bases, 2 bits each, first base
+# highest.
+_EXT_BITS = 2 * MAX_EXT
+_LEN_BITS = 4
+_CHECK_BLOCK = 1 << 16   # pairs a step of ExtendChecker.check
 
 
-def build_mer_table(rows: List[np.ndarray]) -> Dict[int, list]:
-    """10-mer -> [(left_ext, right_ext)] over the given read code arrays
-    (store_read_extensions :241 semantics: extensions are the up-to-14bp
-    of read sequence flanking each 10-mer occurrence)."""
-    table: Dict[int, list] = {}
-    for row in rows:
-        row = np.asarray(row, np.int8)
-        l = row.shape[0]
-        if l < MER:
-            continue
-        win = np.lib.stride_tricks.sliding_window_view(row, MER)
-        ok = ((win >= 0) & (win < 4)).all(axis=1)
-        keys = (win.astype(np.int64) * _POW4).sum(axis=1)
-        for i in np.nonzero(ok)[0]:
-            i = int(i)
-            table.setdefault(int(keys[i]), []).append(
-                (row[max(0, i - MAX_EXT):i], row[i + MER:i + MER + MAX_EXT]))
-    return table
+def _entry(key, side, length, ext):
+    return ((((key << 1) | side) << _LEN_BITS | length) << _EXT_BITS) | ext
 
 
-def _key_of(codes: np.ndarray) -> int:
-    if codes.shape[0] != MER or ((codes < 0) | (codes >= 4)).any():
-        return -1
-    return int((codes.astype(np.int64) * _POW4).sum())
+def _valid(codes):
+    return (codes >= 0) & (codes < 4)
 
 
-def _ext_match(ext: np.ndarray, ref: np.ndarray, from_right: bool) -> bool:
-    """Exact match of a read extension against the adjacent reference
-    sequence (left_/right_extendable_junction :1558-1601,
-    extension_mismatches=0)."""
-    k = ext.shape[0]
-    if k < MIN_EXT:
-        return False
-    r = ref[-k:] if from_right else ref[:k]
-    if r.shape[0] != k:
-        return False
-    return bool((ext == r).all() and (r >= 0).all() and (r < 4).all())
+def pad_rows(rows: List[np.ndarray]) -> Tuple[np.ndarray, np.ndarray]:
+    """Code arrays as one (rows, L) int8 matrix, -1 padded, and lengths."""
+    lengths = np.array([len(r) for r in rows], np.int64)
+    mat = np.full((len(rows), int(lengths.max(initial=0))), -1, np.int8)
+    for i, r in enumerate(rows):
+        mat[i, :len(r)] = r
+    return mat, lengths
+
+
+def build_mer_table(codes: np.ndarray, lengths: np.ndarray) -> np.ndarray:
+    """The mer-extension table of the rows codes[i, :lengths[i]]
+    (store_read_extensions :241): for every 10-mer of valid codes, its
+    left extension (the up-to-14 read bases before it) and its right one
+    (the up-to-14 after it), each kept when it is at least MIN_EXT long
+    and all its codes are valid (no shorter or invalid extension can ever
+    match the reference), as sorted unique `_entry` values."""
+    lengths = np.asarray(lengths, np.int64)
+    held = lengths >= MER
+    lengths = lengths[held]
+    if lengths.size == 0:
+        return np.zeros(0, np.int64)
+    width = int(lengths.max())
+    codes = np.asarray(codes, np.int8)[held, :width]
+    rows = lengths.size
+    # a base outside its row counts as invalid
+    ok = _valid(codes) & (np.arange(width)[None, :] < lengths[:, None])
+    # bad[r, p]: invalid codes among the row's first p
+    bad = np.zeros((rows, width + 1), np.int32)
+    np.cumsum(~ok, axis=1, out=bad[:, 1:])
+    n_at = width - MER + 1
+    r, i = np.nonzero(bad[:, MER:] == bad[:, :n_at])
+    if r.size == 0:
+        return np.zeros(0, np.int64)
+    # codes of valid bases, 0 elsewhere, with MAX_EXT columns either side
+    z = np.zeros((rows, width + 2 * MAX_EXT), np.int32)
+    z[:, MAX_EXT:MAX_EXT + width] = np.where(ok, codes, 0)
+
+    def packed(first, span):
+        """Column i: the `span` bases of z from column first + i on, 2 bits
+        each, first base highest (28 bits at most)."""
+        acc = np.zeros((rows, n_at), np.int32)
+        for j in range(first, first + span):
+            acc <<= 2
+            acc |= z[:, j:j + n_at]
+        return acc[r, i].astype(np.int64)
+
+    key = packed(MAX_EXT, MER)
+    kl = np.minimum(i, MAX_EXT)
+    left = packed(0, MAX_EXT)       # the 14 columns before the 10-mer
+    keep_l = (kl >= MIN_EXT) & (bad[r, i] == bad[r, i - kl])
+    kr = np.minimum(lengths[r] - i - MER, MAX_EXT)
+    # the 14 columns after it, shifted down to the extension's own bases
+    right = packed(MAX_EXT + MER, MAX_EXT) >> (2 * (MAX_EXT - kr))
+    keep_r = (kr >= MIN_EXT) & (bad[r, i + MER + kr] == bad[r, i + MER])
+    return np.unique(np.concatenate([
+        _entry(key[keep_l], 0, kl[keep_l], left[keep_l]),
+        _entry(key[keep_r], 1, kr[keep_r], right[keep_r])]))
 
 
 class ExtendChecker:
     """extendable_junction (:1520): is the candidate junction's exon-side
     10-mer present in a read with a >=7bp exact extension into the
-    reference on either side, in either orientation?"""
+    reference on either side, in either orientation? `check` answers for
+    arrays of (left, right) pairs: a pair's 10-mer finds the (side,
+    length) groups the table holds for it, at most 16, and each group is
+    one sorted-table lookup of the reference's bases, so the cost of a
+    pair does not depend on how many reads hold its 10-mer."""
 
-    def __init__(self, genome_codes: np.ndarray, table: Dict[int, list]):
-        self.g = genome_codes
+    def __init__(self, genome_codes: np.ndarray, table: np.ndarray):
+        self.g = np.asarray(genome_codes)
         self.table = table
+        # the (key, side, length) groups of the entries, sorted
+        self.groups = np.unique(table >> _EXT_BITS)
 
-    def __call__(self, left: int, right: int) -> bool:
-        g = self.g
-        n = g.shape[0]
-        if left - 4 < 0 or right + 5 > n:
-            return False
-        key_seq = np.concatenate([g[left - 4:left + 1],
-                                  g[right:right + 5]])
-        up = g[max(0, left - 4 - MAX_EXT):left - 4]
-        down = g[right + 5:right + 5 + MAX_EXT]
-        for ks, u, d in ((key_seq, up, down),
-                         (revcomp(key_seq), revcomp(down), revcomp(up))):
-            key = _key_of(ks)
-            if key < 0:
-                continue
-            for le, ri in self.table.get(key, ()):
-                if _ext_match(le, u, True) or _ext_match(ri, d, False):
-                    return True
-        return False
+    def check(self, lefts, rights) -> np.ndarray:
+        lefts = np.asarray(lefts, np.int64)
+        rights = np.asarray(rights, np.int64)
+        out = np.zeros(lefts.shape[0], bool)
+        if self.table.size == 0:
+            return out
+        n = self.g.shape[0]
+        live = np.nonzero((lefts >= 4) & (lefts < n) & (rights >= 0)
+                          & (rights + 5 <= n))[0]
+        for b in range(0, live.size, _CHECK_BLOCK):
+            at = live[b:b + _CHECK_BLOCK]
+            out[at] = self._check(lefts[at], rights[at])
+        return out
+
+    def _codes(self, pos):
+        """Genome codes at pos, -1 off the genome."""
+        n = self.g.shape[0]
+        return np.where((pos >= 0) & (pos < n),
+                        self.g[np.clip(pos, 0, n - 1)], -1)
+
+    def _check(self, left, right):
+        ext = np.arange(MAX_EXT)
+        mer = self._codes(np.concatenate(
+            [left[:, None] - 4 + np.arange(HALF_MER),
+             right[:, None] + np.arange(HALF_MER)], axis=1))
+        up = self._codes(left[:, None] - 4 - MAX_EXT + ext)
+        down = self._codes(right[:, None] + 5 + ext)
+        # revcomp(key), with the reference sides as extendable_junction
+        # reads them in that orientation: revcomp(down), revcomp(up)
+        return (self._orientation(mer, up, down)
+                | self._orientation(COMP[mer][:, ::-1], COMP[down][:, ::-1],
+                                    COMP[up][:, ::-1]))
+
+    def _orientation(self, mer, up, down):
+        """Extendable through a read extension that ends where `up` ends
+        or starts where `down` starts."""
+        hit = np.zeros(mer.shape[0], bool)
+        valid = _valid(mer)
+        key = np.where(valid, mer, 0) @ _POW4
+        per_key = 1 << (_LEN_BITS + 1)
+        lo = np.searchsorted(self.groups, key * per_key)
+        cnt = np.where(valid.all(axis=1),
+                       np.searchsorted(self.groups, (key + 1) * per_key)
+                       - lo, 0)
+        idx = np.nonzero(cnt)[0]
+        if idx.size == 0:
+            return hit
+        lo, cnt = lo[idx], cnt[idx]
+        up, down = up[idx], down[idx]
+        vu, vd = _valid(up), _valid(down)
+        # valid bases adjacent to the junction's 10-mer on each side, and
+        # the reference's bases packed as the table packs an extension
+        run = np.stack([np.cumprod(vu[:, ::-1], axis=1).sum(axis=1),
+                        np.cumprod(vd, axis=1).sum(axis=1)])
+        packed = np.stack([np.where(vu, up, 0) @ _POW4_EXT,
+                           np.where(vd, down, 0) @ _POW4_EXT])
+        # one lookup per group: the reference's last k bases before the
+        # 10-mer (side 0) or its first k after it (side 1)
+        first = np.cumsum(cnt) - cnt
+        row = np.repeat(np.arange(idx.size), cnt)
+        group = self.groups[np.repeat(lo - first, cnt)
+                            + np.arange(int(cnt.sum()))]
+        side, k = (group >> _LEN_BITS) & 1, group & ((1 << _LEN_BITS) - 1)
+        bases = packed[side, row]
+        bases = np.where(side == 0, bases & ((1 << 2 * k) - 1),
+                         bases >> 2 * (MAX_EXT - k))
+        q = (group << _EXT_BITS) | bases
+        j = np.minimum(np.searchsorted(self.table, q), self.table.size - 1)
+        found = (run[side, row] >= k) & (self.table[j] == q)
+        hit[idx[row[found]]] = True
+        return hit
+
+
+def forward_mer_table(gs) -> np.ndarray:
+    """The extension table over the IUM reads' forward rows
+    (index_read_mers)."""
+    fwd = gs.strand == 0
+    return build_mer_table(gs.readsg[fwd], gs.lengths[fwd])
+
+
+def site_pairs(left_sites, right_sites, min_gap, max_gap):
+    """Every pair of a left site and a right site in [left + min_gap,
+    left + max_gap), the first MAX_PAIRS_PER_SITE of each left site; left
+    site by left site, right sites ascending."""
+    lo = np.searchsorted(right_sites, left_sites + min_gap)
+    hi = np.searchsorted(right_sites, left_sites + max_gap)
+    cnt = np.maximum(np.minimum(hi, lo + MAX_PAIRS_PER_SITE) - lo, 0)
+    first = np.cumsum(cnt) - cnt
+    j = np.repeat(lo - first, cnt) + np.arange(int(cnt.sum()))
+    return np.repeat(left_sites, cnt), right_sites[j]
 
 
 def _paint(n, a, b):
@@ -136,26 +252,19 @@ def _motif_sites(g, mask):
 
 def _pair_and_check(left_sites, right_sites, antisense, offsets, check,
                     min_intron, max_intron):
-    ls_out, rs_out = [], []
-    if left_sites.size and right_sites.size:
-        lo = np.searchsorted(right_sites, left_sites + min_intron)
-        hi = np.searchsorted(right_sites, left_sites + max_intron)
-        hi = np.minimum(hi, lo + MAX_PAIRS_PER_SITE)
-        for i in range(len(left_sites)):
-            for j in range(int(lo[i]), int(hi[i])):
-                l = int(left_sites[i]) - 1
-                r = int(right_sites[j]) + 2
-                if np.searchsorted(offsets, l, "right") \
-                        != np.searchsorted(offsets, r, "right"):
-                    continue
-                if check(l, r):
-                    ls_out.append(l)
-                    rs_out.append(r)
-    return ls_out, rs_out, [antisense] * len(ls_out)
+    """The (left, right) junction ends of the extendable site pairs, each
+    pair's ends on one contig, and their antisense flags."""
+    ls, rs = site_pairs(left_sites, right_sites, min_intron, max_intron)
+    ls, rs = ls - 1, rs + 2
+    same = (np.searchsorted(offsets, ls, "right")
+            == np.searchsorted(offsets, rs, "right"))
+    ls, rs = ls[same], rs[same]
+    ok = check.check(ls, rs)
+    return ls[ok], rs[ok], np.full(int(ok.sum()), antisense, bool)
 
 
 def _events_from(ls, rs, anti):
-    if not ls:
+    if not len(ls):
         return empty_events()
     left = np.asarray(ls, np.int32)[:MAX_EVENTS]
     right = np.asarray(rs, np.int32)[:MAX_EVENTS]
@@ -188,21 +297,15 @@ def butterfly_search_events(fm, genome, gs, seg_tables, params):
         return empty_events()
     window = _paint(n, rises - EXTEND, falls + EXTEND)
 
-    # extension table over the IUM reads' forward rows (index_read_mers)
-    fwd = [gs.readsg[i, :int(gs.lengths[i])]
-           for i in range(gs.rows) if int(gs.strand[i]) == 0]
-    check = ExtendChecker(host_codes(fm), build_mer_table(fwd))
-
     g = host_codes(fm)
+    check = ExtendChecker(g, forward_mer_table(gs))
     fd, fa, ra, rd = _motif_sites(g, window)
     offsets = genome.offsets
-    fl, fr, fan = _pair_and_check(fd, fa, False, offsets, check,
-                                  params.min_coverage_intron,
-                                  params.max_coverage_intron)
-    rl, rr, ran = _pair_and_check(ra, rd, True, offsets, check,
-                                  params.min_coverage_intron,
-                                  params.max_coverage_intron)
-    return _events_from(fl + rl, fr + rr, fan + ran)
+    found = [_pair_and_check(ls, rs, anti, offsets, check,
+                             params.min_coverage_intron,
+                             params.max_coverage_intron)
+             for ls, rs, anti in ((fd, fa, False), (ra, rd, True))]
+    return _events_from(*(np.concatenate(x) for x in zip(*found)))
 
 
 @trace.span("microexon_search", sync=True)
@@ -260,20 +363,13 @@ def microexon_events(fm, genome, gs, seg_tables, params):
 
     g = host_codes(fm)
     offsets = genome.offsets
-    ls, rs, an = [], [], []
+    found = []
     for lo, hi, queries in merged:
-        check = ExtendChecker(g, build_mer_table(queries))
+        check = ExtendChecker(g, build_mer_table(*pad_rows(queries)))
         mask = np.zeros(n, bool)
         mask[lo:hi] = True
         fd, fa, ra, rd = _motif_sites(g, mask)
-        a, b, c = _pair_and_check(fd, fa, False, offsets, check,
+        found += [_pair_and_check(ls, rs, anti, offsets, check,
                                   params.min_coverage_intron, MAX_STRETCH)
-        ls += a
-        rs += b
-        an += c
-        a, b, c = _pair_and_check(ra, rd, True, offsets, check,
-                                  params.min_coverage_intron, MAX_STRETCH)
-        ls += a
-        rs += b
-        an += c
-    return _events_from(ls, rs, an)
+                  for ls, rs, anti in ((fd, fa, False), (ra, rd, True))]
+    return _events_from(*(np.concatenate(x) for x in zip(*found)))

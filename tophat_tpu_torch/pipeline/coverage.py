@@ -11,10 +11,10 @@ donor/acceptor sites pair within [min_coverage_intron, max_coverage_intron).
 Candidate pairs are gated by the mer-extension "extendable junction" check
 (segment_juncs.cpp:1520, via RecordExtendableJuncs :1570): a junction is
 admitted only when its exon-side 10-mer occurs in an IUM read with a >= 7bp
-exact extension into the reference on either side — the same table the
-butterfly search uses (pipeline/butterfly.py). This keeps the candidate
-event table (which every read realigns against) from inflating on noisy
-genomes.
+exact extension into the reference on either side — the same table and
+batched check the butterfly search uses (pipeline/butterfly.py). This keeps
+the candidate event table (which every read realigns against) from
+inflating on noisy genomes.
 """
 
 from __future__ import annotations
@@ -26,13 +26,15 @@ import numpy as np
 from tophat_tpu_torch.index.fm import host_codes
 from tophat_tpu_torch.ops.events import MAX_INS
 from tophat_tpu_torch.ops.splice import KIND_JUNCTION
+from tophat_tpu_torch.pipeline.butterfly import (ExtendChecker,
+                                                 forward_mer_table,
+                                                 site_pairs)
 from tophat_tpu_torch.pipeline.juncs import empty_events
 from tophat_tpu_torch.utils import trace
 
 EXTEND = 45          # reference: segment_juncs.cpp:4349
 REPEAT_TOL = 5       # :4350
 MIN_COV_LENGTH = 20  # :62
-MAX_PAIRS_PER_SITE = 16
 MAX_COV_EVENTS = 65536
 
 
@@ -118,39 +120,22 @@ def coverage_search_events(fm, genome, gs, seg_tables,
 
     # mer-extension table over the IUM reads' forward rows (the butterfly
     # machinery's index_read_mers; extendable_junction :1520)
-    from tophat_tpu_torch.pipeline.butterfly import (ExtendChecker,
-                                                     build_mer_table)
-
-    fwd = [gs.readsg[i, :int(gs.lengths[i])]
-           for i in range(gs.rows) if int(gs.strand[i]) == 0]
-    check = ExtendChecker(g, build_mer_table(fwd))
+    check = ExtendChecker(g, forward_mer_table(gs))
+    trace.count("coverage.mers", check.table.size)
 
     def pair(left_sites, right_sites, antisense):
         """RecordExtendableJuncs pairing: right in [left+min, left+max),
-        each admitted pair mer-extendable."""
-        if left_sites.size == 0 or right_sites.size == 0:
-            return [], [], []
-        lo = np.searchsorted(right_sites,
-                             left_sites + params.min_coverage_intron)
-        hi = np.searchsorted(right_sites,
-                             left_sites + params.max_coverage_intron)
-        hi = np.minimum(hi, lo + MAX_PAIRS_PER_SITE)
-        ls, rs = [], []
-        for i in range(len(left_sites)):
-            for j in range(lo[i], hi[i]):
-                ls.append(left_sites[i])
-                rs.append(right_sites[j])
-        ls = np.array(ls, np.int64)
-        rs = np.array(rs, np.int64)
-        if ls.size:
-            same = (np.searchsorted(offsets, ls, "right")
-                    == np.searchsorted(offsets, rs, "right"))
-            ls, rs = ls[same], rs[same]
-        if ls.size:
-            ext = np.fromiter(
-                (check(int(l), int(r)) for l, r in zip(ls - 1, rs + 2)),
-                bool, count=len(ls))
-            ls, rs = ls[ext], rs[ext]
+        both sites on one contig, each admitted pair mer-extendable."""
+        ls, rs = site_pairs(left_sites, right_sites,
+                            params.min_coverage_intron,
+                            params.max_coverage_intron)
+        same = (np.searchsorted(offsets, ls, "right")
+                == np.searchsorted(offsets, rs, "right"))
+        ls, rs = ls[same], rs[same]
+        ext = check.check(ls - 1, rs + 2)
+        trace.count("coverage.pairs", ls.size)
+        trace.count("coverage.extendable", int(ext.sum()))
+        ls, rs = ls[ext], rs[ext]
         return (ls - 1, rs + 2, np.full(len(ls), antisense, bool))
 
     fl, fr, fa = pair(fwd_donors, fwd_acceptors, False)
