@@ -87,41 +87,47 @@ def coverage_search_events(fm, genome, gs, seg_tables,
     """The JAX package's coverage_search_events, element for element, in
     O(hits + window bases): islands, look windows and dinucleotide sites
     come from the segment hits' intervals, where the reference paints
-    every base of the genome (diff/cumsum masks)."""
+    every base of the genome (diff/cumsum masks). Its three phases are
+    spans of their own (islands, mers, pairs); a call counts its sites,
+    the events it returns and those the MAX_COV_EVENTS cut drops."""
     n = fm.n
-    seg_pos, seg_mm, seg_valid = (trace.to_host(x) for x in seg_tables)
-    seg_len = (gs.cuts[:, 1:] - gs.cuts[:, :-1])  # (rows, S)
+    with trace.span("coverage_search.islands"):
+        seg_pos, seg_mm, seg_valid = (trace.to_host(x) for x in seg_tables)
+        seg_len = (gs.cuts[:, 1:] - gs.cuts[:, :-1])  # (rows, S)
 
-    valid = seg_valid
-    starts = seg_pos[valid]
-    lens = np.broadcast_to(seg_len[:, :, None], seg_pos.shape)[valid]
-    if starts.size == 0:
-        return empty_events()
+        valid = seg_valid
+        starts = seg_pos[valid]
+        lens = np.broadcast_to(seg_len[:, :, None], seg_pos.shape)[valid]
+        if starts.size == 0:
+            return empty_events()
 
-    # islands of length >= MIN_COV_LENGTH
-    rises, falls = _positive_runs(starts, starts + lens, n)
-    keep = (falls - rises) >= MIN_COV_LENGTH
-    rises, falls = rises[keep], falls[keep]
-    trace.count("coverage.islands", rises.size)
-    if rises.size == 0:
-        return empty_events()
+        # islands of length >= MIN_COV_LENGTH
+        rises, falls = _positive_runs(starts, starts + lens, n)
+        keep = (falls - rises) >= MIN_COV_LENGTH
+        rises, falls = rises[keep], falls[keep]
+        trace.count("coverage.islands", rises.size)
+        if rises.size == 0:
+            return empty_events()
 
-    # look-left windows around island starts, look-right around ends
-    left_runs = _positive_runs(rises - EXTEND, rises + REPEAT_TOL, n)
-    right_runs = _positive_runs(falls - REPEAT_TOL, falls + EXTEND, n)
+        # look-left windows around island starts, look-right around ends
+        left_runs = _positive_runs(rises - EXTEND, rises + REPEAT_TOL, n)
+        right_runs = _positive_runs(falls - REPEAT_TOL, falls + EXTEND, n)
 
-    g = host_codes(fm)
-    fwd_donors = _motif_sites(g, *right_runs, n, 2, 3)      # GT
-    fwd_acceptors = _motif_sites(g, *left_runs, n, 0, 2)    # AG
-    rev_acceptors = _motif_sites(g, *right_runs, n, 1, 3)   # CT
-    rev_donors = _motif_sites(g, *left_runs, n, 0, 1)       # AC
+        g = host_codes(fm)
+        fwd_donors = _motif_sites(g, *right_runs, n, 2, 3)      # GT
+        fwd_acceptors = _motif_sites(g, *left_runs, n, 0, 2)    # AG
+        rev_acceptors = _motif_sites(g, *right_runs, n, 1, 3)   # CT
+        rev_donors = _motif_sites(g, *left_runs, n, 0, 1)       # AC
+        trace.count("coverage.sites", fwd_donors.size + fwd_acceptors.size
+                    + rev_acceptors.size + rev_donors.size)
 
     offsets = genome.offsets
 
     # mer-extension table over the IUM reads' forward rows (the butterfly
     # machinery's index_read_mers; extendable_junction :1520)
-    check = ExtendChecker(g, forward_mer_table(gs))
-    trace.count("coverage.mers", check.table.size)
+    with trace.span("coverage_search.mers"):
+        check = ExtendChecker(g, forward_mer_table(gs))
+        trace.count("coverage.mers", check.table.size)
 
     def pair(left_sites, right_sites, antisense):
         """RecordExtendableJuncs pairing: right in [left+min, left+max),
@@ -138,11 +144,14 @@ def coverage_search_events(fm, genome, gs, seg_tables,
         ls, rs = ls[ext], rs[ext]
         return (ls - 1, rs + 2, np.full(len(ls), antisense, bool))
 
-    fl, fr, fa = pair(fwd_donors, fwd_acceptors, False)
-    rl, rr, ra = pair(rev_acceptors, rev_donors, True)
+    with trace.span("coverage_search.pairs"):
+        fl, fr, fa = pair(fwd_donors, fwd_acceptors, False)
+        rl, rr, ra = pair(rev_acceptors, rev_donors, True)
     left = np.concatenate([fl, rl])[:MAX_COV_EVENTS].astype(np.int32)
     right = np.concatenate([fr, rr])[:MAX_COV_EVENTS].astype(np.int32)
     anti = np.concatenate([fa, ra])[:MAX_COV_EVENTS].astype(bool)
+    trace.count("coverage.events", left.size)
+    trace.count("coverage.dropped", fl.size + rl.size - left.size)
 
     return dict(left=left, right=right,
                 kind=np.full(len(left), KIND_JUNCTION, np.int8),
